@@ -1,0 +1,608 @@
+"""Drive the PyTorch/CUDA port (`pigeon_tpu_torch`) on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Phases (any failure raises, so the script exits non-zero):
+
+1. the card's name and power limit (nvidia-smi), torch and CUDA versions;
+2. build the three CUDA kernels from `pigeon_tpu_torch/csrc/` (one nvcc
+   per source, in parallel) and print the build time and register use;
+3. kernel checks: capture each kernel's inputs from one cold fleet step at
+   the main path's shapes (B=8192, float32), then hold the kernel against
+   its plain PyTorch version on the card, with times for the kernel, the
+   plain version and a PyTorch library call where one computes the same
+   function; also on a ragged batch and on the inputs of a 12-stage
+   horizon (the kernels' run-time-n build);
+4. the main path: the coupled soft MPC for a fleet of 8192 vehicles on an
+   oval (x1_coupled_config(soft=True), N_short=5, N_long=10, the lane
+   solver with bench.py's options), one cold step and 20 warm closed-loop
+   steps with the RK4 plant, timed with CUDA events; every launch counter
+   must advance on every step, commands must be finite and the converged
+   fraction on the last step at least 0.99; then torch.profiler over one
+   more warm step (device busy time, idle share, largest kernels);
+5. reference check: a 64-vehicle fleet stepped on the card, each step
+   also run on the CPU (plain versions) from the card's state at float64
+   and float32, commands compared (see `reference_check`);
+6. B=1 latency: the same path for one vehicle, 20 warm steps;
+7. one JSON line listing the kernels, the nvidia-smi line, and the last
+   line {"ok": true, "device": {...}}.
+
+It exits non-zero without a result when CUDA is unavailable or when run
+outside a checkout of the repository.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import subprocess
+import sys
+import time
+
+import numpy as np
+
+B_FLEET = 8192
+WARM_STEPS = 20
+B_REF = 64
+B_RAGGED = 130   # kernel checks on a batch with a ragged last block
+# and on the inputs of a 12-stage horizon (soft QP n = 2 T = 24), which
+# runs the run-time-n build that every horizon but (5, 10) takes
+HZ_SMALL = (4, 8)
+B_SMALL = 1024
+DT = 0.01
+# ADMM outputs, kernel against plain (both float32, only the summation
+# order differs): each within this share of its scale (`admm_errors`)
+ADMM_REL = 1e-4
+# Reference check (`reference_check`): at most this share of the vehicles
+# outside the test_soft.py bar on a step, and no command further than this
+# many bars from the float64 one
+REF_OUTSIDE_MAX = 0.1
+REF_CAP_BARS = 128.0
+# H100 SXM data-sheet peaks (dense): HBM bandwidth and non-tensor fp32
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_FP32_FLOPS = 67e12
+
+
+def require(ok, message):
+    """A check that stays under `python -O`."""
+    if not ok:
+        raise RuntimeError(f"chip_smoke check failed: {message}")
+
+
+def log(**kw):
+    print(json.dumps(kw), flush=True)
+
+
+def nvidia_smi() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True)
+    return out.stdout.strip().splitlines()[0]
+
+
+# ---------------------------------------------------------------------------
+# Fleet set-up (bench.py's _fleet on the in-repo oval)
+# ---------------------------------------------------------------------------
+
+def make_setup(torch, B: int, device, hz=None):
+    """The fleet at the x1 horizon (5, 10), or at `hz` = (N_short,
+    N_long)."""
+    from pigeon_tpu_torch import hji, mpc, trajectory
+    from pigeon_tpu_torch.config import HorizonParams, SolverOptions
+
+    cols = trajectory.oval_columns()
+    tube = trajectory.make_tube(**cols, pad_to=1024, device=device)
+    cache = hji.inactive_cache(device=device)
+    cfg = mpc.x1_coupled_config(soft=True)
+    if hz is not None:
+        cfg = dataclasses.replace(cfg, hz=dataclasses.replace(
+            cfg.hz, N_short=hz[0], N_long=hz[1]))
+    cfg = dataclasses.replace(cfg, solver=SolverOptions(
+        max_iter=150, check_every=150, eps_abs=1e-3, eps_rel=1e-3,
+        backend="lanes", scaling_iters=2, pallas_check_inner=10))
+    rng = np.random.default_rng(0)
+    k0 = rng.integers(0, 900, B)
+    E = cols["E"][k0] + rng.uniform(-0.5, 0.5, B)
+    N = cols["N"][k0] + rng.uniform(-0.5, 0.5, B)
+    psi = cols["psi"][k0] + rng.uniform(-0.05, 0.05, B)
+    f32 = dict(dtype=torch.float32, device=device)
+    q0 = torch.as_tensor(np.stack([E, N, psi, np.full(B, 6.0), np.zeros(B),
+                                   np.zeros(B)], axis=1), **f32)
+    t0 = torch.as_tensor(cols["t"][k0], **f32)
+    u0 = torch.zeros((B, 3), **f32)
+    oc = torch.tensor([1e4, 1e4, 0.0, 0.0], **f32).expand(B, 4).contiguous()
+    carry = mpc.init_carry(cfg, B, device=device)
+    return dict(cfg=cfg, tube=tube, cache=cache, carry=carry, q=q0, u=u0,
+                oc=oc, t=t0)
+
+
+def closed_loop_step(torch, st):
+    """One 100 Hz period: MPC step, then the plant advances with the new
+    command (bench.py's one_step)."""
+    from pigeon_tpu_torch import discretize as dz
+    from pigeon_tpu_torch import dynamics as dyn
+    from pigeon_tpu_torch import mpc
+
+    cfg = st["cfg"]
+    carry, u3, diag = mpc.mpc_step_batched(cfg, st["tube"], st["cache"],
+                                           st["carry"], st["q"], st["u"],
+                                           st["oc"], st["t"])
+    ur = torch.cat([u3[:, 0:1], u3[:, 1:2] + u3[:, 2:3],
+                    torch.zeros_like(u3[:, :1]).expand(-1, 4)], dim=-1)
+    f = lambda q, r: dyn.vehicle_ode(cfg.veh, "bicycle", q, r[..., :2],
+                                     r[..., 2:])
+    st.update(carry=carry, q=dz.propagate(f, st["q"], ur, DT), u=u3,
+              t=st["t"] + DT)
+    return u3, diag
+
+
+# ---------------------------------------------------------------------------
+# Kernel checks
+# ---------------------------------------------------------------------------
+
+def capture_kernel_inputs(step):
+    """Record the first call of each kernel wrapper during `step()`."""
+    from pigeon_tpu_torch import discretize as dz
+    from pigeon_tpu_torch.solver import lane_admm as la
+
+    seen = {}
+    originals = {(dz, "vanloan"): dz.vanloan,
+                 (la, "chol_inverse"): la.chol_inverse,
+                 (la, "admm_iterations"): la.admm_iterations}
+
+    def spy(name, fn):
+        def inner(*args, **kw):
+            seen.setdefault(name, (args, kw))
+            return fn(*args, **kw)
+        return inner
+
+    try:
+        for (mod, name), fn in originals.items():
+            setattr(mod, name, spy(name, fn))
+        step()
+    finally:
+        for (mod, name), fn in originals.items():
+            setattr(mod, name, fn)
+    return seen
+
+
+def cuda_ms(torch, fn, reps: int) -> float:
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def nbytes(*ts) -> int:
+    return sum(t.numel() * t.element_size() for t in ts)
+
+
+def bound(bytes_moved: float, flops: float):
+    tb = bytes_moved / PEAK_BYTES_PER_S * 1e3
+    tf = flops / PEAK_FP32_FLOPS * 1e3
+    return (max(tb, tf), "bytes" if tb >= tf else "operations")
+
+
+def check_vanloan(torch, args, kw, small):
+    from pigeon_tpu_torch import discretize as dz
+
+    P0, Cu0, cc0, rr, sq, order = args
+    out_k = dz.vanloan(P0, Cu0, cc0, rr, sq, order)
+    out_p = dz.vanloan_plain(P0, Cu0, cc0, rr, sq, order)
+    torch.cuda.synchronize()
+    # both float32; only the summation order differs, so each output
+    # agrees to a few float32 ulps of its largest entry, amplified by
+    # the 2^4 squarings
+    err, rel = 0.0, 0.0
+    for k, p in zip(out_k, out_p):
+        d = float((k - p).abs().max())
+        err = max(err, d)
+        rel = max(rel, d / max(float(p.abs().max()), 1e-30))
+    require(all(bool(torch.isfinite(k).all()) for k in out_k),
+            "vanloan kernel output not finite")
+    require(rel <= 1e-5, f"vanloan kernel vs plain: relative error {rel}")
+    require(bool((out_k[2][:, :5] == 0).all()), "ZOH stages need Phi_qv == 0")
+    # a ragged last block (B_RAGGED instances x 15 stages is no multiple of
+    # the 128-thread block), and the 12-stage horizon's inputs
+    sub = [a[:B_RAGGED].contiguous() if isinstance(a, torch.Tensor) else a
+           for a in args]
+    for a in (sub, small[0]):
+        for k, p in zip(dz.vanloan(*a), dz.vanloan_plain(*a)):
+            d = float((k - p).abs().max())
+            require(d <= 1e-5 * max(float(p.abs().max()), 1e-30),
+                    f"vanloan kernel at {tuple(a[0].shape)}: {d}")
+
+    Bn, T, n, _ = P0.shape
+    m = Cu0.shape[-1]
+    dim = n + 2 * m + 1
+    Md = torch.zeros((Bn * T, dim, dim), dtype=P0.dtype, device=P0.device)
+    Md[:, :n, :n] = P0.reshape(-1, n, n)
+    Md[:, :n, n:n + m] = Cu0.reshape(-1, n, m)
+    Md[:, :n, -1] = cc0.reshape(-1, n)
+    Md[:, n:n + m, n + m:n + 2 * m] = (
+        rr.reshape(-1, 1, 1) * torch.eye(m, device=P0.device))
+    ms = cuda_ms(torch, lambda: dz.vanloan(*args), 20)
+    plain = cuda_ms(torch, lambda: dz.vanloan_plain(*args), 5)
+    lib = cuda_ms(torch, lambda: torch.linalg.matrix_exp(Md), 5)
+    mm = lambda r, k, c: 2 * r * k * c
+    flops_stage = (order * (mm(n, n, n) + 3 * 2 * n * n)
+                   + 2 * mm(n, n, m) + mm(n, n, 1) + n * m
+                   + sq * (2 * mm(n, n, m) + mm(n, n, 1) + mm(n, n, n)
+                           + 4 * n * m + n))
+    b_ms, b_by = bound(nbytes(P0, Cu0, cc0, rr, *out_k),
+                       flops_stage * Bn * T)
+    return dict(err=err, rel=rel, ms=ms, plain_ms=plain, library_ms=lib,
+                bound_ms=b_ms, bound_by=b_by,
+                shapes=[list(P0.shape), list(Cu0.shape)])
+
+
+def check_chol_inverse(torch, args, kw, small):
+    from pigeon_tpu_torch.solver import lane_admm as la
+
+    K = args[0]
+    polish = kw.get("polish", args[1] if len(args) > 1 else 1)
+    Xk = la.chol_inverse(K, polish)
+    Xp = la.chol_inverse_plain(K, polish)
+    torch.cuda.synchronize()
+    n = K.shape[-1]
+    eye = torch.eye(n, device=K.device)
+    # the Ruiz-scaled K carries sigma = 1e-6 on its diagonal: residual
+    # bar 1e-3 on K K^-1 - I, and 1e-3 of each instance's largest entry
+    # against the plain version
+    resid = float((K @ Xk - eye).abs().amax())
+    scale = Xp.abs().amax(dim=(1, 2))
+    rel = float(((Xk - Xp).abs().amax(dim=(1, 2)) / scale).max())
+    sym = float(((Xk - Xk.transpose(1, 2)).abs().amax(dim=(1, 2))
+                 / scale).max())
+    require(resid <= 1e-3, f"chol_inverse: |K K^-1 - I| = {resid}")
+    require(rel <= 1e-3, f"chol_inverse kernel vs plain: relative {rel}")
+    # a ragged last block (B_RAGGED is no multiple of the 4 warps of a
+    # block) and the 12-stage horizon's K (n = 24), each against the plain
+    # version with the same bar
+    for Ks in (K[:B_RAGGED].contiguous(), small[0][0]):
+        Xs = la.chol_inverse(Ks, polish)
+        Ps = la.chol_inverse_plain(Ks, polish)
+        r = float(((Xs - Ps).abs().amax(dim=(1, 2))
+                   / Ps.abs().amax(dim=(1, 2))).max())
+        require(r <= 1e-3, f"chol_inverse at {tuple(Ks.shape)}: relative {r}")
+    ms = cuda_ms(torch, lambda: la.chol_inverse(K, polish), 20)
+    plain = cuda_ms(torch, lambda: la.chol_inverse_plain(K, polish), 3)
+    lib = cuda_ms(torch, lambda: torch.linalg.inv(K), 10)
+    # the function's least work per instance: the Cholesky factor, the
+    # triangular inverse W = L^-1 and the symmetric W'W, n^3/3 each, then
+    # 4 n^3 per Newton-Schulz step (two n x n products)
+    Bn = K.shape[0]
+    flops = Bn * (n ** 3 + polish * 4 * n ** 3)
+    b_ms, b_by = bound(nbytes(K, Xk), flops)
+    return dict(err=float((Xk - Xp).abs().max()), rel=rel, resid=resid,
+                asym=sym, ms=ms, plain_ms=plain, library_ms=lib,
+                bound_ms=b_ms, bound_by=b_by, shapes=[list(K.shape)])
+
+
+def admm_errors(torch, out_k, out_p, keep=None):
+    """Largest difference of each ADMM output, kernel against plain, over
+    the instances in `keep` (all if None), relative to its scale: x, z, y
+    and the magnitude rows 2-5 of stats to their largest entry; the
+    residual rows 0 (|Ax - z|) and 1 (|Px + q + A'y|) to the magnitudes
+    they are differences of (rows 2-3, rows 4-5), the scale the
+    convergence test holds them to."""
+    if keep is not None:
+        out_k = [o[..., keep] for o in out_k]
+        out_p = [o[..., keep] for o in out_p]
+    (xk, zk, yk, sk), (xp, zp, yp, sp) = out_k, out_p
+    if xp.numel() == 0:
+        return {}
+
+    def rel(a, b, scale):
+        return float((a - b).abs().max()) / max(float(scale), 1e-30)
+
+    errs = {name: rel(k, p, p.abs().max())
+            for name, k, p in (("x", xk, xp), ("z", zk, zp), ("y", yk, yp))}
+    for r in range(2, 6):
+        errs[f"stats{r}"] = rel(sk[r], sp[r], sp[r].abs().max())
+    errs["stats0"] = rel(sk[0], sp[0], torch.maximum(sp[2], sp[3]).max())
+    errs["stats1"] = rel(sk[1], sp[1], torch.maximum(sp[4], sp[5]).max())
+    return errs
+
+
+def require_admm_close(errs, what):
+    bad = {k: v for k, v in errs.items() if not v <= ADMM_REL}
+    require(not bad, f"admm_iterations {what} kernel vs plain: {bad}")
+
+
+def check_admm(torch, args, kw, small):
+    from pigeon_tpu_torch.solver import lane_admm as la
+
+    ops = args[:14]
+    n_iters, sigma, alpha = args[14:17]
+    check = kw["check"]
+    eps = dict(eps_abs=kw["eps_abs"], eps_rel=kw["eps_rel"])
+    # fixed-length segment of 10 iterations: x, z, y and stats rows 0-5
+    # within ADMM_REL of their scales
+    xk = la.admm_iterations(*ops, 10, sigma, alpha, check=0, **eps)
+    xp = la.admm_iterations_plain(*ops, 10, sigma, alpha, check=0, **eps)
+    torch.cuda.synchronize()
+    fixed_errs = admm_errors(torch, xk, xp)
+    require_admm_close(fixed_errs, "(10 fixed)")
+    scale = float(xp[0].abs().max())
+    err = float((xk[0] - xp[0]).abs().max())
+    # the main-path call: early exit per group; executed counts must agree
+    # in at least 99% of the groups, and in the groups where they agree
+    # every output within ADMM_REL as above
+    ok_ = la.admm_iterations(*ops, n_iters, sigma, alpha, check=check, **eps)
+    op_ = la.admm_iterations_plain(*ops, n_iters, sigma, alpha, check=check,
+                                   **eps)
+    torch.cuda.synchronize()
+    sk, sp = ok_[3], op_[3]
+    G = la.GROUP
+    gk = sk[6][::G]
+    gp = sp[6][::G]
+    agree = float((gk == gp).float().mean())
+    require(agree >= 0.99, f"admm executed counts agree in {agree} of groups")
+    same = (sk[6] == sp[6]).nonzero().flatten()
+    exit_errs = admm_errors(torch, ok_, op_, keep=same)
+    require_admm_close(exit_errs, "(early exit, agreeing groups)")
+    # the ragged last group (a full group and one of B_RAGGED - 128), and
+    # the run-time-n build on the 12-stage horizon's operands (n = 24)
+    sub = [o[..., :B_RAGGED].contiguous() for o in ops]
+    other_errs = []
+    for s_ops in (sub, small[0][:14]):
+        other_errs.append(admm_errors(
+            torch,
+            la.admm_iterations(*s_ops, 10, sigma, alpha, check=0, **eps),
+            la.admm_iterations_plain(*s_ops, 10, sigma, alpha, check=0,
+                                     **eps)))
+        require_admm_close(other_errs[-1],
+                           f"(10 fixed) at {tuple(s_ops[1].shape)}")
+    ek = la.admm_iterations(*sub, n_iters, sigma, alpha, check=check,
+                            **eps)[3][6]
+    ep = la.admm_iterations_plain(*sub, n_iters, sigma, alpha, check=check,
+                                  **eps)[3][6]
+    # rounding may move a group's exit by one check period, no more
+    require(float((ek - ep).abs().max()) <= check
+            and bool((ek[:G] == ek[0]).all() and (ek[G:] == ek[-1]).all()),
+            f"admm executed counts on a ragged batch: {ek} vs {ep}")
+    ragged_exec = dict(kernel=[float(ek[0]), float(ek[-1])],
+                       plain=[float(ep[0]), float(ep[-1])])
+    ms = cuda_ms(torch, lambda: la.admm_iterations(
+        *ops, n_iters, sigma, alpha, check=check, **eps), 10)
+    plain = cuda_ms(torch, lambda: la.admm_iterations_plain(
+        *ops, n_iters, sigma, alpha, check=check, **eps), 2)
+    n, m = ops[2].shape[0], ops[3].shape[0]
+    it_flops = 2 * m * n * 2 + 2 * n * n + 4 * n + 14 * m
+    st_flops = 2 * m * n * 2 + 2 * n * n + 8 * m + 8 * n
+    executed = sk[6].double()
+    checks = torch.ceil(executed / check) if check > 0 else executed * 0 + 1
+    flops = float((executed * it_flops + checks * st_flops).sum())
+    outs = la.admm_iterations(*ops, n_iters, sigma, alpha, check=check,
+                              **eps)
+    b_ms, b_by = bound(nbytes(*ops, *outs), flops)
+    return dict(err=err, rel=err / max(scale, 1e-30), groups_agree=agree,
+                fixed_errs=fixed_errs, exit_errs=exit_errs,
+                ragged_errs=other_errs[0], small_horizon_errs=other_errs[1],
+                ragged_exec=ragged_exec,
+                iters_mean=float(executed.mean()), ms=ms, plain_ms=plain,
+                library_ms=None, bound_ms=b_ms, bound_by=b_by,
+                shapes=[list(ops[1].shape)])
+
+
+KERNEL_META = {
+    "vanloan": ("pigeon_tpu_torch/csrc/vanloan.cu",
+                "pigeon_tpu/discretize.py:563", check_vanloan),
+    "chol_inverse": ("pigeon_tpu_torch/csrc/chol_inverse.cu",
+                     "pigeon_tpu/solver/lane_admm.py:63",
+                     check_chol_inverse),
+    "admm_iterations": ("pigeon_tpu_torch/csrc/admm_iterations.cu",
+                        "pigeon_tpu/solver/lane_admm.py:145", check_admm),
+}
+
+
+# ---------------------------------------------------------------------------
+
+def run_fleet(torch, B: int, steps: int, kernels):
+    """One cold and `steps` warm steps; every step must launch every
+    kernel.  Returns per-step records and the final state."""
+    st = make_setup(torch, B, "cuda")
+    recs = []
+    for i in range(steps + 1):
+        before = kernels.launches()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        u3, diag = closed_loop_step(torch, st)
+        end.record()
+        end.synchronize()
+        after = kernels.launches()
+        grew = {k: after[k] - before[k] for k in after}
+        require(all(v > 0 for v in grew.values()),
+                f"step {i}: a kernel was not launched: {grew}")
+        require(u3.device.type == "cuda"
+                and diag.converged.device.type == "cuda"
+                and st["carry"].warm_x.device.type == "cuda",
+                f"step {i}: an output left the card")
+        require(bool(torch.isfinite(u3).all()), f"step {i}: non-finite")
+        recs.append(dict(step=i, ms=start.elapsed_time(end),
+                         conv=float(diag.converged.float().mean()),
+                         iters=float(diag.iterations.float().mean())))
+    return recs, st
+
+
+def copy_state(torch, st, device, dtype):
+    """The same fleet state on another device / in another dtype."""
+    from pigeon_tpu_torch import hji, mpc, trajectory
+
+    conv = lambda x: x.to(device=device, dtype=dtype) \
+        if x.is_floating_point() else x.to(device)
+    return dict(
+        cfg=st["cfg"], cache=hji.inactive_cache(device=device),
+        tube=trajectory.make_tube(**trajectory.oval_columns(), pad_to=1024,
+                                  device=device, dtype=dtype),
+        carry=mpc.MPCCarry(*[conv(x) for x in st["carry"]]),
+        **{k: conv(st[k]) for k in ("q", "u", "oc", "t")})
+
+
+def profile_step(torch, st):
+    """torch.profiler over one warm step: device busy time (the sum of
+    device events on the one stream), idle share of the step's wall time,
+    device events per step, and the largest kernels."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        closed_loop_step(torch, st)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    dev = [e for e in prof.events()
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    by_name = {}
+    for e in dev:
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
+    busy_us = sum(by_name.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
+    return dict(wall_ms=wall_us / 1e3, device_busy_ms=busy_us / 1e3,
+                idle_share=1.0 - busy_us / wall_us, device_events=len(dev),
+                top_ms=[[name[:70], us / 1e3] for name, us in top])
+
+
+def reference_check(torch):
+    """A B_REF-vehicle fleet stepped on the card; each step is also run on
+    the CPU (plain versions) from the card's state, at float64 (the path
+    the CPU tests hold against the JAX package) and at float32.
+
+    At the solver's eps of 1e-3 some commands are weakly determined:
+    float32 rounding of the QP data alone moves them by many times the
+    test_soft.py bar (2e-4 rad, 2 N).  `gap32_bars` prints that CPU
+    float32-to-float64 gap per step, in bars.  Per step, the card must
+    meet all of:
+    - every command within the bar plus twice that vehicle's CPU gap of
+      the float64 command, and never more than REF_CAP_BARS bars from it;
+    - at most REF_OUTSIDE_MAX of the vehicles outside the bare bar;
+    - converged flags equal to the CPU float32 path's and executed
+      iterations within one check period of them (the bar
+      tests/test_torch_mpc.py holds the port to against the JAX
+      package)."""
+    gpu = make_setup(torch, B_REF, "cuda")
+    check = gpu["cfg"].solver.pallas_check_inner
+    bar = torch.tensor([2e-4, 2.0, 2.0], dtype=torch.float64)
+    steps = []
+    for i in range(3):
+        c32 = copy_state(torch, gpu, "cpu", torch.float32)
+        c64 = copy_state(torch, gpu, "cpu", torch.float64)
+        ug, dg_ = closed_loop_step(torch, gpu)
+        u32, d32 = closed_loop_step(torch, c32)
+        u64 = closed_loop_step(torch, c64)[0]
+        dg = (ug.cpu().double() - u64).abs()
+        gap = (u32.double() - u64).abs()
+        allowed = torch.minimum(bar + 2.0 * gap, REF_CAP_BARS * bar)
+        outside = float((dg > bar).any(dim=-1).double().mean())
+        diters = (dg_.iterations.cpu() - d32.iterations).abs().max()
+        rec = dict(step=i, err_bars=float((dg / bar).max()),
+                   gap32_bars=float((gap / bar).max()),
+                   gap32_abs=gap.amax(dim=0).tolist(),
+                   max_excess=float((dg - allowed).max()),
+                   outside_bar=outside, iters_diff=int(diters))
+        steps.append(rec)
+        require(rec["max_excess"] <= 0.0 and outside <= REF_OUTSIDE_MAX,
+                f"card commands vs CPU float64: {rec}")
+        require(bool((dg_.converged.cpu() == d32.converged).all())
+                and int(diters) <= check,
+                f"card iterations vs CPU float32: {rec}")
+    return dict(steps=steps)
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device available", file=sys.stderr)
+        return 2
+    from pigeon_tpu_torch import _kernels as kernels
+
+    smi = nvidia_smi()
+    name = torch.cuda.get_device_name(0)
+    log(phase="device", nvidia_smi=smi, torch=torch.__version__,
+        cuda=torch.version.cuda, name=name,
+        count=torch.cuda.device_count())
+
+    t0 = time.perf_counter()
+    build_out = kernels.build_all()
+    build_s = time.perf_counter() - t0
+    regs = {src: [ln.strip() for ln in out.splitlines()
+                  if "registers" in ln or "spill" in ln]
+            for src, out in build_out.items()}
+    log(phase="build", seconds=build_s, ptxas=regs)
+
+    # ---- kernel checks at the main path's shapes --------------------------
+    st = make_setup(torch, B_FLEET, "cuda")
+    captured = capture_kernel_inputs(lambda: closed_loop_step(torch, st))
+    st = make_setup(torch, B_SMALL, "cuda", hz=HZ_SMALL)
+    small = capture_kernel_inputs(lambda: closed_loop_step(torch, st))
+    require(small["admm_iterations"][0][2].shape[0] == 2 * sum(HZ_SMALL),
+            "the 12-stage horizon's QP size")
+    del st
+    results = {}
+    for kname, (src, tpu, fn) in KERNEL_META.items():
+        args, kw = captured[kname]
+        r = fn(torch, args, kw, small[kname])
+        results[kname] = r
+        log(phase="kernel_check", name=kname, tpu_kernel=tpu,
+            max_abs_err=r["err"], kernel_ms=r["ms"], plain_ms=r["plain_ms"],
+            library_ms=r["library_ms"], bound_ms=r["bound_ms"],
+            **{k: v for k, v in r.items()
+               if k not in ("err", "ms", "plain_ms", "library_ms",
+                            "bound_ms")})
+
+    # ---- the main path ----------------------------------------------------
+    kernels.reset_launches()
+    recs, st = run_fleet(torch, B_FLEET, WARM_STEPS, kernels)
+    main_launches = kernels.launches()
+    require(all(v > 0 for v in main_launches.values()), main_launches)
+    warm_ms = [r["ms"] for r in recs[1:]]
+    last = recs[-1]
+    log(phase="fleet", batch=B_FLEET, cold_ms=recs[0]["ms"],
+        warm_ms_median=float(np.median(warm_ms)),
+        solves_per_s=B_FLEET / (float(np.median(warm_ms)) / 1e3),
+        iters_mean_last=last["iters"], converged_last=last["conv"],
+        launches=main_launches, steps=recs)
+    require(last["conv"] >= 0.99, f"converged fraction {last['conv']}")
+    log(phase="profile", batch=B_FLEET, **profile_step(torch, st))
+    del st
+
+    # ---- reference check on a small fleet ---------------------------------
+    ref = reference_check(torch)
+    log(phase="reference", batch=B_REF, **ref)
+
+    # ---- B=1 latency ------------------------------------------------------
+    recs1, st1 = run_fleet(torch, 1, WARM_STEPS, kernels)
+    log(phase="latency_b1", cold_ms=recs1[0]["ms"],
+        warm_ms_median=float(np.median([r["ms"] for r in recs1[1:]])),
+        converged_last=recs1[-1]["conv"])
+    log(phase="profile", batch=1, **profile_step(torch, st1))
+
+    print(json.dumps({"kernels": [
+        dict(name=k, route="cuda", source=KERNEL_META[k][0],
+             replaces=KERNEL_META[k][1], launches=main_launches[k],
+             max_abs_err=results[k]["err"], ms=results[k]["ms"],
+             plain_ms=results[k]["plain_ms"],
+             bound_ms=results[k]["bound_ms"],
+             bound_by=results[k]["bound_by"],
+             library_ms=results[k]["library_ms"])
+        for k in KERNEL_META]}), flush=True)
+    print(smi, flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": name,
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,204 @@
+"""Integration and horizon linearization.  Counterpart of
+`pigeon_tpu/discretize.py`: RK4 `propagate`, the fixed scaling-and-squaring
+`expm_fixed`, and the fused ZOH/FOH horizon linearization whose structured
+Van Loan exponential is a CUDA kernel (`csrc/vanloan.cu`).
+
+Dynamics callables have signature f(q, ur) -> qdot with the trailing `ur`
+the stacked [u2; p4] input and broadcast over leading dimensions; `n_keep`
+columns of the input Jacobian stay decision variables, the rest (the
+trajectory parameters) fold into the affine offset.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from pigeon_tpu_torch import _kernels
+
+
+# ---------------------------------------------------------------------------
+# RK4 integration
+# ---------------------------------------------------------------------------
+
+def rk4_step(f, q, ur, dt):
+    """One classical RK4 step with constant input."""
+    k1 = f(q, ur)
+    k2 = f(q + 0.5 * dt * k1, ur)
+    k3 = f(q + 0.5 * dt * k2, ur)
+    k4 = f(q + dt * k3, ur)
+    return q + (dt / 6.0) * (k1 + 2.0 * k2 + 2.0 * k3 + k4)
+
+
+def propagate(f, q, ur, dt, substeps: int = 1):
+    """Integrate f over dt with constant input (the plant step)."""
+    h = dt / substeps
+    for _ in range(substeps):
+        q = rk4_step(f, q, ur, h)
+    return q
+
+
+def expm_fixed(M, squarings: int = 8, order: int = 8):
+    """Matrix exponential of (..., d, d) by fixed scaling-and-squaring and
+    a Horner Taylor sum (the dense oracle of the structured kernel)."""
+    n = M.shape[-1]
+    S = M / (2.0 ** squarings)
+    eye = torch.eye(n, dtype=M.dtype, device=M.device)
+    E = eye + S / order
+    for k in range(order - 1, 0, -1):
+        E = eye + (S @ E) / k
+    for _ in range(squarings):
+        E = E @ E
+    return E
+
+
+# ---------------------------------------------------------------------------
+# Structured Van Loan exponential of the FOH/ZOH stage augmentation
+# ---------------------------------------------------------------------------
+#
+# The fused-horizon stage matrix is block upper triangular,
+#
+#     M dt = [[ P, Cu, 0, cc ],        P  = Jq dt   (n x n)
+#             [ 0,  0, rI, 0  ],        Cu = Ju dt   (n x m)
+#             [ 0,  0,  0, 0  ],        cc = c  dt   (n x 1)
+#             [ 0,  0,  0, 0  ]]        r  = foh dt  (scalar)
+#
+# with a nilpotent lower-right block, so exp(M dt) needs only the n x n
+# chain and its action on the augmentation columns:
+#
+#     e11 = sum_j P^j / j!,  U = sum P^i/(i+1)!,  W = sum P^i/(i+2)!
+#     X = U Cu,  Y = r W Cu,  z = U cc
+#     squaring: X' = e11 X + X;  Y' = e11 Y + Y + r_cur X;  z' = e11 z + z;
+#               e11' = e11 e11;  r_cur *= 2
+#
+# Outputs (A = e11, Phi_qu = X, Phi_qv = Y, zcol = z).
+
+def _check_order(order: int):
+    # U starts at I and W at I/2: that truncation equals the dense
+    # order-`order` Taylor polynomial only for order >= 2
+    if order < 2:
+        raise ValueError(f"vanloan needs order >= 2, got {order}")
+
+
+def vanloan_plain(P0, Cu0, cc0, rr, squarings: int, order: int):
+    """Plain PyTorch version of the structured Van Loan exponential:
+    P0 (..., n, n), Cu0 (..., n, m), cc0 (..., n, 1), rr (...) ->
+    (A, Phi_qu, Phi_qv, zcol)."""
+    _check_order(order)
+    s = 1.0 / 2.0 ** squarings
+    P = P0 * s
+    Cu = Cu0 * s
+    cc = cc0 * s
+    r = rr[..., None, None] * s
+    eye = torch.eye(P.shape[-1], dtype=P.dtype, device=P.device)
+    Pj = eye.expand_as(P)
+    e11, U, W = Pj, Pj, Pj * 0.5
+    for j in range(1, order + 1):
+        Pj = Pj @ P
+        e11 = e11 + Pj * (1.0 / math.factorial(j))
+        if j <= order - 1:
+            U = U + Pj * (1.0 / math.factorial(j + 1))
+        if j <= order - 2:
+            W = W + Pj * (1.0 / math.factorial(j + 2))
+    X = U @ Cu
+    Y = r * (W @ Cu)
+    z = U @ cc
+    rcur = r
+    for _ in range(squarings):
+        X, Y, z = (e11 @ X + X, e11 @ Y + Y + rcur * X, e11 @ z + z)
+        e11 = e11 @ e11
+        rcur = rcur * 2.0
+    return e11, X, Y, z
+
+
+def vanloan(P0, Cu0, cc0, rr, squarings: int, order: int):
+    """Structured Van Loan exponential per (instance, stage).
+
+    P0 (B, T, n, n), Cu0 (B, T, n, m), cc0 (B, T, n, 1), rr (B, T).
+    CUDA tensors (float32, contiguous) launch `csrc/vanloan.cu`, one
+    thread per (instance, stage); CPU tensors run `vanloan_plain`.
+
+    Replaces the TPU kernel `pigeon_tpu/discretize.py:_vanloan_lane_kernel`.
+    On the card it moves ~0.8 KB per (instance, stage) (95 MB per step at
+    B=8192, T=15) and does ~12 kFLOP there: bound by neither at this size,
+    it is latency- and launch-bound."""
+    _check_order(order)
+    if P0.dim() != 4:
+        raise ValueError(f"P0 must be (B, T, n, n), got {tuple(P0.shape)}")
+    B, T, n = P0.shape[:3]
+    m = Cu0.shape[-1]
+    _kernels.check_same(P0=(P0, (B, T, n, n)), Cu0=(Cu0, (B, T, n, m)),
+                        cc0=(cc0, (B, T, n, 1)), rr=(rr, (B, T)))
+    if P0.device.type == "cpu":
+        return vanloan_plain(P0, Cu0, cc0, rr, squarings, order)
+    _kernels.check_cuda_f32(P0=P0, Cu0=Cu0, cc0=cc0, rr=rr)
+    A = torch.empty_like(P0)
+    Xo = torch.empty_like(Cu0)
+    Yo = torch.empty_like(Cu0)
+    zo = torch.empty_like(cc0)
+    _kernels.KERNELS["vanloan"].launch(
+        P0, Cu0, cc0, rr, A, Xo, Yo, zo, B * T, n, m, squarings, order)
+    return A, Xo, Yo, zo
+
+
+def batched_jacobians(f, q, u):
+    """Per-row Jacobians of a row-wise function f(q (K, n), u (K, m)) ->
+    (K, d): Jq (K, d, n), Ju (K, d, m).
+
+    This is `torch.func.jacfwd` (a vmap of jvp over the basis vectors)
+    with the instance batch kept as a plain leading dimension.  The
+    per-instance form `vmap(jacfwd(f))` indexes 0-d tensors inside the
+    dynamics, and under vmap a 0-d float32 tensor times a Python float
+    promotes to float64; here every intermediate stays (K,)-shaped and in
+    the input dtype."""
+    def column(argnum):
+        def jvp(v):
+            if argnum == 0:
+                return torch.func.jvp(lambda x: f(x, u), (q,),
+                                      (v.expand_as(q),))[1]
+            return torch.func.jvp(lambda x: f(q, x), (u,),
+                                  (v.expand_as(u),))[1]
+        return jvp
+
+    eye = lambda t: torch.eye(t.shape[-1], dtype=t.dtype, device=t.device)
+    Jq = torch.func.vmap(column(0))(eye(q)).permute(1, 2, 0)
+    Ju = torch.func.vmap(column(1))(eye(u)).permute(1, 2, 0)
+    return Jq, Ju
+
+
+def linearize_horizon_fused(f, qs, urs, dts, S: int, n_keep: int,
+                            squarings: int = 8, order: int = 8):
+    """Batched fused exact linearization: ZOH for stages [0, S), FOH for
+    [S, T), one structured exponential per (instance, stage).
+
+    qs (B, N, n), urs (B, N, m) nodes with N = T+1; dts (B, T).  FOH
+    stages ramp urs[t] -> urs[t+1]; ZOH stages hold urs[t] (zero ramp, for
+    which Phi_qv is exactly 0).  Returns A (B,T,n,n), B0 (B,T,n,n_keep),
+    Bf (B,T,n,n_keep), c (B,T,n)."""
+    Bn, T = dts.shape
+    n = qs.shape[-1]
+    m = urs.shape[-1]
+    q = qs[:, :T].reshape(Bn * T, n)
+    u = urs[:, :T].reshape(Bn * T, m)
+    Jq, Ju = batched_jacobians(f, q, u)
+    ct = (f(q, u) - torch.einsum("kij,kj->ki", Jq, q)
+          - torch.einsum("kij,kj->ki", Ju, u))
+    Jq = Jq.reshape(Bn, T, n, n)
+    Ju = Ju.reshape(Bn, T, n, m)
+    ct = ct.reshape(Bn, T, n)
+    foh = (torch.arange(T, device=dts.device) >= S).to(dts.dtype)
+    d3 = dts[..., None, None]
+    A, Phi_qu, Phi_qv, zcol = vanloan(
+        (Jq * d3).contiguous(), (Ju * d3).contiguous(),
+        (ct * dts[..., None])[..., None].contiguous(),
+        (foh * dts).contiguous(), squarings, order)
+    Bf_full = Phi_qv / d3
+    B0_full = Phi_qu - Bf_full
+    urs_next = urs[:, 1:]
+    c = (zcol[..., 0]
+         + torch.einsum("btij,btj->bti", B0_full[..., n_keep:],
+                        urs[:, :T, n_keep:])
+         + torch.einsum("btij,btj->bti", Bf_full[..., n_keep:],
+                        urs_next[..., n_keep:]))
+    return A, B0_full[..., :n_keep], Bf_full[..., :n_keep], c

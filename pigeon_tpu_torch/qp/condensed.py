@@ -1,0 +1,259 @@
+"""Soft condensed coupled tracking QP, batched over instances.
+
+Counterpart of the soft part of `pigeon_tpu/qp/condensed.py`
+(condensed.py:322-395, 563-788).  States are eliminated through the
+horizon dynamics (q_{t+1} = G_t u + g_t), the q0/u0 pins are substituted,
+every slack variable becomes an exact L1 penalty handled by the solver's
+shrink prox, and the slew variables fold into the dense Hessian.  For the
+live coupled horizon (N_short=5, N_long=10): n = 30 variables, m = 124
+rows, no equality rows.
+
+Row order: ux (T, hard dense) | fx (N-1, hard) | hji (S-1, soft) |
+delta (T, hard) | envelope (4T, soft) | rate (T, hard).
+"""
+
+from __future__ import annotations
+
+import functools
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from pigeon_tpu_torch import discretize as dz
+from pigeon_tpu_torch import dynamics as dyn
+from pigeon_tpu_torch.config import (CoupledControlParams, HorizonParams,
+                                     VehicleParams)
+from pigeon_tpu_torch.qp.coupled import CoupledStageData, u_normalization
+from pigeon_tpu_torch.qp.structure import INF
+
+
+class SoftCondensedLayout:
+    """Static plan: variable index of each normalized (delta, Fx) knot and
+    the row ranges of each constraint family."""
+
+    def __init__(self, hz: HorizonParams, use_walls: bool = False):
+        if use_walls:
+            raise NotImplementedError(
+                "the port's soft condensed QP has no wall rows yet")
+        S = hz.N_short
+        N, T = hz.N, hz.N_short + hz.N_long
+        self.n = 2 * (N - 1)
+        self.u = np.arange(2 * (N - 1)).reshape(N - 1, 2)  # u[t-1] = knot t
+        r0 = 0
+        self.r_ux = np.arange(r0, r0 + T); r0 += T
+        self.r_fx = np.arange(r0, r0 + (N - 1)); r0 += N - 1
+        self.r_hji = np.arange(r0, r0 + (S - 1)); r0 += S - 1
+        self.r_delta = np.arange(r0, r0 + T); r0 += T
+        self.r_env = np.arange(r0, r0 + 4 * T).reshape(T, 4); r0 += 4 * T
+        self.r_rate = np.arange(r0, r0 + T); r0 += T
+        self.m = r0
+
+        # scatter indices of the sparse row families
+        rows, cols = [], []
+        rows.append(self.r_fx); cols.append(self.u[:, 1])
+        rows.append(np.repeat(self.r_hji, 2))
+        cols.append(self.u[:S - 1].ravel())
+        rows.append(self.r_delta); cols.append(self.u[:T, 0])
+        # rate rows: stage 0 -> u1 only; stages t>=1 -> u_{t+1} - u_t
+        rows.append(self.r_rate[0:1]); cols.append(self.u[0:1, 0])
+        rows.append(np.repeat(self.r_rate[1:], 2))
+        cols.append(np.stack([self.u[1:T, 0], self.u[0:T - 1, 0]],
+                             axis=-1).ravel())
+        self._sp_rows = np.concatenate(rows)
+        self._sp_cols = np.concatenate(cols)
+
+
+@functools.lru_cache(maxsize=None)
+def get_soft_layout(hz: HorizonParams, use_walls: bool = False
+                    ) -> SoftCondensedLayout:
+    return SoftCondensedLayout(hz, use_walls)
+
+
+class SoftQP(NamedTuple):
+    """Equality-free QPs with per-row exact-penalty weights (inf = hard
+    row) and the rollout map for state recovery, batched."""
+
+    P: torch.Tensor        # (B, n, n) dense Hessian (1/2 x'Px convention)
+    q: torch.Tensor        # (B, n)
+    A: torch.Tensor        # (B, m, n)
+    l: torch.Tensor        # (B, m)
+    u: torch.Tensor        # (B, m)
+    w: torch.Tensor        # (B, m) soft-row penalty weights
+    G: torch.Tensor        # (B, T, 6, n) rollout map over free u
+    g: torch.Tensor        # (B, T, 6) offsets (pins folded in)
+
+
+def _mv(M, v):
+    return torch.einsum("...ij,...j->...i", M, v)
+
+
+def build_qp_soft(veh: VehicleParams, ctl: CoupledControlParams,
+                  hz: HorizonParams, data: CoupledStageData) -> SoftQP:
+    """Assemble the soft condensed QPs of a batch (the exact-linearization
+    path of `pigeon_tpu.qp.condensed.build_qp_soft`, static unroll)."""
+    S, N = hz.N_short, hz.N
+    T = S + hz.N_long
+    L = get_soft_layout(hz, ctl.use_walls)
+    dt, qs, us, ps = data.dt, data.qs, data.us, data.ps
+    Bn = qs.shape[0]
+    dtype, dev = qs.dtype, qs.device
+    f64 = dict(dtype=dtype, device=dev)
+    unorm = torch.as_tensor(u_normalization(veh), **f64)
+    n = L.n
+
+    def f(q, ur):
+        return dyn.vehicle_ode(veh, "tracking", q, ur[..., :2], ur[..., 2:])
+
+    ur = torch.cat([us, ps], dim=-1)
+    A_all, B0_all, Bf_all, c_all = dz.linearize_horizon_fused(
+        f, qs, ur, dt, S, 2, squarings=4, order=6)
+    B0n = B0_all * unorm
+    Bfn = Bf_all * unorm
+
+    q_curr = qs[:, 0]
+    u_curr = us[:, 0] / unorm
+
+    # rollout over the free u columns, pins folded into the offset:
+    # q_{t+1} = G[t] u_free + g[t]
+    Gp = torch.zeros((Bn, 6, n), **f64)
+    gp = q_curr
+    G_list, g_list = [], []
+    for t in range(T):
+        Gn = A_all[:, t] @ Gp
+        gn = _mv(A_all[:, t], gp) + c_all[:, t]
+        if t == 0:
+            # B0 multiplies the pinned u0; Bf the first free knot
+            gn = gn + _mv(B0n[:, 0], u_curr)
+            Gn[:, :, 0:2] += Bfn[:, 0]
+        else:
+            c0 = 2 * (t - 1)
+            Gn[:, :, c0:c0 + 2] += B0n[:, t]
+            Gn[:, :, c0 + 2:c0 + 4] += Bfn[:, t]
+        G_list.append(Gn)
+        g_list.append(gn)
+        Gp, gp = Gn, gn
+    G = torch.stack(G_list, dim=1)                   # (B, T, 6, n)
+    g = torch.stack(g_list, dim=1)                   # (B, T, 6)
+
+    # per-stage envelope and bounds at the t+1 node states
+    Ux_t = qs[:, 1:, 1]
+    Fxf_t, Fxr_t = dyn.longitudinal_split(veh, us[:, 1:, 1])
+    lim = dyn.stable_limits(veh, Ux_t, Fxf_t, Fxr_t)
+    d_min = torch.clamp(lim.delta_min, min=-veh.delta_max) / unorm[0]
+    d_max = torch.clamp(lim.delta_max, max=veh.delta_max) / unorm[0]
+    Fx_hi = torch.clamp(veh.Px_max / Ux_t, max=veh.Fx_max) / unorm[1]
+    Fx_lo = torch.full((Bn, N - 1),
+                       veh.Fx_min / float(u_normalization(veh)[1]), **f64)
+    dd_lim = ctl.delta_dot_max * dt / unorm[0]
+
+    H_veh = lim.H_veh.to(dtype)
+    Henv = torch.einsum("btij,btjk->btik", H_veh, G[:, :, 2:4, :])
+    Henv_off = torch.einsum("btij,btj->bti", H_veh, g[:, :, 2:4])
+
+    # ---- constraint matrix ------------------------------------------------
+    A = torch.zeros((Bn, L.m, n), **f64)
+    A[:, L.r_ux] = G[:, :, 1, :]
+    A[:, L.r_env.ravel()] = Henv.reshape(Bn, 4 * T, n)
+    sp_vals = torch.cat([
+        torch.ones((Bn, N - 1), **f64),                       # fx
+        (data.hji_M * unorm)[:, None, :].expand(Bn, S - 1, 2)
+        .reshape(Bn, -1),                                      # hji
+        torch.ones((Bn, T), **f64),                            # delta
+        torch.ones((Bn, 1), **f64),                            # rate t=0
+        torch.tensor([1.0, -1.0], **f64).repeat(T - 1).expand(Bn, -1),
+    ], dim=-1)
+    rows = torch.as_tensor(L._sp_rows, device=dev)
+    cols = torch.as_tensor(L._sp_cols, device=dev)
+    A[:, rows, cols] += sp_vals
+
+    full = lambda k, v: torch.full((Bn, k), v, **f64)
+    lo = torch.cat([
+        ctl.V_min - g[:, :, 1],                                # ux
+        Fx_lo,                                                 # fx
+        (-data.hji_b)[:, None].expand(Bn, S - 1),              # hji
+        d_min,                                                 # delta
+        full(4 * T, -INF),                                     # envelope
+        u_curr[:, 0:1] - dd_lim[:, 0:1], -dd_lim[:, 1:],       # rate
+    ], dim=-1)
+    hi = torch.cat([
+        ctl.V_max - g[:, :, 1],
+        Fx_hi,
+        full(S - 1, INF),
+        d_max,
+        (lim.G_veh - Henv_off).reshape(Bn, -1),
+        u_curr[:, 0:1] + dd_lim[:, 0:1], dd_lim[:, 1:],
+    ], dim=-1)
+
+    # ---- per-row penalty weights (the slack costs of the slack QP) -------
+    w_hji = torch.where(torch.arange(1, S, device=dev) < ctl.N_HJI,
+                        torch.full((S - 1,), ctl.W_HJI, **f64),
+                        torch.zeros((S - 1,), **f64))
+    w_env = torch.stack([ctl.W_beta * dt, ctl.W_beta * dt,
+                         ctl.W_r * dt, ctl.W_r * dt], dim=-1)  # (B, T, 4)
+    # the first slew row anchors on the externally commanded u_curr; a
+    # large exact penalty keeps it binding when feasible and least-violated
+    # when an override makes it disjoint from the hard delta bound
+    w = torch.cat([
+        full(T, INF),                                          # ux hard
+        full(N - 1, INF),                                      # fx hard
+        w_hji.expand(Bn, -1),
+        full(T, INF),                                          # delta hard
+        w_env.reshape(Bn, -1),
+        full(1, 1e3), full(T - 1, INF),                        # rate
+    ], dim=-1)
+
+    # ---- objective ----------------------------------------------------------
+    # state tracking cost folded through the rollout (P = 2Q convention)
+    Wst = 2.0 * dt[..., None] * torch.stack(
+        [torch.full_like(dt, ctl.Q_ds), torch.full_like(dt, ctl.Q_dpsi),
+         torch.full_like(dt, ctl.Q_e)], dim=-1)                # (B, T, 3)
+    sel = torch.tensor([0, 4, 5], device=dev)
+    Gsel = G[:, :, sel, :]                                     # (B, T, 3, n)
+    gsel = g[:, :, sel]                                        # (B, T, 3)
+    P = torch.einsum("btkn,btk,btkm->bnm", Gsel, Wst, Gsel)
+    qlin = torch.einsum("btkn,btk,btk->bn", Gsel, Wst, gsel)
+
+    diag = torch.zeros((Bn, n), **f64)
+    diag[:, L.u[:, 0]] = 2.0 * ctl.R_delta * dt
+    diag[:, L.u[:, 1]] = 2.0 * ctl.R_Fx * dt
+    P = P + torch.diag_embed(diag)
+
+    # slew quadratics: sum_t (R/dt_t)(v_{t+1} - v_t)^2, v_0 pinned to u_curr
+    for k, R in ((0, ctl.R_ddelta), (1, ctl.R_dFx)):
+        if R == 0.0:
+            continue
+        cw = 2.0 * R / dt                                      # (B, T)
+        vidx = L.u[:, k]
+        v0 = int(vidx[0])
+        P[:, v0, v0] += cw[:, 0]
+        qlin[:, v0] += -cw[:, 0] * u_curr[:, k]
+        a, b_ = vidx[1:], vidx[:-1]
+        P[:, a, a] += cw[:, 1:]
+        P[:, b_, b_] += cw[:, 1:]
+        P[:, a, b_] += -cw[:, 1:]
+        P[:, b_, a] += -cw[:, 1:]
+
+    return SoftQP(P=P, q=qlin, A=A, l=lo, u=hi, w=w, G=G, g=g)
+
+
+def extract_control_soft(veh: VehicleParams, hz: HorizonParams, x,
+                         use_walls: bool = False):
+    """Next physical control (delta, Fx) per instance, x (B, n)."""
+    L = get_soft_layout(hz, use_walls)
+    unorm = torch.as_tensor(u_normalization(veh), dtype=x.dtype,
+                            device=x.device)
+    return x[:, L.u[0]] * unorm
+
+
+def extract_trajectory_soft(x, veh: VehicleParams, G, g, q_curr, u_curr):
+    """Full (q, u) solutions (B, N, 6), (B, N, 2) for warm-start
+    resampling: states through the rollout map, knot 0 the pinned current
+    state and control."""
+    unorm = torch.as_tensor(u_normalization(veh), dtype=x.dtype,
+                            device=x.device)
+    q_tail = torch.einsum("btij,bj->bti", G, x) + g
+    q_sol = torch.cat([q_curr[:, None], q_tail], dim=1)
+    u_sol = torch.cat([u_curr[:, None],
+                       x.reshape(x.shape[0], -1, 2) * unorm], dim=1)
+    return q_sol, u_sol

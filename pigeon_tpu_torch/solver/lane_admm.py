@@ -1,0 +1,352 @@
+"""Batched ADMM solve of the soft condensed MPC QP on two CUDA kernels.
+
+Counterpart of `pigeon_tpu/solver/lane_admm.py`.  The per-instance QPs are
+tiny (n=30 variables, m=124 rows, no equality rows), so every instance is
+solved by its own thread (the iterations) or warp (the KKT inverse):
+
+- `chol_inverse` (`csrc/chol_inverse.cu`): K^-1 per instance by column
+  Cholesky, forward substitution and one Newton-Schulz polish step.
+- `admm_iterations` (`csrc/admm_iterations.cu`): the OSQP iterations with
+  the shrink-prox z-update for exact-penalty rows, in-kernel convergence
+  checks and an early exit per group of `GROUP` consecutive instances.
+
+Each wrapper launches its kernel for CUDA tensors and runs its plain
+PyTorch version (same algorithm, same group exit) for CPU tensors.
+`solve_lanes_batched` wraps them with Ruiz equilibration, the K assembly
+and the OSQP segment loop with adaptive rho.
+
+Layouts at the kernel boundary: `chol_inverse` takes (B, n, n); the
+iteration operands are "lane" layouts with the instance index last --
+matrices (rows, cols, B), vectors (len, B) -- so a thread per instance
+reads them coalesced.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from pigeon_tpu_torch import _kernels
+from pigeon_tpu_torch.config import SolverOptions
+from pigeon_tpu_torch.solver.admm import (RHO_MAX, RHO_MIN, QPData,
+                                          QPSolution, QPWarmStart, ruiz)
+
+# Instances per early-exit group.  This is semantics, not tiling: the TPU
+# kernel stops a 128-lane block only when all of its lanes have converged,
+# so a converged instance keeps iterating until its group has converged,
+# and its x, z, y, statistics and executed count depend on the group.
+GROUP = 128
+
+# The iteration kernel holds x in registers for n up to this size.
+N_MAX = 32
+
+
+# ---------------------------------------------------------------------------
+# KKT inverse
+# ---------------------------------------------------------------------------
+
+def chol_inverse_plain(K, polish: int = 1):
+    """Plain PyTorch version of the per-instance Cholesky inverse:
+    K (B, n, n) -> K^-1, the same steps as the kernel."""
+    B, n, _ = K.shape
+    rows_ge = torch.arange(n, device=K.device)
+    Kw = K
+    cols, dinvs = [], []
+    for j in range(n):
+        dinv = torch.rsqrt(Kw[:, j, j])
+        colj = Kw[:, :, j] * dinv[:, None] * (rows_ge >= j).to(K.dtype)
+        cols.append(colj)
+        dinvs.append(dinv)
+        Kw = Kw - colj[:, :, None] * colj[:, None, :]
+    L = torch.stack(cols, dim=2)                     # L[:, i, j]
+    eye = torch.eye(n, dtype=K.dtype, device=K.device)
+    rows = []                                        # rows of W = L^-1
+    for j in range(n):
+        s = torch.zeros((B, n), dtype=K.dtype, device=K.device)
+        for k in range(j):
+            s = s + L[:, j, k, None] * rows[k]
+        rows.append((eye[j] - s) * dinvs[j][:, None])
+    X = torch.zeros_like(K)
+    for k in range(n):
+        X = X + rows[k][:, :, None] * rows[k][:, None, :]
+    for _ in range(polish):
+        X = X @ (2.0 * eye - K @ X)
+    return X
+
+
+def chol_inverse(K, polish: int = 1):
+    """K^-1 for each instance of K (B, n, n), n <= 32.
+
+    Replaces the TPU kernel
+    `pigeon_tpu/solver/lane_admm.py:_chol_inv_kernel`.  One warp per
+    instance; ~7.4 KB and ~0.13 MFLOP per instance at n=30, so bound by
+    neither on the card -- its shuffle and shared-memory broadcasts set
+    the time."""
+    if K.dim() != 3 or K.shape[1] != K.shape[2]:
+        raise ValueError(f"K must be (B, n, n), got {tuple(K.shape)}")
+    _kernels.check_same(K=(K, tuple(K.shape)))
+    if K.device.type == "cpu":
+        return chol_inverse_plain(K, polish)
+    _kernels.check_cuda_f32(K=K)
+    B, n, _ = K.shape
+    if n > N_MAX:
+        raise ValueError(f"the CUDA kernel takes n <= {N_MAX}, got {n}")
+    out = torch.empty_like(K)
+    _kernels.KERNELS["chol_inverse"].launch(K, out, B, n, polish)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# ADMM iterations
+# ---------------------------------------------------------------------------
+
+_ITER_FIELDS = ("Kinv", "A", "q", "l", "u", "rho", "cap", "x", "z", "y",
+                "E", "PuD", "qu", "invDc")
+
+
+def _stats(A, x, z, y, Einv, PuD, qu, invDc, eps_abs, eps_rel):
+    """Unscaled residual statistics (8, B) and per-instance convergence."""
+    ax = torch.einsum("rjb,jb->rb", A, x)
+    aty = torch.einsum("rjb,rb->jb", A, y)
+    Ax_u = ax * Einv
+    z_u = z * Einv
+    Px_u = torch.einsum("jkb,jb->kb", PuD, x)
+    Aty_u = aty * invDc
+    stat = lambda v: torch.abs(v).amax(dim=0)
+    zero = torch.zeros_like(stat(qu))
+    st = torch.stack([stat(Ax_u - z_u), stat(Px_u + qu + Aty_u), stat(Ax_u),
+                      stat(z_u), stat(Px_u), stat(Aty_u), zero, zero])
+    eps_p = eps_abs + eps_rel * torch.maximum(st[2], st[3])
+    eps_d = eps_abs + eps_rel * torch.maximum(
+        torch.maximum(st[4], st[5]), stat(qu))
+    return st, (st[0] <= eps_p) & (st[1] <= eps_d)
+
+
+def admm_iterations_plain(Kinv, A, q, l, u, rho, cap, x, z, y, E, PuD, qu,
+                          invDc, n_iters: int, sigma: float, alpha: float,
+                          check: int = 0, eps_abs: float = 1e-3,
+                          eps_rel: float = 1e-3):
+    """Plain PyTorch version of the iteration kernel, with the same group
+    exit: lane layouts in, (x, z, y, stats) out."""
+    B = q.shape[-1]
+    inv_rho = 1.0 / rho
+    Einv = 1.0 / E
+
+    def body(x, z, y):
+        w = rho * z - y
+        rhs = sigma * x - q + torch.einsum("rjb,rb->jb", A, w)
+        xt = torch.einsum("jkb,jb->kb", Kinv, rhs)
+        zt = torch.einsum("rjb,jb->rb", A, xt)
+        x_n = alpha * xt + (1.0 - alpha) * x
+        z_mix = alpha * zt + (1.0 - alpha) * z
+        v = z_mix + y * inv_rho
+        z_n = (v - torch.minimum(torch.clamp(v - u, min=0.0), cap)
+               - torch.clamp(torch.maximum(v - l, -cap), max=0.0))
+        return x_n, z_n, y + rho * (z_mix - z_n)
+
+    stats_of = lambda x, z, y: _stats(A, x, z, y, Einv, PuD, qu, invDc,
+                                      eps_abs, eps_rel)
+    if 0 < check < n_iters:
+        n_groups = -(-B // GROUP)
+        active = torch.ones(B, dtype=torch.bool, device=q.device)
+        executed = torch.zeros(B, dtype=q.dtype, device=q.device)
+        stats = torch.zeros((8, B), dtype=q.dtype, device=q.device)
+        for it in range(-(-n_iters // check)):
+            k_len = min(check, n_iters - it * check)
+            for _ in range(k_len):
+                x_n, z_n, y_n = body(x, z, y)
+                x = torch.where(active, x_n, x)
+                z = torch.where(active, z_n, z)
+                y = torch.where(active, y_n, y)
+            st, conv = stats_of(x, z, y)
+            stats = torch.where(active, st, stats)
+            executed = torch.where(active, executed + k_len, executed)
+            padded = torch.ones(n_groups * GROUP, dtype=torch.bool,
+                                device=q.device)
+            padded[:B] = conv
+            group_done = padded.view(n_groups, GROUP).all(dim=1)
+            active = active & ~group_done.repeat_interleave(GROUP)[:B]
+            if not bool(active.any()):
+                break
+        stats[6] = executed
+    else:
+        for _ in range(n_iters):
+            x, z, y = body(x, z, y)
+        stats, _ = stats_of(x, z, y)
+        stats[6] = float(n_iters)
+    return x, z, y, stats
+
+
+def admm_iterations(Kinv, A, q, l, u, rho, cap, x, z, y, E, PuD, qu, invDc,
+                    n_iters: int, sigma: float, alpha: float, check: int = 0,
+                    eps_abs: float = 1e-3, eps_rel: float = 1e-3):
+    """One ADMM segment on lane layouts: Kinv, PuD (n, n, B); A (m, n, B);
+    q, x, qu, invDc (n, B); l, u, rho, cap, z, y, E (m, B).  Returns
+    (x, z, y, stats) with stats (8, B) = [r_prim, r_dual, max|Ax|, max|z|,
+    max|Px|, max|A'y|, executed iterations, 0], unscaled.
+
+    Replaces the TPU kernel `pigeon_tpu/solver/lane_admm.py:_iter_kernel`.
+    One thread per instance, one block per group; per iteration an
+    instance reads A twice and K^-1 once (~33 KB; 274 MB at B=8192, A
+    does not fit in L2).  With 64 blocks at B=8192 the card is half
+    occupied, so load latency, not bandwidth, sets the time."""
+    n, B = q.shape
+    m = l.shape[0]
+    ops = dict(zip(_ITER_FIELDS, (Kinv, A, q, l, u, rho, cap, x, z, y, E,
+                                  PuD, qu, invDc)))
+    shapes = dict(Kinv=(n, n, B), A=(m, n, B), q=(n, B), l=(m, B),
+                  u=(m, B), rho=(m, B), cap=(m, B), x=(n, B), z=(m, B),
+                  y=(m, B), E=(m, B), PuD=(n, n, B), qu=(n, B),
+                  invDc=(n, B))
+    _kernels.check_same(**{k: (ops[k], shapes[k]) for k in _ITER_FIELDS})
+    if q.device.type == "cpu":
+        return admm_iterations_plain(
+            Kinv, A, q, l, u, rho, cap, x, z, y, E, PuD, qu, invDc,
+            n_iters, sigma, alpha, check, eps_abs, eps_rel)
+    _kernels.check_cuda_f32(**ops)
+    if n > N_MAX:
+        raise ValueError(f"the CUDA kernel takes n <= {N_MAX}, got {n}")
+    x, z, y = x.clone(), z.clone(), y.clone()
+    stats = torch.empty((8, B), dtype=q.dtype, device=q.device)
+    _kernels.KERNELS["admm_iterations"].launch(
+        Kinv, A, q, l, u, rho, cap, x, z, y, E, PuD, qu, invDc, stats,
+        B, n, m, n_iters, float(sigma), float(alpha), check,
+        float(eps_abs), float(eps_rel))
+    return x, z, y, stats
+
+
+# ---------------------------------------------------------------------------
+# Orchestration: Ruiz + K build + segments with adaptive rho
+# ---------------------------------------------------------------------------
+
+def _lane_vec(v):
+    return v.T.to(torch.float32).contiguous()
+
+
+def _lane_mat(M):
+    return M.permute(1, 2, 0).to(torch.float32).contiguous()
+
+
+def solve_lanes_batched(qp: QPData, warm: QPWarmStart, opts: SolverOptions,
+                        w_soft=None) -> QPSolution:
+    """Batched solve: Ruiz equilibration, per-row rho, `max_iter //
+    check_every` segments with in-kernel early exit every
+    `opts.pallas_check_inner` iterations, and OSQP adaptive rho (a
+    refactor runs only when another segment follows).  The segment loop
+    reads convergence on the host only between segments, so a
+    one-segment solve (max_iter == check_every) needs no host sync."""
+    dtype = qp.q.dtype
+    B, n = qp.q.shape
+    m = qp.l.shape[-1]
+    dense_P = qp.P_diag.dim() == 3
+    dev = qp.q.device
+
+    if opts.scaling_iters > 0:
+        qps, D, E, c = ruiz(qp, opts.scaling_iters)
+    else:
+        qps = qp
+        D = torch.ones_like(qp.q)
+        E = torch.ones_like(qp.l)
+        c = torch.ones((B,), dtype=dtype, device=dev)
+    Pb, qb, Ab, lb, ub = qps
+    if not dense_P:
+        Pb = torch.diag_embed(Pb)
+    sigma = float(opts.sigma)
+
+    if w_soft is None:
+        w_soft = torch.full((m,), math.inf, dtype=dtype, device=dev)
+    wb = c[:, None] * torch.broadcast_to(w_soft, (B, m)) / E
+
+    is_eq = (qp.u - qp.l) < 1e-10
+    rho_base = torch.where(is_eq,
+                           torch.full_like(qp.l, opts.rho * opts.rho_eq_scale),
+                           torch.full_like(qp.l, opts.rho))
+    rho_scale = (torch.ones((B,), dtype=dtype, device=dev)
+                 if warm.rho_scale is None
+                 else torch.clamp(warm.rho_scale, 1e-6, 1e6).to(dtype))
+
+    # warm start into the equilibrated space
+    x_l = _lane_vec(warm.x / D)
+    z_l = _lane_vec(E * warm.z)
+    y_l = _lane_vec(c[:, None] * warm.y / E)
+
+    A_l = _lane_mat(Ab)
+    q_l, l_l, u_l = _lane_vec(qb), _lane_vec(lb), _lane_vec(ub)
+    E_l = _lane_vec(E)
+    qu_l = _lane_vec(qp.q)
+    invDc_l = _lane_vec(1.0 / (D * c[:, None]))
+    # unscaled-P stats operand: row-scaled so x_bar contracts to P_u x_u
+    PuD = (D[:, :, None] * qp.P_diag if dense_P
+           else torch.diag_embed(qp.P_diag * D))
+    PuD_l = _lane_mat(PuD)
+    eye = torch.eye(n, dtype=dtype, device=dev)
+
+    def factor(rho_vec):
+        K = Pb + torch.einsum("bmi,bm,bmj->bij", Ab, rho_vec, Ab)
+        K = K + sigma * eye
+        Kinv = chol_inverse(K.to(torch.float32).contiguous(),
+                            polish=opts.lane_polish)
+        return _lane_mat(Kinv)
+
+    def lanes_rho(rho_vec):
+        return _lane_vec(rho_vec), _lane_vec(wb / rho_vec)
+
+    amax_qu = torch.abs(qp.q).amax(dim=-1)
+
+    def residuals(stats):
+        stats = stats.to(dtype)
+        r_prim, r_dual, m_Ax, m_z, m_Px, m_Aty = stats[:6]
+        eps_p = opts.eps_abs + opts.eps_rel * torch.maximum(m_Ax, m_z)
+        eps_d = opts.eps_abs + opts.eps_rel * torch.maximum(
+            torch.maximum(m_Px, m_Aty), amax_qu)
+        return r_prim, r_dual, eps_p, eps_d, m_Ax, m_z, m_Px, m_Aty
+
+    def rho_suggestion(rho_scale, r_prim, r_dual, m_Ax, m_z, m_Px, m_Aty):
+        num = r_prim / torch.clamp(torch.maximum(m_Ax, m_z), min=1e-12)
+        den = r_dual / torch.maximum(torch.maximum(m_Px, m_Aty),
+                                     torch.clamp(amax_qu, min=1e-12))
+        scale = torch.clamp(torch.sqrt(num / torch.clamp(den, min=1e-12)),
+                            1e-3, 1e3)
+        return torch.clamp(rho_scale * scale, 1e-6, 1e6), scale
+
+    rho_vec = torch.clamp(rho_base * rho_scale[:, None], RHO_MIN, RHO_MAX)
+    Kinv_l = factor(rho_vec)
+    rho_l, cap_l = lanes_rho(rho_vec)
+
+    n_seg = max(1, opts.max_iter // opts.check_every)
+    ADAPT_TOL = 5.0
+    r_prim = r_dual = torch.full((B,), math.inf, dtype=dtype, device=dev)
+    converged = torch.zeros((B,), dtype=torch.bool, device=dev)
+    iters_acc = torch.zeros((B,), dtype=dtype, device=dev)
+    for seg in range(n_seg):
+        if seg > 0 and bool(converged.all()):
+            break
+        x_l, z_l, y_l, stats = admm_iterations(
+            Kinv_l, A_l, q_l, l_l, u_l, rho_l, cap_l, x_l, z_l, y_l, E_l,
+            PuD_l, qu_l, invDc_l, opts.check_every, sigma,
+            float(opts.alpha), check=int(opts.pallas_check_inner),
+            eps_abs=float(opts.eps_abs), eps_rel=float(opts.eps_rel))
+        iters_acc = iters_acc + stats[6].to(dtype)
+        (r_prim, r_dual, eps_p, eps_d, m_Ax, m_z, m_Px,
+         m_Aty) = residuals(stats)
+        converged = (r_prim <= eps_p) & (r_dual <= eps_d)
+        if opts.adaptive_rho:
+            pending, scale = rho_suggestion(rho_scale, r_prim, r_dual,
+                                            m_Ax, m_z, m_Px, m_Aty)
+            drift = (((scale > ADAPT_TOL) | (scale < 1.0 / ADAPT_TOL))
+                     & ~converged)
+            rho_scale = torch.where(drift, pending, rho_scale)
+            if seg + 1 < n_seg and bool(drift.any()):
+                new_rho = torch.clamp(rho_base * rho_scale[:, None],
+                                      RHO_MIN, RHO_MAX)
+                Kinv_l = factor(new_rho)
+                rho_l, cap_l = lanes_rho(new_rho)
+
+    x = x_l.T.to(dtype)
+    z = z_l.T.to(dtype)
+    y = y_l.T.to(dtype)
+    return QPSolution(
+        x=D * x, y=(E * y) / c[:, None], z=z / E,
+        iterations=iters_acc.to(torch.int32), prim_res=r_prim,
+        dual_res=r_dual, converged=converged, rho_scale=rho_scale)
