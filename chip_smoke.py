@@ -5,26 +5,39 @@
 Phases (any failure raises, so the script exits non-zero):
 
 1. the card's name and power limit (nvidia-smi), torch and CUDA versions;
-2. build the three CUDA kernels from `pigeon_tpu_torch/csrc/` (one nvcc
+2. build the five CUDA kernels from `pigeon_tpu_torch/csrc/` (one nvcc
    per source, in parallel) and print the build time and register use;
-3. kernel checks: capture each kernel's inputs from one cold fleet step at
-   the main path's shapes (B=8192, float32), then hold the kernel against
-   its plain PyTorch version on the card, with times for the kernel, the
-   plain version and a PyTorch library call where one computes the same
-   function; also on a ragged batch and on the inputs of a 12-stage
-   horizon (the kernels' run-time-n build);
-4. the main path: the coupled soft MPC for a fleet of 8192 vehicles on an
+3. kernel checks: capture each kernel's inputs at the shapes its path
+   gives it (float32) -- one cold step of the coupled fleet and of the
+   decoupled fleet at B=8192, one `mpc_step` of each formulation -- then
+   hold the kernel against its plain PyTorch version on the card, with
+   times for the kernel, the plain version and a PyTorch library call
+   where one computes the same function; also on a ragged batch and on the
+   inputs of a 12-stage horizon (the kernels' run-time-n build).  The
+   dense exponential is also held on the stack of all 122,880 stage
+   matrices of the coupled fleet;
+4. path "fleet": the coupled soft MPC for a fleet of 8192 vehicles on an
    oval (x1_coupled_config(soft=True), N_short=5, N_long=10, the lane
-   solver with bench.py's options), one cold step and 20 warm closed-loop
-   steps with the RK4 plant, timed with CUDA events; every launch counter
-   must advance on every step, commands must be finite and the converged
-   fraction on the last step at least 0.99; then torch.profiler over one
-   more warm step (device busy time, idle share, largest kernels);
-5. reference check: a 64-vehicle fleet stepped on the card, each step
-   also run on the CPU (plain versions) from the card's state at float64
-   and float32, commands compared (see `reference_check`);
-6. B=1 latency: the same path for one vehicle, 20 warm steps;
-7. one JSON line listing the kernels, the nvidia-smi line, and the last
+   solver with bench.py's options), one cold step and 10 warm closed-loop
+   steps with the RK4 plant, timed with CUDA events; the launch counters
+   of vanloan, chol_inverse and admm_iterations must advance on every
+   step and no other, commands must be finite and the converged fraction
+   on the last step at least 0.99; then torch.profiler over one more warm
+   step (device busy time, idle share, largest kernels);
+5. path "fleet_decoupled": the same for x1_decoupled_config(soft=True)
+   (N_short=10, N_long=20, QPs of n=30, m=180), 20 warm steps; its steps
+   launch vanloan, rollout, chol_inverse and admm_iterations;
+6. path "simulate": `mpc.simulate` for one vehicle on the card, 30
+   closed-loop steps per formulation -- the unbatched route, dense
+   linearization and `solve_qp` -- which launches expm_dense once per
+   step and no other kernel; then torch.profiler over 5 more steps;
+7. reference checks: for each formulation a 64-vehicle fleet stepped on
+   the card, each step also run on the CPU (plain versions) from the
+   card's state at float64 and float32, commands compared (see
+   `reference_check`); and the card's `simulate` commands against the CPU
+   `simulate` at float64 and float32 (`simulate_reference_check`);
+8. B=1 latency: the coupled fleet path for one vehicle, 20 warm steps;
+9. one JSON line listing the kernels, the nvidia-smi line, and the last
    line {"ok": true, "device": {...}}.
 
 It exits non-zero without a result when CUDA is unavailable or when run
@@ -42,7 +55,11 @@ import time
 import numpy as np
 
 B_FLEET = 8192
-WARM_STEPS = 20
+WARM_STEPS = {"coupled": 10, "decoupled": 20}
+B1_STEPS = 20
+SIM_STEPS = 30
+SIM_REF_STEPS = 10   # steps of `simulate` also run on the CPU
+SIM_PROFILE_STEPS = 5
 B_REF = 64
 B_RAGGED = 130   # kernel checks on a batch with a ragged last block
 # and on the inputs of a 12-stage horizon (soft QP n = 2 T = 24), which
@@ -58,6 +75,15 @@ ADMM_REL = 1e-4
 # many bars from the float64 one
 REF_OUTSIDE_MAX = 0.1
 REF_CAP_BARS = 128.0
+# The kernels every step of each main path must launch; it must launch no
+# other
+PATH_KERNELS = {
+    "coupled": {"vanloan", "chol_inverse", "admm_iterations"},
+    "decoupled": {"vanloan", "rollout", "chol_inverse", "admm_iterations"},
+    "simulate": {"expm_dense"},
+}
+# bench.py's lane-solver iteration budget per formulation
+MAX_ITER = {"coupled": 150, "decoupled": 300}
 # H100 SXM data-sheet peaks (dense): HBM bandwidth and non-tensor fp32
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_FLOPS = 67e12
@@ -85,22 +111,33 @@ def nvidia_smi() -> str:
 # Fleet set-up (bench.py's _fleet on the in-repo oval)
 # ---------------------------------------------------------------------------
 
-def make_setup(torch, B: int, device, hz=None):
-    """The fleet at the x1 horizon (5, 10), or at `hz` = (N_short,
-    N_long)."""
+def fleet_config(formulation: str, hz=None):
+    """x1_coupled_config or x1_decoupled_config, soft, on the lane solver
+    with bench.py's options; `hz` = (N_short, N_long) overrides the
+    horizon."""
+    from pigeon_tpu_torch import mpc
+    from pigeon_tpu_torch.config import SolverOptions
+
+    make = {"coupled": mpc.x1_coupled_config,
+            "decoupled": mpc.x1_decoupled_config}[formulation]
+    cfg = make(soft=True)
+    if hz is not None:
+        cfg = dataclasses.replace(cfg, hz=dataclasses.replace(
+            cfg.hz, N_short=hz[0], N_long=hz[1]))
+    n_it = MAX_ITER[formulation]
+    return dataclasses.replace(cfg, solver=SolverOptions(
+        max_iter=n_it, check_every=n_it, eps_abs=1e-3, eps_rel=1e-3,
+        backend="lanes", scaling_iters=2, pallas_check_inner=10))
+
+
+def make_setup(torch, B: int, device, hz=None, formulation="coupled"):
+    """The fleet on the in-repo oval (bench.py's placement)."""
     from pigeon_tpu_torch import hji, mpc, trajectory
-    from pigeon_tpu_torch.config import HorizonParams, SolverOptions
 
     cols = trajectory.oval_columns()
     tube = trajectory.make_tube(**cols, pad_to=1024, device=device)
     cache = hji.inactive_cache(device=device)
-    cfg = mpc.x1_coupled_config(soft=True)
-    if hz is not None:
-        cfg = dataclasses.replace(cfg, hz=dataclasses.replace(
-            cfg.hz, N_short=hz[0], N_long=hz[1]))
-    cfg = dataclasses.replace(cfg, solver=SolverOptions(
-        max_iter=150, check_every=150, eps_abs=1e-3, eps_rel=1e-3,
-        backend="lanes", scaling_iters=2, pallas_check_inner=10))
+    cfg = fleet_config(formulation, hz)
     rng = np.random.default_rng(0)
     k0 = rng.integers(0, 900, B)
     E = cols["E"][k0] + rng.uniform(-0.5, 0.5, B)
@@ -144,10 +181,13 @@ def closed_loop_step(torch, st):
 def capture_kernel_inputs(step):
     """Record the first call of each kernel wrapper during `step()`."""
     from pigeon_tpu_torch import discretize as dz
+    from pigeon_tpu_torch.qp import decoupled as qd
     from pigeon_tpu_torch.solver import lane_admm as la
 
     seen = {}
     originals = {(dz, "vanloan"): dz.vanloan,
+                 (dz, "expm_dense"): dz.expm_dense,
+                 (qd, "rollout_affine"): qd.rollout_affine,
                  (la, "chol_inverse"): la.chol_inverse,
                  (la, "admm_iterations"): la.admm_iterations}
 
@@ -190,7 +230,24 @@ def bound(bytes_moved: float, flops: float):
     return (max(tb, tf), "bytes" if tb >= tf else "operations")
 
 
-def check_vanloan(torch, args, kw, small):
+def dense_stage_matrices(torch, P0, Cu0, cc0, rr):
+    """The (B T, n+2m+1, n+2m+1) dense Van Loan stage matrices of the
+    structured exponential's inputs."""
+    n, m = Cu0.shape[-2:]
+    dim = n + 2 * m + 1
+    Md = torch.zeros((rr.numel(), dim, dim), dtype=P0.dtype,
+                     device=P0.device)
+    Md[:, :n, :n] = P0.reshape(-1, n, n)
+    Md[:, :n, n:n + m] = Cu0.reshape(-1, n, m)
+    Md[:, :n, -1] = cc0.reshape(-1, n)
+    Md[:, n:n + m, n + m:n + 2 * m] = (
+        rr.reshape(-1, 1, 1) * torch.eye(m, device=P0.device))
+    return Md
+
+
+def check_vanloan(torch, args, kw, small=None):
+    """`args`: the main-path call.  `small`: the 12-stage horizon's call,
+    checked without timing (None: skip it)."""
     from pigeon_tpu_torch import discretize as dz
 
     P0, Cu0, cc0, rr, sq, order = args
@@ -208,12 +265,14 @@ def check_vanloan(torch, args, kw, small):
     require(all(bool(torch.isfinite(k).all()) for k in out_k),
             "vanloan kernel output not finite")
     require(rel <= 1e-5, f"vanloan kernel vs plain: relative error {rel}")
-    require(bool((out_k[2][:, :5] == 0).all()), "ZOH stages need Phi_qv == 0")
-    # a ragged last block (B_RAGGED instances x 15 stages is no multiple of
+    zoh = rr == 0
+    require(bool(zoh.any()) and bool((out_k[2][zoh] == 0).all()),
+            "ZOH stages need Phi_qv == 0")
+    # a ragged last block (B_RAGGED instances x T stages is no multiple of
     # the 128-thread block), and the 12-stage horizon's inputs
     sub = [a[:B_RAGGED].contiguous() if isinstance(a, torch.Tensor) else a
            for a in args]
-    for a in (sub, small[0]):
+    for a in (sub,) + (() if small is None else (small[0],)):
         for k, p in zip(dz.vanloan(*a), dz.vanloan_plain(*a)):
             d = float((k - p).abs().max())
             require(d <= 1e-5 * max(float(p.abs().max()), 1e-30),
@@ -221,13 +280,7 @@ def check_vanloan(torch, args, kw, small):
 
     Bn, T, n, _ = P0.shape
     m = Cu0.shape[-1]
-    dim = n + 2 * m + 1
-    Md = torch.zeros((Bn * T, dim, dim), dtype=P0.dtype, device=P0.device)
-    Md[:, :n, :n] = P0.reshape(-1, n, n)
-    Md[:, :n, n:n + m] = Cu0.reshape(-1, n, m)
-    Md[:, :n, -1] = cc0.reshape(-1, n)
-    Md[:, n:n + m, n + m:n + 2 * m] = (
-        rr.reshape(-1, 1, 1) * torch.eye(m, device=P0.device))
+    Md = dense_stage_matrices(torch, P0, Cu0, cc0, rr)
     ms = cuda_ms(torch, lambda: dz.vanloan(*args), 20)
     plain = cuda_ms(torch, lambda: dz.vanloan_plain(*args), 5)
     lib = cuda_ms(torch, lambda: torch.linalg.matrix_exp(Md), 5)
@@ -243,7 +296,7 @@ def check_vanloan(torch, args, kw, small):
                 shapes=[list(P0.shape), list(Cu0.shape)])
 
 
-def check_chol_inverse(torch, args, kw, small):
+def check_chol_inverse(torch, args, kw, small=None):
     from pigeon_tpu_torch.solver import lane_admm as la
 
     K = args[0]
@@ -266,7 +319,8 @@ def check_chol_inverse(torch, args, kw, small):
     # a ragged last block (B_RAGGED is no multiple of the 4 warps of a
     # block) and the 12-stage horizon's K (n = 24), each against the plain
     # version with the same bar
-    for Ks in (K[:B_RAGGED].contiguous(), small[0][0]):
+    for Ks in (K[:B_RAGGED].contiguous(),) + (
+            () if small is None else (small[0][0],)):
         Xs = la.chol_inverse(Ks, polish)
         Ps = la.chol_inverse_plain(Ks, polish)
         r = float(((Xs - Ps).abs().amax(dim=(1, 2))
@@ -317,7 +371,7 @@ def require_admm_close(errs, what):
     require(not bad, f"admm_iterations {what} kernel vs plain: {bad}")
 
 
-def check_admm(torch, args, kw, small):
+def check_admm(torch, args, kw, small=None):
     from pigeon_tpu_torch.solver import lane_admm as la
 
     ops = args[:14]
@@ -353,7 +407,7 @@ def check_admm(torch, args, kw, small):
     # the run-time-n build on the 12-stage horizon's operands (n = 24)
     sub = [o[..., :B_RAGGED].contiguous() for o in ops]
     other_errs = []
-    for s_ops in (sub, small[0][:14]):
+    for s_ops in (sub,) + (() if small is None else (small[0][:14],)):
         other_errs.append(admm_errors(
             torch,
             la.admm_iterations(*s_ops, 10, sigma, alpha, check=0, **eps),
@@ -386,11 +440,112 @@ def check_admm(torch, args, kw, small):
     b_ms, b_by = bound(nbytes(*ops, *outs), flops)
     return dict(err=err, rel=err / max(scale, 1e-30), groups_agree=agree,
                 fixed_errs=fixed_errs, exit_errs=exit_errs,
-                ragged_errs=other_errs[0], small_horizon_errs=other_errs[1],
+                ragged_errs=other_errs[0],
+                small_horizon_errs=other_errs[1] if small else None,
                 ragged_exec=ragged_exec,
                 iters_mean=float(executed.mean()), ms=ms, plain_ms=plain,
                 library_ms=None, bound_ms=b_ms, bound_by=b_by,
                 shapes=[list(ops[1].shape)])
+
+
+def check_rollout(torch, args, kw, small=None):
+    from pigeon_tpu_torch.qp import condensed as qc
+
+    A, E = args
+    out_k = qc.rollout_affine(A, E)
+    out_p = qc.rollout_affine_unroll(A, E)
+    torch.cuda.synchronize()
+    require(bool(torch.isfinite(out_k).all()), "rollout output not finite")
+
+    def rel_err(k, p):
+        # both float32, the same recursion; only the order of the d-term
+        # sums differs, carried through T stages: 1e-5 of the largest entry
+        return float((k - p).abs().max()) / max(float(p.abs().max()), 1e-30)
+
+    rel = rel_err(out_k, out_p)
+    require(rel <= 1e-5, f"rollout kernel vs plain: relative error {rel}")
+    # a ragged last block (B_RAGGED is no multiple of the 4 instances of a
+    # block), a width over one warp and the coupled model's d = 6
+    g = torch.Generator(device="cuda").manual_seed(0)
+    rnd = lambda *sh: torch.randn(sh, generator=g, device="cuda")
+    for As, Es in ((A[:B_RAGGED].contiguous(), E[:B_RAGGED].contiguous()),
+                   (0.4 * rnd(B_RAGGED, 15, 6, 6), rnd(B_RAGGED, 15, 6, 70))):
+        r = rel_err(qc.rollout_affine(As, Es),
+                    qc.rollout_affine_unroll(As, Es))
+        require(r <= 1e-5, f"rollout at {tuple(Es.shape)}: relative {r}")
+    # outside the kernel's horizons the wrapper raises on the card; it
+    # does not take the plain loop there
+    long_T = qc.ROLLOUT_SCAN_MIN_T
+    try:
+        qc.rollout_affine(0.4 * rnd(2, long_T, 4, 4), rnd(2, long_T, 4, 5))
+    except NotImplementedError:
+        pass
+    else:
+        require(False, f"rollout_affine at T={long_T} on the card must raise")
+    ms = cuda_ms(torch, lambda: qc.rollout_affine(A, E), 20)
+    plain = cuda_ms(torch, lambda: qc.rollout_affine_unroll(A, E), 5)
+    Bn, T, d, w = E.shape
+    b_ms, b_by = bound(nbytes(A, E, out_k), 2.0 * Bn * (T - 1) * d * d * w)
+    return dict(err=float((out_k - out_p).abs().max()), rel=rel, ms=ms,
+                plain_ms=plain, library_ms=None, bound_ms=b_ms,
+                bound_by=b_by, shapes=[list(A.shape), list(E.shape)])
+
+
+def expm_case(torch, M, sq, order, reps):
+    """Kernel against plain and against float64 on one stack, with times
+    and the bound."""
+    from pigeon_tpu_torch import discretize as dz
+
+    out_k = dz.expm_dense(M, sq, order)
+    out_p = dz.expm_fixed(M, sq, order)
+    exact = torch.linalg.matrix_exp(M.double())
+    torch.cuda.synchronize()
+    require(bool(torch.isfinite(out_k).all()), "expm_dense not finite")
+    scale = max(float(out_p.abs().max()), 1e-30)
+    # both float32, only the summation order differs: a few ulps of the
+    # largest entry, amplified by the squarings (the vanloan bar)
+    rel = float((out_k - out_p).abs().max()) / scale
+    require(rel <= 1e-5, f"expm_dense kernel vs plain at "
+                         f"{tuple(M.shape)}: relative error {rel}")
+    # against the float64 exponential: the chain's truncation at this
+    # order and squarings on the long stages, plus float32 rounding
+    rel64 = float((out_k.double() - exact).abs().max()) / scale
+    require(rel64 <= 1e-4, f"expm_dense vs float64 at {tuple(M.shape)}: "
+                           f"relative error {rel64}")
+    d = M.shape[-1]
+    K = M.numel() // (d * d)
+    b_ms, b_by = bound(nbytes(M, out_k),
+                       2.0 * d ** 3 * (order - 1 + sq) * K)
+    return dict(
+        err=float((out_k - out_p).abs().max()), rel=rel, rel_vs_f64=rel64,
+        ms=cuda_ms(torch, lambda: dz.expm_dense(M, sq, order), reps[0]),
+        plain_ms=cuda_ms(torch, lambda: dz.expm_fixed(M, sq, order),
+                         reps[1]),
+        library_ms=cuda_ms(torch, lambda: torch.linalg.matrix_exp(M),
+                           reps[1]),
+        bound_ms=b_ms, bound_by=b_by, shapes=[list(M.shape)])
+
+
+def check_expm_dense(torch, args, kw, extra):
+    """`args`: the coupled `mpc_step`'s call (15 matrices of 19 x 19), the
+    entry of the kernels line.  `extra`: the decoupled `mpc_step`'s call
+    and the coupled fleet's structured-exponential inputs, from which the
+    stack of all its 122,880 dense stage matrices is built."""
+    from pigeon_tpu_torch import discretize as dz
+
+    M, sq, order = args
+    r = expm_case(torch, M, sq, order, (50, 20))
+    Md, sq_d, order_d = extra["decoupled"][0]
+    r["decoupled_step"] = expm_case(torch, Md, sq_d, order_d, (50, 20))
+    stack = dense_stage_matrices(torch, *extra["fleet_vanloan"][:4])
+    r["fleet_stack"] = expm_case(torch, stack, sq, order, (10, 3))
+    # a ragged count, and other orders and squarings (run-time arguments)
+    sub = stack[:B_RAGGED].contiguous()
+    for s_, o_ in ((0, 1), (2, 3), (8, 8)):
+        k, p_ = dz.expm_dense(sub, s_, o_), dz.expm_fixed(sub, s_, o_)
+        e = float((k - p_).abs().max()) / max(float(p_.abs().max()), 1e-30)
+        require(e <= 1e-4, f"expm_dense at squarings={s_}, order={o_}: {e}")
+    return r
 
 
 KERNEL_META = {
@@ -401,15 +556,22 @@ KERNEL_META = {
                      check_chol_inverse),
     "admm_iterations": ("pigeon_tpu_torch/csrc/admm_iterations.cu",
                         "pigeon_tpu/solver/lane_admm.py:145", check_admm),
+    "rollout": ("pigeon_tpu_torch/csrc/rollout.cu",
+                "pigeon_tpu/qp/condensed.py:461", check_rollout),
+    "expm_dense": ("pigeon_tpu_torch/csrc/expm_dense.cu",
+                   "pigeon_tpu/discretize.py:341 and "
+                   "pigeon_tpu/discretize.py:285", check_expm_dense),
 }
 
 
 # ---------------------------------------------------------------------------
 
-def run_fleet(torch, B: int, steps: int, kernels):
-    """One cold and `steps` warm steps; every step must launch every
-    kernel.  Returns per-step records and the final state."""
-    st = make_setup(torch, B, "cuda")
+def run_fleet(torch, B: int, steps: int, kernels, formulation="coupled"):
+    """One cold and `steps` warm steps; every step must launch each kernel
+    of its path (PATH_KERNELS) and no other.  Returns per-step records
+    and the final state."""
+    st = make_setup(torch, B, "cuda", formulation=formulation)
+    expect = PATH_KERNELS[formulation]
     recs = []
     for i in range(steps + 1):
         before = kernels.launches()
@@ -421,8 +583,8 @@ def run_fleet(torch, B: int, steps: int, kernels):
         end.synchronize()
         after = kernels.launches()
         grew = {k: after[k] - before[k] for k in after}
-        require(all(v > 0 for v in grew.values()),
-                f"step {i}: a kernel was not launched: {grew}")
+        require(all((v > 0) == (k in expect) for k, v in grew.items()),
+                f"step {i}: launches {grew}, expected exactly {expect}")
         require(u3.device.type == "cuda"
                 and diag.converged.device.type == "cuda"
                 and st["carry"].warm_x.device.type == "cuda",
@@ -448,17 +610,18 @@ def copy_state(torch, st, device, dtype):
         **{k: conv(st[k]) for k in ("q", "u", "oc", "t")})
 
 
-def profile_step(torch, st):
-    """torch.profiler over one warm step: device busy time (the sum of
-    device events on the one stream), idle share of the step's wall time,
-    device events per step, and the largest kernels."""
+def profile_call(torch, fn, steps: int = 1):
+    """torch.profiler over `fn()`, which runs `steps` control steps:
+    per step, the wall time, the device busy time (the sum of device
+    events on the one stream), the device events and the largest kernels;
+    and the idle share of the wall time."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        closed_loop_step(torch, st)
+        fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     dev = [e for e in prof.events()
@@ -468,12 +631,19 @@ def profile_step(torch, st):
         by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
     busy_us = sum(by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
-    return dict(wall_ms=wall_us / 1e3, device_busy_ms=busy_us / 1e3,
-                idle_share=1.0 - busy_us / wall_us, device_events=len(dev),
-                top_ms=[[name[:70], us / 1e3] for name, us in top])
+    return dict(wall_ms=wall_us / 1e3 / steps,
+                device_busy_ms=busy_us / 1e3 / steps,
+                idle_share=1.0 - busy_us / wall_us,
+                device_events=round(len(dev) / steps),
+                top_ms=[[name[:70], us / 1e3 / steps] for name, us in top])
 
 
-def reference_check(torch):
+def profile_step(torch, st):
+    """`profile_call` over one warm closed-loop fleet step."""
+    return profile_call(torch, lambda: closed_loop_step(torch, st))
+
+
+def reference_check(torch, formulation="coupled"):
     """A B_REF-vehicle fleet stepped on the card; each step is also run on
     the CPU (plain versions) from the card's state, at float64 (the path
     the CPU tests hold against the JAX package) and at float32.
@@ -488,9 +658,9 @@ def reference_check(torch):
     - at most REF_OUTSIDE_MAX of the vehicles outside the bare bar;
     - converged flags equal to the CPU float32 path's and executed
       iterations within one check period of them (the bar
-      tests/test_torch_mpc.py holds the port to against the JAX
-      package)."""
-    gpu = make_setup(torch, B_REF, "cuda")
+      tests/test_torch_mpc.py and tests/test_torch_mpc_decoupled.py hold
+      the port to against the JAX package)."""
+    gpu = make_setup(torch, B_REF, "cuda", formulation=formulation)
     check = gpu["cfg"].solver.pallas_check_inner
     bar = torch.tensor([2e-4, 2.0, 2.0], dtype=torch.float64)
     steps = []
@@ -519,6 +689,104 @@ def reference_check(torch):
     return dict(steps=steps)
 
 
+# ---------------------------------------------------------------------------
+# The unbatched route: mpc.simulate
+# ---------------------------------------------------------------------------
+
+def simulate_setup(torch, formulation: str, device, dtype):
+    """`mpc.simulate`'s arguments for one vehicle near the oval's start,
+    with the formulation's default solver options."""
+    from pigeon_tpu_torch import hji, mpc, trajectory
+
+    cols = trajectory.oval_columns()
+    make = {"coupled": mpc.x1_coupled_config,
+            "decoupled": mpc.x1_decoupled_config}[formulation]
+    q0 = torch.tensor([cols["E"][0] + 0.3, cols["N"][0] + 0.5,
+                       cols["psi"][0] + 0.03, 6.0, 0.0, 0.0], dtype=dtype,
+                      device=device)
+    return (make(soft=True),
+            trajectory.make_tube(**cols, pad_to=1024, device=device,
+                                 dtype=dtype),
+            hji.inactive_cache(device=device), q0)
+
+
+def run_simulate(torch, kernels, formulation: str):
+    """SIM_STEPS closed-loop steps of one vehicle on the card through
+    `mpc.simulate`.  The route must launch expm_dense once per step and no
+    other kernel.  Returns the record, the log, and torch.profiler's
+    per-step reading of SIM_PROFILE_STEPS more steps from the same
+    start."""
+    from pigeon_tpu_torch import mpc
+
+    cfg, tube, cache, q0 = simulate_setup(torch, formulation, "cuda",
+                                          torch.float32)
+    mpc.simulate(cfg, tube, cache, q0, n_steps=2)       # warm-up
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    log = mpc.simulate(cfg, tube, cache, q0, n_steps=SIM_STEPS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launched = kernels.launches()
+    require(all(v == (SIM_STEPS if k in PATH_KERNELS["simulate"] else 0)
+                for k, v in launched.items()),
+            f"simulate ({formulation}): launches {launched}")
+    require(log.q.device.type == "cuda" and log.u.device.type == "cuda",
+            "simulate: the log left the card")
+    require(log.q.shape == (SIM_STEPS, 6) and log.u.shape == (SIM_STEPS, 3)
+            and bool(torch.isfinite(log.q).all())
+            and bool(torch.isfinite(log.u).all()),
+            f"simulate ({formulation}): log not finite or misshapen")
+    conv = log.diag.converged
+    require(bool(conv[-1]), f"simulate ({formulation}): last step did not "
+                            f"converge")
+    rec = dict(formulation=formulation, steps=SIM_STEPS,
+               step_ms=wall / SIM_STEPS * 1e3,
+               converged_share=float(conv.float().mean()),
+               iters_mean=float(log.diag.iterations.float().mean()),
+               e_last=float(log.diag.e[-1]), launches=launched)
+    prof = profile_call(
+        torch, lambda: mpc.simulate(cfg, tube, cache, q0,
+                                    n_steps=SIM_PROFILE_STEPS),
+        SIM_PROFILE_STEPS)
+    return rec, log, prof
+
+
+def simulate_reference_check(torch, formulation: str, log):
+    """The card's `simulate` commands over the first SIM_REF_STEPS steps
+    against the same closed loop on the CPU at float64, by the rule of
+    `reference_check`: every command within the bar (2e-4 rad, 2 N) plus
+    twice the CPU float32-to-float64 gap at that step, and never more
+    than REF_CAP_BARS bars away; converged flags equal to the CPU
+    float32 loop's."""
+    from pigeon_tpu_torch import mpc
+
+    logs = {}
+    for dtype in (torch.float64, torch.float32):
+        cfg, tube, cache, q0 = simulate_setup(torch, formulation, "cpu",
+                                              dtype)
+        logs[dtype] = mpc.simulate(cfg, tube, cache, q0,
+                                   n_steps=SIM_REF_STEPS, device="cpu")
+    u64 = logs[torch.float64].u
+    ug = log.u[:SIM_REF_STEPS].cpu().double()
+    bar = torch.tensor([2e-4, 2.0, 2.0], dtype=torch.float64)
+    dg = (ug - u64).abs()
+    gap = (logs[torch.float32].u.double() - u64).abs()
+    allowed = torch.minimum(bar + 2.0 * gap, REF_CAP_BARS * bar)
+    rec = dict(formulation=formulation, steps=SIM_REF_STEPS,
+               err_bars=float((dg / bar).max()),
+               gap32_bars=float((gap / bar).max()),
+               max_excess=float((dg - allowed).max()),
+               state_err=float((log.q[:SIM_REF_STEPS].cpu().double()
+                                - logs[torch.float64].q).abs().max()))
+    require(rec["max_excess"] <= 0.0,
+            f"card simulate commands vs CPU float64: {rec}")
+    require(bool((log.diag.converged[:SIM_REF_STEPS].cpu()
+                  == logs[torch.float32].diag.converged).all()),
+            f"card simulate converged flags vs CPU float32: {rec}")
+    return rec
+
+
 def main() -> int:
     import torch
 
@@ -541,62 +809,131 @@ def main() -> int:
             for src, out in build_out.items()}
     log(phase="build", seconds=build_s, ptxas=regs)
 
-    # ---- kernel checks at the main path's shapes --------------------------
-    st = make_setup(torch, B_FLEET, "cuda")
-    captured = capture_kernel_inputs(lambda: closed_loop_step(torch, st))
-    st = make_setup(torch, B_SMALL, "cuda", hz=HZ_SMALL)
-    small = capture_kernel_inputs(lambda: closed_loop_step(torch, st))
+    # ---- kernel checks at the main paths' shapes ---------------------------
+    def capture_fleet(formulation, B=B_FLEET, hz=None):
+        st = make_setup(torch, B, "cuda", hz=hz, formulation=formulation)
+        return capture_kernel_inputs(lambda: closed_loop_step(torch, st))
+
+    def capture_step(formulation):
+        from pigeon_tpu_torch import mpc
+        cfg, tube, cache, q0 = simulate_setup(torch, formulation, "cuda",
+                                              torch.float32)
+        return capture_kernel_inputs(lambda: mpc.simulate(
+            cfg, tube, cache, q0, n_steps=1))
+
+    cap = capture_fleet("coupled")
+    cap_dec = capture_fleet("decoupled")
+    small = capture_fleet("coupled", B_SMALL, HZ_SMALL)
     require(small["admm_iterations"][0][2].shape[0] == 2 * sum(HZ_SMALL),
             "the 12-stage horizon's QP size")
-    del st
-    results = {}
+    require(cap_dec["admm_iterations"][0][1].shape[:2] == (180, 30)
+            and cap_dec["vanloan"][0][0].shape[1:] == (30, 4, 4),
+            "the decoupled fleet's QP and stage sizes")
+    cap["rollout"] = cap_dec["rollout_affine"]
+    cap["expm_dense"] = capture_step("coupled")["expm_dense"]
+    extra = {"rollout": None,
+             "expm_dense": dict(
+                 decoupled=capture_step("decoupled")["expm_dense"],
+                 fleet_vanloan=cap["vanloan"][0])}
+    require(cap["expm_dense"][0][0].shape == (1, 15, 19, 19)
+            and extra["expm_dense"]["decoupled"][0][0].shape
+            == (1, 30, 17, 17), "the unbatched route's dense stacks")
+
+    def log_check(kname, r, **more):
+        shown = ("err", "ms", "plain_ms", "library_ms", "bound_ms")
+        log(phase="kernel_check", name=kname,
+            tpu_kernel=KERNEL_META[kname][1], max_abs_err=r["err"],
+            kernel_ms=r["ms"], plain_ms=r["plain_ms"],
+            library_ms=r["library_ms"], bound_ms=r["bound_ms"], **more,
+            **{k: v for k, v in r.items() if k not in shown})
+
+    results, second = {}, {}
     for kname, (src, tpu, fn) in KERNEL_META.items():
-        args, kw = captured[kname]
-        r = fn(torch, args, kw, small[kname])
-        results[kname] = r
-        log(phase="kernel_check", name=kname, tpu_kernel=tpu,
-            max_abs_err=r["err"], kernel_ms=r["ms"], plain_ms=r["plain_ms"],
-            library_ms=r["library_ms"], bound_ms=r["bound_ms"],
-            **{k: v for k, v in r.items()
-               if k not in ("err", "ms", "plain_ms", "library_ms",
-                            "bound_ms")})
+        args, kw = cap[kname]
+        results[kname] = fn(torch, args, kw, extra.get(kname, small.get(kname)))
+        log_check(kname, results[kname])
+        if kname in cap_dec:
+            # the same kernel at the decoupled fleet's shapes: vanloan at
+            # n=4, T=30; the solver kernels at n=30, m=180
+            second[kname] = fn(torch, *cap_dec[kname])
+            log_check(kname, second[kname], path="fleet_decoupled")
+    del cap, cap_dec, small, extra
 
-    # ---- the main path ----------------------------------------------------
-    kernels.reset_launches()
-    recs, st = run_fleet(torch, B_FLEET, WARM_STEPS, kernels)
-    main_launches = kernels.launches()
+    # ---- path: the coupled fleet ------------------------------------------
+    launches = {}
+
+    def fleet_phase(formulation, phase):
+        kernels.reset_launches()
+        recs, st = run_fleet(torch, B_FLEET, WARM_STEPS[formulation], kernels,
+                             formulation)
+        launches[phase] = kernels.launches()
+        warm_ms = [r["ms"] for r in recs[1:]]
+        last = recs[-1]
+        log(phase=phase, batch=B_FLEET, cold_ms=recs[0]["ms"],
+            warm_ms_median=float(np.median(warm_ms)),
+            solves_per_s=B_FLEET / (float(np.median(warm_ms)) / 1e3),
+            iters_mean_last=last["iters"], converged_last=last["conv"],
+            launches=launches[phase], steps=recs)
+        require(last["conv"] >= 0.99, f"converged fraction {last['conv']}")
+        log(phase="profile", path=phase, batch=B_FLEET,
+            **profile_step(torch, st))
+
+    fleet_phase("coupled", "fleet")
+    # ---- path: the decoupled fleet ----------------------------------------
+    fleet_phase("decoupled", "fleet_decoupled")
+
+    # ---- path: the unbatched closed loop ----------------------------------
+    sim_logs = {}
+    launches["simulate"] = dict.fromkeys(KERNEL_META, 0)
+    for formulation in ("coupled", "decoupled"):
+        rec, sim_logs[formulation], prof = run_simulate(torch, kernels,
+                                                        formulation)
+        for k, v in rec["launches"].items():
+            launches["simulate"][k] += v
+        log(phase="simulate", **rec)
+        log(phase="profile", path="simulate", formulation=formulation,
+            batch=1, **prof)
+
+    main_launches = {k: sum(per[k] for per in launches.values())
+                     for k in KERNEL_META}
     require(all(v > 0 for v in main_launches.values()), main_launches)
-    warm_ms = [r["ms"] for r in recs[1:]]
-    last = recs[-1]
-    log(phase="fleet", batch=B_FLEET, cold_ms=recs[0]["ms"],
-        warm_ms_median=float(np.median(warm_ms)),
-        solves_per_s=B_FLEET / (float(np.median(warm_ms)) / 1e3),
-        iters_mean_last=last["iters"], converged_last=last["conv"],
-        launches=main_launches, steps=recs)
-    require(last["conv"] >= 0.99, f"converged fraction {last['conv']}")
-    log(phase="profile", batch=B_FLEET, **profile_step(torch, st))
-    del st
 
-    # ---- reference check on a small fleet ---------------------------------
-    ref = reference_check(torch)
-    log(phase="reference", batch=B_REF, **ref)
+    # ---- reference checks -------------------------------------------------
+    for formulation in ("coupled", "decoupled"):
+        log(phase="reference", formulation=formulation, batch=B_REF,
+            **reference_check(torch, formulation))
+    for formulation, sim_log in sim_logs.items():
+        log(phase="reference_simulate",
+            **simulate_reference_check(torch, formulation, sim_log))
 
     # ---- B=1 latency ------------------------------------------------------
-    recs1, st1 = run_fleet(torch, 1, WARM_STEPS, kernels)
+    recs1, st1 = run_fleet(torch, 1, B1_STEPS, kernels)
     log(phase="latency_b1", cold_ms=recs1[0]["ms"],
         warm_ms_median=float(np.median([r["ms"] for r in recs1[1:]])),
         converged_last=recs1[-1]["conv"])
-    log(phase="profile", batch=1, **profile_step(torch, st1))
+    log(phase="profile", path="latency_b1", batch=1,
+        **profile_step(torch, st1))
 
-    print(json.dumps({"kernels": [
-        dict(name=k, route="cuda", source=KERNEL_META[k][0],
-             replaces=KERNEL_META[k][1], launches=main_launches[k],
-             max_abs_err=results[k]["err"], ms=results[k]["ms"],
-             plain_ms=results[k]["plain_ms"],
-             bound_ms=results[k]["bound_ms"],
-             bound_by=results[k]["bound_by"],
-             library_ms=results[k]["library_ms"])
-        for k in KERNEL_META]}), flush=True)
+    def entry(k):
+        r = results[k]
+        out = dict(name=k, route="cuda", source=KERNEL_META[k][0],
+                   replaces=KERNEL_META[k][1], launches=main_launches[k],
+                   max_abs_err=r["err"], ms=r["ms"], plain_ms=r["plain_ms"],
+                   bound_ms=r["bound_ms"], bound_by=r["bound_by"],
+                   library_ms=r["library_ms"], shapes=r["shapes"],
+                   launches_by_path={ph: per[k]
+                                     for ph, per in launches.items()})
+        others = dict(fleet_decoupled=second.get(k),
+                      decoupled_step=r.get("decoupled_step"),
+                      fleet_stack=r.get("fleet_stack"))
+        keys = ("shapes", "err", "ms", "plain_ms", "bound_ms", "bound_by",
+                "library_ms")
+        out["other_shapes"] = {name: {q: o[q] for q in keys}
+                               for name, o in others.items() if o}
+        return out
+
+    print(json.dumps({"kernels": [entry(k) for k in KERNEL_META]}),
+          flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

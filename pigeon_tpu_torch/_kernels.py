@@ -70,6 +70,10 @@ KERNELS = {
     "admm_iterations": Kernel(
         "admm_iterations_f32", "admm_iterations.cu",
         [_P] * 15 + [_I, _I, _I, _I, _F, _F, _I, _F, _F]),
+    "rollout": Kernel("rollout_f32", "rollout.cu",
+                      [_P, _P, _P, _L, _I, _I, _I]),
+    "expm_dense": Kernel("expm_dense_f32", "expm_dense.cu",
+                         [_P, _P, _L, _I, _I, _I]),
 }
 
 

@@ -16,7 +16,7 @@ import torch
 
 from pigeon_tpu_torch import resolve_device
 from pigeon_tpu_torch.hji import HJICache
-from pigeon_tpu_torch.mpc import MPCCarry
+from pigeon_tpu_torch.mpc import MPCCarry, SimLog, StepDiagnostics
 from pigeon_tpu_torch.trajectory import (COLUMNS, LookupIndex,
                                          TrajectoryTube, tube_from_columns)
 
@@ -55,13 +55,31 @@ def cache_from_numpy(arrays: Mapping, device=None) -> HJICache:
         strides=tuple(int(s) for s in arrays["strides"]))
 
 
+def _fields_from_numpy(cls, arrays: Mapping, device, dtype):
+    """A NamedTuple of tensors from its fields as numpy: floating fields
+    in `dtype`, boolean and integer fields as they are."""
+    out = {}
+    for name in cls._fields:
+        v = np.array(arrays[name])
+        kind = dtype if np.issubdtype(v.dtype, np.floating) else None
+        out[name] = torch.as_tensor(v, dtype=kind, device=device)
+    return cls(**out)
+
+
 def carry_from_numpy(arrays: Mapping, device=None,
                      dtype=torch.float32) -> MPCCarry:
-    """`arrays`: the `MPCCarry` fields of a batched carry."""
+    """`arrays`: the `MPCCarry` fields, of either formulation (q_prev
+    (..., N, 6) coupled, (..., N, 4) decoupled), batched or of one
+    vehicle."""
+    return _fields_from_numpy(MPCCarry, arrays, resolve_device(device), dtype)
+
+
+def simlog_from_numpy(arrays: Mapping, device=None,
+                      dtype=torch.float32) -> SimLog:
+    """`arrays`: `q` (n_steps, 6), `u` (n_steps, 3) and `diag`, a mapping
+    of the stacked `StepDiagnostics` fields."""
     device = resolve_device(device)
-    out = {}
-    for name in MPCCarry._fields:
-        v = np.array(arrays[name])
-        kind = torch.bool if v.dtype == np.bool_ else dtype
-        out[name] = torch.as_tensor(v, dtype=kind, device=device)
-    return MPCCarry(**out)
+    as_f = lambda v: torch.as_tensor(np.array(v), dtype=dtype, device=device)
+    return SimLog(q=as_f(arrays["q"]), u=as_f(arrays["u"]),
+                  diag=_fields_from_numpy(StepDiagnostics, arrays["diag"],
+                                          device, dtype))

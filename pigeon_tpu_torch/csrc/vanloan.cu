@@ -1,4 +1,4 @@
-// Structured Van Loan exponential of the coupled MPC's FOH/ZOH stage
+// Structured Van Loan exponential of the MPC's FOH/ZOH stage
 // augmentation, one thread per (instance, stage).
 //
 // Replaces the TPU kernel pigeon_tpu/discretize.py:_vanloan_lane_kernel.
@@ -12,7 +12,7 @@
 //
 // Bound on the card: ~0.8 KB of traffic and ~12 kFLOP per stage (95 MB
 // and 1.5 GFLOP per fleet step at B=8192, T=15) -- neither bound is near,
-// so the kernel is latency-bound; the 6x6 working matrices live in
+// so the kernel is latency-bound; the n x n working matrices live in
 // registers (and local memory where they spill).
 
 #include <cuda_runtime.h>
@@ -140,20 +140,26 @@ __global__ void vanloan_kernel(const float* __restrict__ P0,
 
 }  // namespace
 
-// count = instances * stages; returns cudaGetLastError() (invalid value
-// for a shape the kernel is not built for).
+// count = instances * stages; built for (n, m) = (6, 6), the coupled
+// tracking model, and (4, 6), the decoupled lateral model.  Returns
+// cudaGetLastError() (invalid value for any other shape).
 extern "C" int vanloan_f32(const float* P0, const float* Cu0,
                            const float* cc0, const float* rr, float* A,
                            float* X, float* Y, float* z, long long count,
                            int n, int m, int squarings, int order,
                            void* stream) {
-  if (n != 6 || m != 6 || order < 2 || squarings < 0)
+  if (m != 6 || (n != 6 && n != 4) || order < 2 || squarings < 0)
     return (int)cudaErrorInvalidValue;
   if (count <= 0) return 0;
   const int threads = 128;
   const long long blocks = (count + threads - 1) / threads;
-  vanloan_kernel<6, 6><<<(unsigned)blocks, threads, 0,
-                         (cudaStream_t)stream>>>(
-      P0, Cu0, cc0, rr, A, X, Y, z, count, squarings, order);
+  if (n == 6)
+    vanloan_kernel<6, 6><<<(unsigned)blocks, threads, 0,
+                           (cudaStream_t)stream>>>(
+        P0, Cu0, cc0, rr, A, X, Y, z, count, squarings, order);
+  else
+    vanloan_kernel<4, 6><<<(unsigned)blocks, threads, 0,
+                           (cudaStream_t)stream>>>(
+        P0, Cu0, cc0, rr, A, X, Y, z, count, squarings, order);
   return (int)cudaGetLastError();
 }

@@ -1,7 +1,10 @@
 """Integration and horizon linearization.  Counterpart of
 `pigeon_tpu/discretize.py`: RK4 `propagate`, the fixed scaling-and-squaring
-`expm_fixed`, and the fused ZOH/FOH horizon linearization whose structured
-Van Loan exponential is a CUDA kernel (`csrc/vanloan.cu`).
+`expm_fixed` and its CUDA kernel `expm_dense` (`csrc/expm_dense.cu`), and
+the fused ZOH/FOH horizon linearization.  Its Van Loan exponential takes
+one of two routes, as in the JAX package: the structured form
+(`csrc/vanloan.cu`) for a fleet, the dense stage matrix through
+`expm_dense` for the unbatched controller.
 
 Dynamics callables have signature f(q, ur) -> qdot with the trailing `ur`
 the stacked [u2; p4] input and broadcast over leading dimensions; `n_keep`
@@ -53,8 +56,41 @@ def expm_fixed(M, squarings: int = 8, order: int = 8):
     return E
 
 
+# The dense kernel keeps a matrix in three 32 x 33 shared-memory tiles.
+EXPM_D_MAX = 32
+
+
+def expm_dense(M, squarings: int = 8, order: int = 8):
+    """`expm_fixed` of a (..., d, d) stack, d <= 32.  CUDA tensors
+    (float32, contiguous) launch `csrc/expm_dense.cu`, one thread block
+    per matrix holding the whole chain in shared memory; CPU tensors run
+    `expm_fixed`.
+
+    Replaces the TPU kernels `pigeon_tpu/discretize.py:_expm_lane_kernel`
+    and `_expm_chain_kernel` (the same chain, on lanes and on packed
+    128 x 128 tiles).  Per matrix it moves 8 d^2 bytes and does
+    2 d^3 (order - 1 + squarings) FLOP: bound by operations for a large
+    stack, by the launch for the 15 or 30 stage matrices of one vehicle."""
+    if M.dim() < 2 or M.shape[-1] != M.shape[-2]:
+        raise ValueError(f"M must be (..., d, d), got {tuple(M.shape)}")
+    if order < 1 or squarings < 0:
+        raise ValueError(f"expm_dense needs order >= 1 and squarings >= 0, "
+                         f"got {order}, {squarings}")
+    _kernels.check_same(M=(M, tuple(M.shape)))
+    if M.device.type == "cpu":
+        return expm_fixed(M, squarings, order)
+    _kernels.check_cuda_f32(M=M)
+    d = M.shape[-1]
+    if d > EXPM_D_MAX:
+        raise ValueError(f"the CUDA kernel takes d <= {EXPM_D_MAX}, got {d}")
+    out = torch.empty_like(M)
+    _kernels.KERNELS["expm_dense"].launch(
+        M, out, M.numel() // (d * d), d, squarings, order)
+    return out
+
+
 # ---------------------------------------------------------------------------
-# Structured Van Loan exponential of the FOH/ZOH stage augmentation
+# Van Loan exponential of the FOH/ZOH stage augmentation
 # ---------------------------------------------------------------------------
 #
 # The fused-horizon stage matrix is block upper triangular,
@@ -79,6 +115,10 @@ def _check_order(order: int):
     # order-`order` Taylor polynomial only for order >= 2
     if order < 2:
         raise ValueError(f"vanloan needs order >= 2, got {order}")
+
+
+# (n, m) of the models the kernel is built for: tracking and lateral
+VANLOAN_SHAPES = ((6, 6), (4, 6))
 
 
 def vanloan_plain(P0, Cu0, cc0, rr, squarings: int, order: int):
@@ -117,7 +157,8 @@ def vanloan(P0, Cu0, cc0, rr, squarings: int, order: int):
 
     P0 (B, T, n, n), Cu0 (B, T, n, m), cc0 (B, T, n, 1), rr (B, T).
     CUDA tensors (float32, contiguous) launch `csrc/vanloan.cu`, one
-    thread per (instance, stage); CPU tensors run `vanloan_plain`.
+    thread per (instance, stage), built for (n, m) = (6, 6) and (4, 6);
+    CPU tensors run `vanloan_plain`.
 
     Replaces the TPU kernel `pigeon_tpu/discretize.py:_vanloan_lane_kernel`.
     On the card it moves ~0.8 KB per (instance, stage) (95 MB per step at
@@ -133,6 +174,9 @@ def vanloan(P0, Cu0, cc0, rr, squarings: int, order: int):
     if P0.device.type == "cpu":
         return vanloan_plain(P0, Cu0, cc0, rr, squarings, order)
     _kernels.check_cuda_f32(P0=P0, Cu0=Cu0, cc0=cc0, rr=rr)
+    if (n, m) not in VANLOAN_SHAPES:
+        raise ValueError(f"the CUDA kernel is built for (n, m) in "
+                         f"{VANLOAN_SHAPES}, got {(n, m)}")
     A = torch.empty_like(P0)
     Xo = torch.empty_like(Cu0)
     Yo = torch.empty_like(Cu0)
@@ -140,6 +184,28 @@ def vanloan(P0, Cu0, cc0, rr, squarings: int, order: int):
     _kernels.KERNELS["vanloan"].launch(
         P0, Cu0, cc0, rr, A, Xo, Yo, zo, B * T, n, m, squarings, order)
     return A, Xo, Yo, zo
+
+
+def vanloan_dense(P0, Cu0, cc0, rr, squarings: int, order: int):
+    """The same four blocks from the dense (n + 2m + 1)^2 stage matrix
+    through `expm_dense`: the route the unbatched controller takes, as
+    the JAX package's does.  Shapes as `vanloan`, any leading dimensions.
+    A ZOH stage (rr = 0) leaves Phi_qv at rounding level, not exactly 0
+    as the structured form does."""
+    n, m = Cu0.shape[-2:]
+    lead = tuple(P0.shape[:-2])
+    _kernels.check_same(P0=(P0, lead + (n, n)), Cu0=(Cu0, lead + (n, m)),
+                        cc0=(cc0, lead + (n, 1)), rr=(rr, lead))
+    dim = n + 2 * m + 1
+    M = torch.zeros(lead + (dim, dim), dtype=P0.dtype, device=P0.device)
+    M[..., :n, :n] = P0
+    M[..., :n, n:n + m] = Cu0
+    M[..., :n, -1] = cc0[..., 0]
+    M[..., n:n + m, n + m:n + 2 * m] = (
+        rr[..., None, None] * torch.eye(m, dtype=P0.dtype, device=P0.device))
+    E = expm_dense(M, squarings, order)
+    return (E[..., :n, :n], E[..., :n, n:n + m], E[..., :n, n + m:n + 2 * m],
+            E[..., :n, -1:])
 
 
 def batched_jacobians(f, q, u):
@@ -168,9 +234,12 @@ def batched_jacobians(f, q, u):
 
 
 def linearize_horizon_fused(f, qs, urs, dts, S: int, n_keep: int,
-                            squarings: int = 8, order: int = 8):
+                            squarings: int = 8, order: int = 8,
+                            dense: bool = False):
     """Batched fused exact linearization: ZOH for stages [0, S), FOH for
-    [S, T), one structured exponential per (instance, stage).
+    [S, T), one exponential per (instance, stage): the structured
+    `vanloan`, or with `dense` the stage matrix through `vanloan_dense`
+    (what the JAX package does unbatched).
 
     qs (B, N, n), urs (B, N, m) nodes with N = T+1; dts (B, T).  FOH
     stages ramp urs[t] -> urs[t+1]; ZOH stages hold urs[t] (zero ramp, for
@@ -189,7 +258,7 @@ def linearize_horizon_fused(f, qs, urs, dts, S: int, n_keep: int,
     ct = ct.reshape(Bn, T, n)
     foh = (torch.arange(T, device=dts.device) >= S).to(dts.dtype)
     d3 = dts[..., None, None]
-    A, Phi_qu, Phi_qv, zcol = vanloan(
+    A, Phi_qu, Phi_qv, zcol = (vanloan_dense if dense else vanloan)(
         (Jq * d3).contiguous(), (Ju * d3).contiguous(),
         (ct * dts[..., None])[..., None].contiguous(),
         (foh * dts).contiguous(), squarings, order)

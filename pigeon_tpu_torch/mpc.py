@@ -1,14 +1,21 @@
 """MPC orchestration of the port: the two-timescale time grid,
-linearization-node seeding (cold trim rollout and warm resampling), and
-the batched control step `mpc_step_batched`.
+linearization-node seeding (cold trim rollout and warm resampling), the
+batched control step `mpc_step_batched`, the single-vehicle `mpc_step`
+and the closed-loop `simulate`.
 
-Counterpart of the coupled soft path of `pigeon_tpu/mpc.py`: path
-projection, node seeding, HJI constraint, exact linearization and soft
-condensed QP assembly, the lane ADMM solve, control extraction, clamping
-and NaN fallback for a fleet of B vehicles.  Every tensor carries a
-leading batch dimension where the JAX package used `vmap`, and each
-`lax.scan` over stages is a Python loop.  The step makes no host sync
-when the solver runs one segment (max_iter == check_every).
+Counterpart of the soft paths of `pigeon_tpu/mpc.py`, coupled and
+decoupled: path projection, node seeding, HJI constraint, exact
+linearization and soft condensed QP assembly, the ADMM solve, control
+extraction, clamping and NaN fallback.  Every tensor carries a leading
+batch dimension where the JAX package used `vmap`, and each `lax.scan`
+over stages is a Python loop.
+
+Two routes, as in the JAX package.  `mpc_step_batched` (a fleet)
+linearizes through the structured Van Loan kernel and solves with
+`solve_qp_batched`; on the "lanes" backend with one segment
+(max_iter == check_every) the step makes no host sync.  `mpc_step` (one
+vehicle) linearizes through the dense stage matrix on the dense expm
+kernel and solves with the single-instance `solve_qp`.
 """
 
 from __future__ import annotations
@@ -18,6 +25,7 @@ from typing import NamedTuple
 
 import torch
 
+from pigeon_tpu_torch import discretize as dz
 from pigeon_tpu_torch import dynamics as dyn
 from pigeon_tpu_torch import hji as hji_mod
 from pigeon_tpu_torch import resolve_device
@@ -27,17 +35,18 @@ from pigeon_tpu_torch.config import (CoupledControlParams,
                                      SolverOptions, VehicleParams, x1_params)
 from pigeon_tpu_torch.math_utils import adiff
 from pigeon_tpu_torch.qp import condensed as qp_condensed
+from pigeon_tpu_torch.qp import decoupled as qp_decoupled
 from pigeon_tpu_torch.qp.coupled import CoupledStageData, u_normalization
-from pigeon_tpu_torch.solver.admm import QPData, QPSolution, QPWarmStart
-from pigeon_tpu_torch.solver.lane_admm import solve_lanes_batched
+from pigeon_tpu_torch.solver.admm import (QPData, QPSolution, QPWarmStart,
+                                          solve_qp, solve_qp_batched)
 
 
 @dataclasses.dataclass(frozen=True)
 class MPCConfig:
     """Static controller configuration, the same fields as
-    `pigeon_tpu.mpc.MPCConfig`.  The port runs the coupled soft condensed
-    formulation on the lane solver (`solver.backend` is not read);
-    `_check_supported` rejects the options it has not ported."""
+    `pigeon_tpu.mpc.MPCConfig`.  The port runs the soft condensed
+    formulations, coupled and decoupled; `_check_supported` rejects the
+    options it has not ported."""
 
     veh: VehicleParams
     hz: HorizonParams
@@ -65,21 +74,26 @@ def x1_coupled_config(**kw) -> MPCConfig:
     return MPCConfig(veh=x1_params(), hz=hz, formulation="coupled", **kw)
 
 
+def x1_decoupled_config(**kw) -> MPCConfig:
+    """The decoupled singleton: N_short=10, N_long=20."""
+    hz = kw.pop("hz", HorizonParams(N_short=10, N_long=20))
+    return MPCConfig(veh=x1_params(), hz=hz, formulation="decoupled", **kw)
+
+
 def _check_supported(cfg: MPCConfig):
     unsupported = []
-    if cfg.formulation != "coupled" or not cfg.soft:
-        unsupported.append("only the coupled soft formulation is ported")
+    if cfg.formulation not in ("coupled", "decoupled"):
+        unsupported.append(f"unknown formulation {cfg.formulation!r}")
+    if not cfg.soft:
+        unsupported.append("only the soft formulations are ported")
     if cfg.lin_method != "expm":
         unsupported.append("only lin_method='expm' is ported")
     if cfg.lin_substeps != 1:
         unsupported.append("lin_substeps (the rk4 linearization's substeps) "
                            "is not ported")
-    if cfg.sim_substeps != 1:
-        unsupported.append("sim_substeps (the plant of `simulate`) is not "
-                           "ported")
     if cfg.use_hji_policy:
         unsupported.append("the HJI override (use_hji_policy) is not ported")
-    if cfg.coupled.use_walls:
+    if cfg.formulation == "coupled" and cfg.coupled.use_walls:
         unsupported.append("wall rows (use_walls) are not ported")
     if unsupported:
         raise NotImplementedError("; ".join(unsupported))
@@ -108,10 +122,11 @@ def compute_time_steps(hz: HorizonParams, t):
 # ---------------------------------------------------------------------------
 
 class MPCCarry(NamedTuple):
-    """Controller state threaded between steps, batched over vehicles."""
+    """Controller state threaded between steps, batched over vehicles
+    (`mpc_step` takes and returns it without the leading dimension)."""
 
     prev_ts: torch.Tensor         # (B, N)
-    q_prev: torch.Tensor          # (B, N, 6) previous solution states
+    q_prev: torch.Tensor          # (B, N, nx) previous solution states
     u_prev: torch.Tensor          # (B, N, 2) previous solution controls
     solved: torch.Tensor          # (B,) bool: warm data valid
     warm_x: torch.Tensor          # (B, n) ADMM warm start
@@ -134,20 +149,31 @@ class StepDiagnostics(NamedTuple):
     solution_finite: torch.Tensor
 
 
-def init_carry(cfg: MPCConfig, batch: int, dtype=torch.float32,
+def _soft_layout(cfg: MPCConfig):
+    if cfg.formulation == "coupled":
+        return qp_condensed.get_soft_layout(cfg.hz, cfg.coupled.use_walls)
+    return qp_decoupled.get_soft_layout(cfg.hz)
+
+
+def init_carry(cfg: MPCConfig, batch: "int | None", dtype=torch.float32,
                device=None) -> MPCCarry:
-    """A cold carry for `batch` vehicles on `device` (None: the card)."""
+    """A cold carry for `batch` vehicles on `device` (None: the card);
+    `batch=None` gives the carry of one vehicle without the leading
+    dimension, as `mpc_step` takes it."""
     _check_supported(cfg)
     device = resolve_device(device)
+    if batch is None:
+        return MPCCarry(*[x[0] for x in init_carry(cfg, 1, dtype, device)])
     N = cfg.hz.N
-    L = qp_condensed.get_soft_layout(cfg.hz, cfg.coupled.use_walls)
+    nx = 6 if cfg.formulation == "coupled" else 4
+    L = _soft_layout(cfg)
     z = lambda *shape: torch.zeros((batch,) + shape, dtype=dtype,
                                    device=device)
     no = torch.zeros((batch,), dtype=torch.bool, device=device)
     return MPCCarry(
         prev_ts=torch.arange(1, N + 1, dtype=dtype, device=device)
         .expand(batch, N).clone(),
-        q_prev=z(N, 6), u_prev=z(N, 2), solved=no,
+        q_prev=z(N, nx), u_prev=z(N, 2), solved=no,
         warm_x=z(L.n), warm_y=z(L.m), warm_z=z(L.m),
         current_control=z(3), nan_fallback=no.clone(),
         warm_rho=torch.ones((batch,), dtype=dtype, device=device))
@@ -158,8 +184,8 @@ def init_carry(cfg: MPCConfig, batch: int, dtype=torch.float32,
 # ---------------------------------------------------------------------------
 
 def _accel_desired(cfg, tj_A, tj_V, V, ds_i, tau):
-    """Feedforward accel law."""
-    ctl = cfg.coupled
+    """Feedforward accel law, with the formulation's own gains."""
+    ctl = cfg.coupled if cfg.formulation == "coupled" else cfg.decoupled
     A = tj_A + ctl.k_V * (tj_V - V) / tau
     if cfg.timed_mode:
         A = A - ctl.k_s * ds_i / (tau * tau)
@@ -260,6 +286,65 @@ def _nodes_coupled_warm(cfg: MPCConfig, tube, q0, u0, ts, carry: MPCCarry,
 
 
 # ---------------------------------------------------------------------------
+# Linearization nodes, decoupled (reference src/decoupled_lat_long.jl:52-104;
+# always trim-seeded: the reference decoupled MPC has no warm branch)
+# ---------------------------------------------------------------------------
+
+def _nodes_decoupled(cfg: MPCConfig, tube, q0, u0, ts, dt, s0, e0):
+    """Lateral nodes (Uy, r, dpsi, e) with parameters (Ux, kappa, 0, 0):
+    stage 0 from the measured state, short stages holding the measured
+    (Uy, r, e) with the 1-iteration warm-state trim's controls, long
+    stages at the 4-iteration cold trim.  (s0, e0) is the projection of
+    q0."""
+    veh, hz = cfg.veh, cfg.hz
+    S, N = hz.N_short, hz.N
+    V0 = torch.hypot(q0[:, 3], q0[:, 4])
+    beta0 = torch.atan2(q0[:, 4], q0[:, 3])
+    r0, delta0 = q0[:, 5], u0[:, 0]
+    Fyf0, _ = dyn.lateral_tire_forces(veh, q0[:, 3], q0[:, 4], q0[:, 5], u0)
+    u20 = torch.stack([u0[:, 0], u0[:, 1] + u0[:, 2]], dim=-1)
+
+    tj0 = trj.eval_arclength(tube, s0, fields=("psi", "kappa"))
+    q_0 = torch.stack([q0[:, 4], q0[:, 5], adiff(q0[:, 2], tj0.psi), e0],
+                      dim=-1)
+    p_0 = torch.stack([q0[:, 3], tj0.kappa, 0.0 * s0, 0.0 * s0], dim=-1)
+    qdot = dyn.vehicle_ode(veh, "bicycle", q0, u20, torch.zeros_like(q0[:, :4]))
+    A_0 = ((qdot[:, 3] - q0[:, 5] * q0[:, 4]) * torch.cos(beta0)
+           + (qdot[:, 4] + q0[:, 5] * q0[:, 3]) * torch.sin(beta0))
+
+    tau0 = dt[:, 0]
+    V = V0 + A_0 * tau0
+    s = s0 + V * tau0 + A_0 * tau0 * tau0 / 2.0
+    taus = torch.cat([dt[:, 1:], dt[:, N - 2:N - 1]], dim=-1)
+    cti = cfg.tire_inverse == "corrected"
+
+    qs, us, ps = [q_0], [u20], [p_0]
+    for i in range(N - 1):
+        tau, t_i = taus[:, i], ts[:, i + 1]
+        tj = trj.eval_arclength(tube, s, fields=("psi", "kappa"))
+        ds_i = s - trj.eval_time(tube, t_i, fields=()).s
+        A_des = _accel_desired(cfg, tj.A, tj.V, V, ds_i, tau)
+        if i < S:
+            est = dyn.steady_state_estimates(
+                veh, V, A_des, tj.kappa, num_iters=1, r=r0, beta0=beta0,
+                delta0=delta0, Fyf0=Fyf0, corrected_tire_inverse=cti)
+            q = torch.stack([q0[:, 4], q0[:, 5], adiff(q0[:, 2], tj.psi),
+                             e0], dim=-1)
+        else:
+            est = dyn.steady_state_estimates(
+                veh, V, A_des, tj.kappa, num_iters=4,
+                corrected_tire_inverse=cti)
+            q = torch.stack([est.Uy, est.r, -est.beta, 0.0 * s], dim=-1)
+        qs.append(q)
+        us.append(torch.stack([est.delta, est.Fxf + est.Fxr], dim=-1))
+        ps.append(torch.stack([est.Ux, tj.kappa, 0.0 * s, 0.0 * s], dim=-1))
+        V = V + est.A * tau
+        s = s + V * tau + est.A * tau * tau / 2.0
+    return (torch.stack(qs, dim=1), torch.stack(us, dim=1),
+            torch.stack(ps, dim=1))
+
+
+# ---------------------------------------------------------------------------
 # The MPC step
 # ---------------------------------------------------------------------------
 
@@ -278,14 +363,27 @@ class _PreAux(NamedTuple):
 
 
 def _pre_solve(cfg: MPCConfig, tube, cache, carry: MPCCarry, q0, u0,
-               other_car, t):
+               other_car, t, unbatched: bool = False):
     """Projection, node seeding, HJI constraint, linearization and QP
-    assembly.  Both node sets are computed and selected per vehicle by
-    `carry.solved` (the JAX package's "auto" branch; equal to its
-    warm-only branch when every carry is warm), so no host sync."""
+    assembly.  Coupled: both node sets are computed and selected per
+    vehicle by `carry.solved` (the JAX package's "auto" branch; equal to
+    its warm-only branch when every carry is warm), so no host sync.
+    Decoupled: always the trim-seeded nodes, no HJI row.  `unbatched`
+    (set by `mpc_step`) takes the single-vehicle route of the assembly:
+    dense linearization, sequential rollout."""
     veh, hz = cfg.veh, cfg.hz
     ts, dt = compute_time_steps(hz, t)
     s0, e0, _ = trj.path_coordinates(tube, q0[:, :2])
+    Bn = q0.shape[0]
+
+    if cfg.formulation == "decoupled":
+        qs, us, ps = _nodes_decoupled(cfg, tube, q0, u0, ts, dt, s0, e0)
+        V_hji = torch.full((Bn,), torch.inf, dtype=q0.dtype,
+                           device=q0.device)
+        data = qp_decoupled.DecoupledStageData(dt=dt, qs=qs, us=us, ps=ps)
+        sqp = qp_decoupled.build_qp_soft(veh, cfg.decoupled, hz, data,
+                                         unbatched=unbatched)
+        return _pack_pre(carry, sqp, ts, s0, e0, V_hji, us, qs)
 
     cold = _nodes_coupled_cold(cfg, tube, q0, u0, ts, dt, s0, e0)
     if cfg.warm_nodes:
@@ -297,7 +395,6 @@ def _pre_solve(cfg: MPCConfig, tube, cache, carry: MPCCarry, q0, u0,
 
     u_lin = torch.stack([u0[:, 0], u0[:, 1] + u0[:, 2]], dim=-1)
     x_rel = hji_mod.relative_state(q0, other_car)
-    Bn = q0.shape[0]
     if cfg.coupled.use_hji:
         M, b, V_hji, _ = hji_mod.reachability_constraint(
             veh, cache, x_rel, cfg.hji_eps, u_lin)
@@ -322,7 +419,14 @@ def _pre_solve(cfg: MPCConfig, tube, cache, carry: MPCCarry, q0, u0,
                            device=q0.device)
 
     data = CoupledStageData(dt=dt, qs=qs, us=us, ps=ps, hji_M=M, hji_b=b)
-    sqp = qp_condensed.build_qp_soft(veh, cfg.coupled, hz, data)
+    sqp = qp_condensed.build_qp_soft(veh, cfg.coupled, hz, data,
+                                     unbatched=unbatched)
+    return _pack_pre(carry, sqp, ts, s0, e0, V_hji, us, qs)
+
+
+def _pack_pre(carry: MPCCarry, sqp, ts, s0, e0, V_hji, us, qs):
+    """The solver's inputs from an assembled soft QP: (QPData, warm start
+    masked by `carry.solved`, _PreAux)."""
     qp = QPData(sqp.P, sqp.q, sqp.A, sqp.l, sqp.u)
     solved = carry.solved
     warm_start = QPWarmStart(
@@ -339,9 +443,14 @@ def _post_solve(cfg: MPCConfig, carry: MPCCarry, q0, sol: QPSolution,
                 aux: _PreAux):
     """Control extraction, clamping, NaN fallback and carry update."""
     veh, hz = cfg.veh, cfg.hz
-    u2 = qp_condensed.extract_control_soft(veh, hz, sol.x)
-    q_sol, u_sol = qp_condensed.extract_trajectory_soft(
-        sol.x, veh, aux.G, aux.g, aux.q0_node, aux.us[:, 0])
+    if cfg.formulation == "coupled":
+        u2 = qp_condensed.extract_control_soft(veh, hz, sol.x)
+        q_sol, u_sol = qp_condensed.extract_trajectory_soft(
+            sol.x, veh, aux.G, aux.g, aux.q0_node, aux.us[:, 0])
+    else:
+        u2 = qp_decoupled.extract_control_soft(hz, sol.x, aux.us)
+        q_sol, u_sol = qp_decoupled.extract_trajectory_soft(
+            hz, sol.x, aux.G, aux.g, aux.q0_node, aux.us)
     if cfg.clamp_commands:
         u2 = dyn.apply_control_limits(veh, u2, q0[:, 3])
     Fxf, Fxr = dyn.longitudinal_split(veh, u2[:, 1])
@@ -379,9 +488,92 @@ def mpc_step_batched(cfg: MPCConfig, tube: trj.TrajectoryTube,
                      other_cars, ts):
     """One control step for a fleet: q0s (B, 6) bicycle states, u0s (B, 3)
     commands in effect, other_cars (B, 4) simple-car states, ts (B,)
-    times.  Returns (new carries, commands (B, 3), diagnostics)."""
+    times.  Returns (new carries, commands (B, 3), diagnostics).
+
+    The solver is `cfg.solver.backend`'s, as in the JAX package.  The
+    default, "xla", is the plain PyTorch ADMM on whatever device the
+    tensors lie; the two solver kernels (`chol_inverse`,
+    `admm_iterations`) run only under backend="lanes", which a caller
+    sets with `dataclasses.replace(cfg, solver=SolverOptions(
+    backend="lanes", ...))`.  The linearization and rollout kernels run
+    under either."""
     _check_supported(cfg)
     qp, warm, aux = _pre_solve(cfg, tube, cache, carries, q0s, u0s,
                                other_cars, ts)
-    sol = solve_lanes_batched(qp, warm, cfg.solver, w_soft=aux.w)
+    sol = solve_qp_batched(qp, warm, cfg.solver, w_soft=aux.w)
     return _post_solve(cfg, carries, q0s, sol, aux)
+
+
+def mpc_step(cfg: MPCConfig, tube: trj.TrajectoryTube,
+             cache: hji_mod.HJICache, carry: MPCCarry, q0, u0, other_car, t):
+    """One control step for one vehicle: `carry` without a batch dimension
+    (`init_carry(cfg, None, ...)`), q0 (6,), u0 (3,), other_car (4,), t a
+    number or a 0-d tensor; they are taken to the carry's device and
+    dtype.  Returns (new carry, command (3,), diagnostics), unbatched.
+
+    This is the JAX package's unbatched route, not `mpc_step_batched` at
+    B=1: the horizon is linearized through the dense Van Loan stage
+    matrix on `discretize.expm_dense`, the decoupled rollout is the
+    sequential loop, and the QP is solved by the single-instance
+    `solve_qp`, whatever `cfg.solver.backend` says."""
+    _check_supported(cfg)
+    like = dict(dtype=carry.warm_x.dtype, device=carry.warm_x.device)
+    lift = lambda v: torch.as_tensor(v, **like)[None]
+    carry_b = MPCCarry(*[x[None] for x in carry])
+    q0_b = lift(q0)
+    qp, warm, aux = _pre_solve(cfg, tube, cache, carry_b, q0_b, lift(u0),
+                               lift(other_car), lift(t), unbatched=True)
+    sol = solve_qp(QPData(*[x[0] for x in qp]),
+                   QPWarmStart(*[x[0] for x in warm]), cfg.solver,
+                   w_soft=aux.w[0])
+    new_carry, u3, diag = _post_solve(
+        cfg, carry_b, q0_b, QPSolution(*[x[None] for x in sol]), aux)
+    return (MPCCarry(*[x[0] for x in new_carry]), u3[0],
+            StepDiagnostics(*[x[0] for x in diag]))
+
+
+# ---------------------------------------------------------------------------
+# Closed-loop simulation (reference `simulate`,
+# src/model_predictive_control.jl:80-100)
+# ---------------------------------------------------------------------------
+
+class SimLog(NamedTuple):
+    q: torch.Tensor        # (n_steps, 6) plant states
+    u: torch.Tensor        # (n_steps, 3) commands in effect
+    diag: StepDiagnostics  # stacked over the steps
+
+
+def simulate(cfg: MPCConfig, tube: trj.TrajectoryTube,
+             cache: hji_mod.HJICache, q0, u0=None, other_car=None,
+             dt: float = 0.01, n_steps: int = 100, device=None) -> SimLog:
+    """Closed loop for one vehicle: log, MPC step, propagate the plant
+    with the *previous* command, adopt the new one (the reference loop's
+    order).  q0 (6,) fixes the dtype; `tube` and `cache` must lie on
+    `device` (None: the card)."""
+    _check_supported(cfg)
+    device = resolve_device(device)
+    veh = cfg.veh
+    q = torch.as_tensor(q0).to(device)
+    like = dict(dtype=q.dtype, device=device)
+    u = (torch.zeros(3, **like) if u0 is None
+         else torch.as_tensor(u0, **like))
+    other_car = torch.as_tensor(
+        [1e4, 1e4, 0.0, 0.0] if other_car is None else other_car, **like)
+
+    def f(q, ur):
+        return dyn.vehicle_ode(veh, "bicycle", q, ur[..., :2], ur[..., 2:])
+
+    carry = init_carry(cfg, None, dtype=q.dtype, device=device)
+    q_log, u_log, diag_log = [], [], []
+    for i in range(n_steps):
+        carry, u_next, diag = mpc_step(cfg, tube, cache, carry, q, u,
+                                       other_car, i * dt)
+        ur = torch.cat([u[0:1], u[1:2] + u[2:3], torch.zeros(4, **like)])
+        q_log.append(q)
+        u_log.append(u)
+        diag_log.append(diag)
+        q = dz.propagate(f, q, ur, dt, substeps=cfg.sim_substeps)
+        u = u_next
+    return SimLog(q=torch.stack(q_log), u=torch.stack(u_log),
+                  diag=StepDiagnostics(*[torch.stack(x)
+                                         for x in zip(*diag_log)]))

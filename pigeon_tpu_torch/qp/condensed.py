@@ -20,6 +20,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from pigeon_tpu_torch import _kernels
 from pigeon_tpu_torch import discretize as dz
 from pigeon_tpu_torch import dynamics as dyn
 from pigeon_tpu_torch.config import (CoupledControlParams, HorizonParams,
@@ -84,14 +85,68 @@ class SoftQP(NamedTuple):
     g: torch.Tensor        # (B, T, 6) offsets (pins folded in)
 
 
+# Horizon length from which the JAX package switches the rollout to its
+# associative scan; the kernel covers the horizons below it.
+ROLLOUT_SCAN_MIN_T = 64
+
+# The rollout kernel holds a column of M in registers for d up to this.
+ROLLOUT_D_MAX = 6
+
+
+def rollout_affine_unroll(A_all, E):
+    """Plain PyTorch version of the rollout: the sequential recursion
+    M_0 = E_0, M_t = A_t M_{t-1} + E_t over (B, T, d, d), (B, T, d, w)."""
+    M = E[:, 0]
+    out = [M]
+    for t in range(1, E.shape[1]):
+        M = A_all[:, t] @ M + E[:, t]
+        out.append(M)
+    return torch.stack(out, dim=1)
+
+
+def rollout_affine(A_all, E):
+    """Cumulative affine rollout per instance: A_all (B, T, d, d),
+    E (B, T, d, w) -> M (B, T, d, w).  CUDA tensors (float32, contiguous)
+    launch `csrc/rollout.cu`, one thread per (instance, column), and
+    raise `NotImplementedError` from T = `ROLLOUT_SCAN_MIN_T` on, where
+    the JAX package takes an associative scan that is not ported; CPU
+    tensors run `rollout_affine_unroll` at any T.
+
+    Replaces the TPU kernel
+    `pigeon_tpu/qp/condensed.py:_rollout_lane_kernel`.  It moves
+    4 T d (d + 2 w) bytes and does 2 T d^2 w FLOP per instance: bound by
+    bytes (259 MB at B=8192, T=30, d=4, w=31)."""
+    if A_all.dim() != 4 or E.dim() != 4:
+        raise ValueError(f"A_all must be (B, T, d, d) and E (B, T, d, w), "
+                         f"got {tuple(A_all.shape)}, {tuple(E.shape)}")
+    B, T, d, w = E.shape
+    _kernels.check_same(A_all=(A_all, (B, T, d, d)), E=(E, (B, T, d, w)))
+    if E.device.type == "cpu":
+        return rollout_affine_unroll(A_all, E)
+    if T >= ROLLOUT_SCAN_MIN_T:
+        raise NotImplementedError(
+            f"the associative-scan rollout is not ported: the CUDA kernel "
+            f"takes T < {ROLLOUT_SCAN_MIN_T}, got {T}")
+    _kernels.check_cuda_f32(A_all=A_all, E=E)
+    if d > ROLLOUT_D_MAX:
+        raise ValueError(f"the CUDA kernel takes d <= {ROLLOUT_D_MAX}, "
+                         f"got {d}")
+    out = torch.empty_like(E)
+    _kernels.KERNELS["rollout"].launch(A_all, E, out, B, T, d, w)
+    return out
+
+
 def _mv(M, v):
     return torch.einsum("...ij,...j->...i", M, v)
 
 
 def build_qp_soft(veh: VehicleParams, ctl: CoupledControlParams,
-                  hz: HorizonParams, data: CoupledStageData) -> SoftQP:
+                  hz: HorizonParams, data: CoupledStageData,
+                  unbatched: bool = False) -> SoftQP:
     """Assemble the soft condensed QPs of a batch (the exact-linearization
-    path of `pigeon_tpu.qp.condensed.build_qp_soft`, static unroll)."""
+    path of `pigeon_tpu.qp.condensed.build_qp_soft`, static unroll).
+    `unbatched` takes the dense linearization of the JAX package's
+    single-vehicle step (`discretize.linearize_horizon_fused`)."""
     S, N = hz.N_short, hz.N
     T = S + hz.N_long
     L = get_soft_layout(hz, ctl.use_walls)
@@ -107,7 +162,7 @@ def build_qp_soft(veh: VehicleParams, ctl: CoupledControlParams,
 
     ur = torch.cat([us, ps], dim=-1)
     A_all, B0_all, Bf_all, c_all = dz.linearize_horizon_fused(
-        f, qs, ur, dt, S, 2, squarings=4, order=6)
+        f, qs, ur, dt, S, 2, squarings=4, order=6, dense=unbatched)
     B0n = B0_all * unorm
     Bfn = Bf_all * unorm
 

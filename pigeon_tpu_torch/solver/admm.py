@@ -1,16 +1,34 @@
-"""OSQP-style QP containers, cold start and Ruiz equilibration, batched
-over a leading instance dimension.  Counterpart of the part of
-`pigeon_tpu/solver/admm.py` that the lane solver uses (admm.py:42-135).
+"""OSQP-style ADMM QP solver in plain PyTorch, batched over a leading
+instance dimension: containers, cold start, Ruiz equilibration, the
+explicit KKT inverse and the segment loop with adaptive rho.  Counterpart
+of `pigeon_tpu/solver/admm.py` without its "pallas" backend and its
+banded factorization.
 
 Canonical form: minimize 1/2 x'Px + q'x subject to l <= Ax <= u, with P a
 dense (..., n, n) Hessian or a (..., n) diagonal.
+
+    x~ : solve K x~ = sigma x - q + A'(rho z - y),  K = P + sigma I + A' rho A
+    z~ = A x~
+    x+ = alpha x~ + (1-alpha) x
+    z+ = prox(alpha z~ + (1-alpha) z + y/rho)   (box, or shrink for soft rows)
+    y+ = y + rho (alpha z~ + (1-alpha) z - z+)
+
+The JAX package writes the solver for one instance and batches it with
+`vmap`, under which its two nested `while_loop`s run until every instance
+is done and a finished instance keeps its values.  Here the batch is a
+leading dimension and that rule is written out: each loop carries a mask
+of the instances still in it and every update is selected by the mask, so
+an instance's result does not depend on the batch it is solved in.
 """
 
 from __future__ import annotations
 
+import math
 from typing import NamedTuple
 
 import torch
+
+from pigeon_tpu_torch.config import SolverOptions
 
 RHO_MIN, RHO_MAX = 1e-6, 1e6
 
@@ -81,3 +99,223 @@ def ruiz(qp: QPData, iters: int):
     qb = c[..., None] * D * q
     Ab = (E[..., :, None] * A) * D[..., None, :]
     return QPData(Pb, qb, Ab, E * l, E * u), D, E, c
+
+
+# ---------------------------------------------------------------------------
+# Core solve
+# ---------------------------------------------------------------------------
+
+def _factor_inv(Pb, Ab, rho_vec, sigma: float, opts: SolverOptions):
+    """Explicit inverse of K = P + sigma I + A' rho A per instance:
+    Pb (B, n) or (B, n, n), Ab (B, m, n), rho_vec (B, m).
+
+    "chol": Cholesky and the triangular inverse.  "ns": Newton-Schulz
+    X <- X (2I - K X) from X0 = K / ||K||_inf^2, `opts.ns_iters` steps,
+    symmetrized."""
+    method = opts.factor_method
+    if method not in ("chol", "ns"):
+        raise NotImplementedError(
+            f"factor_method={method!r} is not ported (only 'chol', 'ns')")
+    n = Pb.shape[-1]
+    eye = torch.eye(n, dtype=Ab.dtype, device=Ab.device)
+    K = (Ab.transpose(-1, -2) * rho_vec[..., None, :]) @ Ab
+    if Pb.dim() == Ab.dim():
+        K = K + Pb + sigma * eye
+    else:
+        K = K + torch.diag_embed(Pb + sigma)
+    if method == "ns":
+        if opts.ns_bf16_iters > 0:
+            raise NotImplementedError(
+                "the bf16 bulk phase of the Newton-Schulz factor "
+                "(ns_bf16_iters) is not ported")
+        norm_inf = torch.abs(K).sum(dim=-1).amax(dim=-1)[..., None, None]
+        X = K / (norm_inf * norm_inf)
+        for _ in range(opts.ns_iters):
+            X = X @ (2.0 * eye - K @ X)
+        return 0.5 * (X + X.transpose(-1, -2))
+    # a K that is not positive definite (a QP with non-finite data) gives
+    # NaN, as the JAX package's Cholesky does, and no exception: the step's
+    # NaN fallback handles it
+    L, info = torch.linalg.cholesky_ex(K)
+    L = torch.where(info[..., None, None] > 0, torch.nan, L)
+    Linv = torch.linalg.solve_triangular(L, eye.expand_as(K), upper=False)
+    return Linv.transpose(-1, -2) @ Linv
+
+
+def _mv(M, v):
+    return (M @ v[..., None])[..., 0]
+
+
+def _mtv(M, v):
+    return (v[..., None, :] @ M)[..., 0, :]
+
+
+def _solve_masked(qp: QPData, warm: "QPWarmStart | None",
+                  opts: SolverOptions, w_soft=None) -> QPSolution:
+    """The batched solve: every leaf of `qp` and `warm` has a leading
+    batch dimension, `w_soft` is None or (B, m)."""
+    dtype, dev = qp.q.dtype, qp.q.device
+    B = qp.q.shape[0]
+    if warm is None:
+        warm = cold_start(qp)
+    if opts.backend == "pallas" and w_soft is None:
+        raise NotImplementedError("solver backend 'pallas' is not ported")
+
+    if opts.scaling_iters > 0:
+        qps, D, E, c = ruiz(qp, opts.scaling_iters)
+    else:
+        qps, D, E = qp, torch.ones_like(qp.q), torch.ones_like(qp.l)
+        c = torch.ones((B,), dtype=dtype, device=dev)
+    Pb, qb, Ab, lb, ub = qps
+    dense_P = qp.P_diag.dim() == 3
+    sigma, alpha = float(opts.sigma), float(opts.alpha)
+    c1 = c[:, None]
+    # soft-row weights in the equilibrated space: W_bar = c W / E (the law
+    # of y_bar)
+    wb = None if w_soft is None else c1 * w_soft / E
+
+    # per-row rho: equality rows (l == u) get the stiff scaling, as OSQP
+    is_eq = (qp.u - qp.l) < 1e-10
+    rho_base = torch.where(
+        is_eq, torch.full_like(qp.l, opts.rho * opts.rho_eq_scale),
+        torch.full_like(qp.l, opts.rho))
+    rho_scale = (torch.ones((B,), dtype=dtype, device=dev)
+                 if warm.rho_scale is None
+                 else torch.clamp(warm.rho_scale, 1e-6, 1e6).to(dtype))
+
+    # the warm start in the equilibrated space
+    x = warm.x / D
+    z = E * warm.z
+    y = c1 * warm.y / E
+    n_seg = max(1, opts.max_iter // opts.check_every)
+    amax = lambda v: torch.abs(v).amax(dim=-1)
+    amax_q = amax(qp.q)
+
+    def residuals(x, z, y):
+        """Unscaled residuals, thresholds and magnitudes (OSQP)."""
+        x_u = D * x
+        z_u = z / E
+        y_u = (E * y) / c1
+        Ax = _mv(qp.A, x_u)
+        Px = _mv(qp.P_diag, x_u) if dense_P else qp.P_diag * x_u
+        Aty = _mtv(qp.A, y_u)
+        r_prim = amax(Ax - z_u)
+        r_dual = amax(Px + qp.q + Aty)
+        m_prim = torch.maximum(amax(Ax), amax(z_u))
+        m_dual = torch.maximum(amax(Px), amax(Aty))
+        eps_prim = opts.eps_abs + opts.eps_rel * m_prim
+        eps_dual = opts.eps_abs + opts.eps_rel * torch.maximum(m_dual,
+                                                               amax_q)
+        return r_prim, r_dual, eps_prim, eps_dual, m_prim, m_dual
+
+    def iterate(Kinv, rho_vec, x, z, y):
+        cap = None if wb is None else wb / rho_vec
+        for _ in range(opts.check_every):
+            rhs = sigma * x - qb + _mtv(Ab, rho_vec * z - y)
+            x_t = _mv(Kinv, rhs)
+            z_t = _mv(Ab, x_t)
+            x_n = alpha * x_t + (1.0 - alpha) * x
+            z_mix = alpha * z_t + (1.0 - alpha) * z
+            v = z_mix + y / rho_vec
+            if cap is None:
+                z_n = torch.minimum(torch.maximum(v, lb), ub)
+            else:
+                # prox of W dist(., [l, u]) / rho: shrink toward the box by
+                # at most W / rho a side (an infinite cap is the projection)
+                z_n = (v - torch.minimum(torch.clamp(v - ub, min=0.0), cap)
+                       - torch.clamp(torch.maximum(v - lb, -cap), max=0.0))
+            y = y + rho_vec * (z_mix - z_n)
+            x, z = x_n, z_n
+        return x, z, y
+
+    ADAPT_TOL = 5.0
+
+    def rho_suggestion(rho_scale, r_prim, r_dual, m_prim, m_dual):
+        num = r_prim / torch.clamp(m_prim, min=1e-12)
+        den = r_dual / torch.maximum(m_dual, torch.clamp(amax_q, min=1e-12))
+        scale = torch.clamp(torch.sqrt(num / torch.clamp(den, min=1e-12)),
+                            1e-3, 1e3)
+        return torch.clamp(rho_scale * scale, 1e-6, 1e6), scale
+
+    # Two levels, as OSQP: the outer level factorizes; the inner level runs
+    # `check_every`-iteration segments against the fixed factor and leaves
+    # when the instance has converged, spent its segments, or its adaptive
+    # rho has drifted by more than ADAPT_TOL (then the outer level
+    # refactors).  `outer` and `inner` are the masks of the instances that
+    # are in each loop.
+    seg_i = torch.zeros((B,), dtype=torch.int32, device=dev)
+    r_prim = torch.full((B,), math.inf, dtype=dtype, device=dev)
+    r_dual = r_prim.clone()
+    converged = torch.zeros((B,), dtype=torch.bool, device=dev)
+    outer = ~converged
+    while bool(outer.any()):
+        rho_vec = torch.clamp(rho_base * rho_scale[:, None], RHO_MIN,
+                              RHO_MAX)
+        Kinv = _factor_inv(Pb, Ab, rho_vec, sigma, opts)
+        pending = rho_scale
+        drift = torch.zeros_like(converged)
+        inner = outer            # at least one segment per factorization
+        while bool(inner.any()):
+            x_n, z_n, y_n = iterate(Kinv, rho_vec, x, z, y)
+            rp, rd, eps_p, eps_d, m_prim, m_dual = residuals(x_n, z_n, y_n)
+            conv = (rp <= eps_p) & (rd <= eps_d)
+            if opts.adaptive_rho:
+                pend, scale = rho_suggestion(rho_scale, rp, rd, m_prim,
+                                             m_dual)
+                dr = ((scale > ADAPT_TOL) | (scale < 1.0 / ADAPT_TOL)) & ~conv
+            else:
+                pend, dr = pending, torch.zeros_like(conv)
+            sel = inner[:, None]
+            x = torch.where(sel, x_n, x)
+            z = torch.where(sel, z_n, z)
+            y = torch.where(sel, y_n, y)
+            seg_i = torch.where(inner, seg_i + 1, seg_i)
+            r_prim = torch.where(inner, rp, r_prim)
+            r_dual = torch.where(inner, rd, r_dual)
+            converged = torch.where(inner, conv, converged)
+            pending = torch.where(inner, pend, pending)
+            drift = torch.where(inner, dr, drift)
+            inner = outer & (seg_i < n_seg) & ~converged & ~drift
+        rho_scale = torch.where(outer & drift, pending, rho_scale)
+        outer = (seg_i < n_seg) & ~converged
+
+    return QPSolution(
+        x=D * x, y=(E * y) / c1, z=z / E,
+        iterations=seg_i * opts.check_every, prim_res=r_prim,
+        dual_res=r_dual, converged=converged, rho_scale=rho_scale)
+
+
+def solve_qp(qp: QPData, warm: "QPWarmStart | None" = None,
+             opts: SolverOptions = SolverOptions(),
+             w_soft=None) -> QPSolution:
+    """Solve one QP: P (n,) or (n, n), q (n,), A (m, n), l, u (m,).
+
+    w_soft: optional (m,) exact-penalty weights (inf = hard row); a
+    finite-weight row's z-update is the shrinkage prox of
+    W dist(., [l, u]) in place of the box projection.  As in the JAX
+    package, a soft solve runs this iteration body whatever `opts.backend`
+    says."""
+    lift = lambda t: None if t is None else t[None]
+    if warm is not None:
+        warm = QPWarmStart(*[lift(t) for t in warm])
+    sol = _solve_masked(QPData(*[t[None] for t in qp]), warm, opts,
+                        lift(w_soft))
+    return QPSolution(*[t[0] for t in sol])
+
+
+def solve_qp_batched(qp: QPData, warm: QPWarmStart,
+                     opts: SolverOptions = SolverOptions(),
+                     w_soft=None) -> QPSolution:
+    """Solve a batch of QPs (leading batch dimension on every leaf).
+    backend "xla": `solve_qp` per instance, as a masked batch; "lanes":
+    the lane solver on its CUDA kernels (`solver/lane_admm.py`); "pallas"
+    is not ported.  w_soft: (m,) or (B, m)."""
+    if opts.backend == "lanes":
+        from pigeon_tpu_torch.solver.lane_admm import solve_lanes_batched
+        return solve_lanes_batched(qp, warm, opts, w_soft)
+    if opts.backend != "xla":
+        raise NotImplementedError(
+            f"solver backend {opts.backend!r} is not ported")
+    if w_soft is not None and w_soft.dim() == 1:
+        w_soft = w_soft.expand(qp.l.shape)
+    return _solve_masked(qp, warm, opts, w_soft)

@@ -24,6 +24,7 @@ from pigeon_tpu.config import HorizonParams as JHP
 from pigeon_tpu.config import SolverOptions as JSO
 from pigeon_tpu_torch import convert
 from pigeon_tpu_torch import mpc as TM
+from pigeon_tpu_torch.config import CoupledControlParams as TCP
 from pigeon_tpu_torch.config import HorizonParams as THP
 from pigeon_tpu_torch.config import SolverOptions as TSO
 
@@ -127,10 +128,18 @@ def test_carry_matches(steps, k):
 
 
 @pytest.mark.parametrize("change", [
-    dict(lin_substeps=2), dict(sim_substeps=2), dict(lin_method="rk4"),
-    dict(use_hji_policy=True), dict(soft=False)],
-    ids=["lin_substeps", "sim_substeps", "lin_method", "hji_policy", "hard"])
+    dict(lin_substeps=2), dict(coupled=TCP(use_walls=True)),
+    dict(lin_method="rk4"), dict(use_hji_policy=True), dict(soft=False),
+    dict(formulation="decoupled", soft=False),
+    dict(formulation="lateral")],
+    ids=["lin_substeps", "walls", "lin_method", "hji_policy", "hard",
+         "decoupled_hard", "unknown_formulation"])
 def test_unported_options_raise(change):
     cfg = dataclasses.replace(TM.x1_coupled_config(soft=True), **change)
     with pytest.raises(NotImplementedError):
         TM.init_carry(cfg, 2, device="cpu")
+
+
+def test_sim_substeps_is_supported():
+    cfg = dataclasses.replace(TM.x1_coupled_config(soft=True), sim_substeps=2)
+    assert TM.init_carry(cfg, 2, device="cpu").q_prev.shape == (2, 16, 6)

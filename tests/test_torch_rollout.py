@@ -1,0 +1,81 @@
+"""pigeon_tpu_torch.qp.condensed.rollout_affine against the JAX package:
+the TPU rollout kernel run in interpret mode and the sequential unroll, on
+the same float32 inputs.  On the CPU the port's wrapper runs its plain
+version (`rollout_affine_unroll`)."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from pigeon_tpu.qp import condensed as JC
+from pigeon_tpu_torch.qp import condensed as TC
+
+
+def _inputs(B, T, d, w, seed=0):
+    rng = np.random.default_rng(seed)
+    A = (rng.normal(size=(B, T, d, d)) * 0.4).astype(np.float32)
+    E = rng.normal(size=(B, T, d, w)).astype(np.float32)
+    return A, E
+
+
+@pytest.mark.parametrize("B,T,d,w", [
+    (7, 5, 4, 31),      # ragged batch, odd width
+    (130, 30, 4, 31),   # the decoupled fleet's shape, two lane blocks
+    (9, 15, 6, 31),     # the coupled condensed shape
+    (4, 3, 2, 8),       # a whole width block of the TPU kernel
+    (5, 30, 4, 31),
+])
+def test_rollout_matches_tpu_kernel_and_unroll(B, T, d, w):
+    A, E = _inputs(B, T, d, w)
+    out = TC.rollout_affine(torch.as_tensor(A), torch.as_tensor(E))
+    assert out.dtype == torch.float32 and out.shape == (B, T, d, w)
+    lane = JC._rollout_lane_batched(jnp.asarray(A), jnp.asarray(E),
+                                    interpret=True)
+    unroll = jax.vmap(JC.rollout_affine_unroll)(jnp.asarray(A),
+                                                jnp.asarray(E))
+    # float32, the same recursion; only the order of the d-term sums may
+    # differ (the bar of tests/test_rollout_lane.py)
+    np.testing.assert_allclose(out.numpy(), np.asarray(lane), rtol=2e-6,
+                               atol=2e-6)
+    np.testing.assert_allclose(out.numpy(), np.asarray(unroll), rtol=2e-6,
+                               atol=2e-6)
+
+
+def test_rollout_long_horizon_and_float64():
+    """From ROLLOUT_SCAN_MIN_T on the JAX package takes its associative
+    scan; on CPU tensors the port keeps the sequential loop there.
+    Float64: rounding of the scan's regrouped products only."""
+    assert TC.ROLLOUT_SCAN_MIN_T == JC.ROLLOUT_SCAN_MIN_T
+    A, E = _inputs(2, 70, 4, 5, seed=1)
+    A, E = A.astype(np.float64) * 0.5, E.astype(np.float64)
+    out = TC.rollout_affine(torch.as_tensor(A), torch.as_tensor(E))
+    ref = jax.vmap(JC.rollout_affine)(jnp.asarray(A), jnp.asarray(E))
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=1e-11,
+                               atol=1e-12)
+
+
+def test_rollout_long_horizon_raises_off_the_cpu():
+    """The plain loop is for CPU tensors only.  A tensor on any other
+    device gets the kernel or, from ROLLOUT_SCAN_MIN_T on, where the scan
+    form is not ported, an error: never the plain loop.  A meta tensor
+    stands for the card here."""
+    T = TC.ROLLOUT_SCAN_MIN_T
+    A = torch.empty(2, T, 4, 4, dtype=torch.float32, device="meta")
+    E = torch.empty(2, T, 4, 5, dtype=torch.float32, device="meta")
+    with pytest.raises(NotImplementedError, match="associative-scan"):
+        TC.rollout_affine(A, E)
+    # below the threshold such a tensor is sent on to the kernel's checks
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        TC.rollout_affine(A[:, :T - 1], E[:, :T - 1])
+
+
+def test_rollout_rejects_bad_arguments():
+    A, E = (torch.as_tensor(a) for a in _inputs(2, 3, 4, 5))
+    with pytest.raises(ValueError, match="shape"):
+        TC.rollout_affine(A[:, :2], E)
+    with pytest.raises(ValueError):
+        TC.rollout_affine(A.double(), E)
+    with pytest.raises(ValueError, match=r"\(B, T, d, d\)"):
+        TC.rollout_affine(A[0], E[0])
