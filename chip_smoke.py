@@ -5,17 +5,21 @@
 Phases (any failure raises, so the script exits non-zero):
 
 1. the card's name and power limit (nvidia-smi), torch and CUDA versions;
-2. build the five CUDA kernels from `pigeon_tpu_torch/csrc/` (one nvcc
+2. build the eight CUDA kernels from `pigeon_tpu_torch/csrc/` (one nvcc
    per source, in parallel) and print the build time and register use;
 3. kernel checks: capture each kernel's inputs at the shapes its path
-   gives it (float32) -- one cold step of the coupled fleet and of the
-   decoupled fleet at B=8192, one `mpc_step` of each formulation -- then
-   hold the kernel against its plain PyTorch version on the card, with
-   times for the kernel, the plain version and a PyTorch library call
-   where one computes the same function; also on a ragged batch and on the
-   inputs of a 12-stage horizon (the kernels' run-time-n build).  The
-   dense exponential is also held on the stack of all 122,880 stage
-   matrices of the coupled fleet;
+   gives it (float32) -- one cold step of the coupled and the decoupled
+   fleet at B=8192 and of the sparse fleet at B=2048, one `mpc_step` of
+   each soft formulation -- then hold the kernel against its plain PyTorch
+   version on the card, with times for the kernel, the plain version and
+   a PyTorch library call where one computes the same function; also on a
+   ragged batch and on the inputs of a 12-stage horizon (the kernels'
+   run-time-n build).  The dense exponential is also held on the stack of
+   all 122,880 stage matrices of the coupled fleet.  The sparse path's
+   kernels (ruiz, banded_chol, admm_dense) whose float32 results are
+   rounding-limited by the stiff equality rows are also held against the
+   float64 plain version: the kernel no further from it than twice the
+   float32 plain version;
 4. path "fleet": the coupled soft MPC for a fleet of 8192 vehicles on an
    oval (x1_coupled_config(soft=True), N_short=5, N_long=10, the lane
    solver with bench.py's options), one cold step and 10 warm closed-loop
@@ -27,17 +31,23 @@ Phases (any failure raises, so the script exits non-zero):
 5. path "fleet_decoupled": the same for x1_decoupled_config(soft=True)
    (N_short=10, N_long=20, QPs of n=30, m=180), 20 warm steps; its steps
    launch vanloan, rollout, chol_inverse and admm_iterations;
-6. path "simulate": `mpc.simulate` for one vehicle on the card, 30
+6. path "fleet_sparse": the sparse coupled MPC (x1_coupled_config() as
+   it comes, N_short=5, N_long=10, QPs of n=193, m=290) for 2048 vehicles
+   on the "pallas" solver with the banded factor, one cold and 10 warm
+   steps; its steps launch vanloan, ruiz, banded_chol and admm_dense;
+7. path "simulate": `mpc.simulate` for one vehicle on the card, 30
    closed-loop steps per formulation -- the unbatched route, dense
    linearization and `solve_qp` -- which launches expm_dense once per
    step and no other kernel; then torch.profiler over 5 more steps;
-7. reference checks: for each formulation a 64-vehicle fleet stepped on
-   the card, each step also run on the CPU (plain versions) from the
-   card's state at float64 and float32, commands compared (see
-   `reference_check`); and the card's `simulate` commands against the CPU
+8. reference checks: for each formulation (coupled, decoupled, sparse)
+   a 64-vehicle fleet stepped on the card, each step also run on the CPU
+   (plain versions) from the card's state at float64 and float32,
+   commands compared (see `reference_check`; the sparse QP's bars are
+   fleet-wide, its float32 solve being rounding-determined); and the
+   card's `simulate` commands against the CPU
    `simulate` at float64 and float32 (`simulate_reference_check`);
-8. B=1 latency: the coupled fleet path for one vehicle, 20 warm steps;
-9. one JSON line listing the kernels, the nvidia-smi line, and the last
+9. B=1 latency: the coupled fleet path for one vehicle, 20 warm steps;
+10. one JSON line listing the kernels, the nvidia-smi line, and the last
    line {"ok": true, "device": {...}}.
 
 It exits non-zero without a result when CUDA is unavailable or when run
@@ -55,7 +65,8 @@ import time
 import numpy as np
 
 B_FLEET = 8192
-WARM_STEPS = {"coupled": 10, "decoupled": 20}
+B_SPARSE = 2048
+WARM_STEPS = {"coupled": 10, "decoupled": 20, "sparse": 10}
 B1_STEPS = 20
 SIM_STEPS = 30
 SIM_REF_STEPS = 10   # steps of `simulate` also run on the CPU
@@ -70,20 +81,48 @@ DT = 0.01
 # ADMM outputs, kernel against plain (both float32, only the summation
 # order differs): each within this share of its scale (`admm_errors`)
 ADMM_REL = 1e-4
+# The dense ADMM kernel's early exit (`held_segment`): at most this share
+# of the tiles may stop at another check than the float32 plain version's
+# (the sparse QP's stiff equality rows put exits at the tolerance's edge
+# in rounding's hands; the lane kernel, on the soft QP, is held to 1%)
+B8_EXITS_DIFFER_MAX = 0.1
 # Reference check (`reference_check`): at most this share of the vehicles
 # outside the test_soft.py bar on a step, and no command further than this
 # many bars from the float64 one
 REF_OUTSIDE_MAX = 0.1
 REF_CAP_BARS = 128.0
+# Fleet placements (make_setup's seed) the reference check runs on, and
+# the sparse rule's controls on the first placement: wrong solver options,
+# each run on the card from the same state as the step it is compared
+# with, and whether the rule must reject it on at least one step.  One
+# segment fewer is only recorded: the vehicles the 400-iteration budget
+# leaves unconverged stay unconverged at 350, so nothing the rule reads
+# moves.
+REF_SEEDS = {"coupled": (0,), "decoupled": (0,), "sparse": (0, 1, 2)}
+REF_CONTROLS = {"rho_eq_scale_1": (dict(rho_eq_scale=1.0), True),
+                "eps_1e-2": (dict(eps_abs=1e-2, eps_rel=1e-2), True),
+                "max_iter_200": (dict(max_iter=200), True),
+                "alpha_1": (dict(alpha=1.0), True),
+                "one_segment_fewer": (dict(max_iter=350), False)}
 # The kernels every step of each main path must launch; it must launch no
 # other
 PATH_KERNELS = {
     "coupled": {"vanloan", "chol_inverse", "admm_iterations"},
     "decoupled": {"vanloan", "rollout", "chol_inverse", "admm_iterations"},
+    "sparse": {"vanloan", "ruiz", "banded_chol", "admm_dense"},
     "simulate": {"expm_dense"},
 }
 # bench.py's lane-solver iteration budget per formulation
 MAX_ITER = {"coupled": 150, "decoupled": 300}
+# the sparse QP's solver: the JAX package's sparse-path options
+# (scripts/exp_precision.py) with a budget of 400 iterations in segments
+# of 50 in place of its 100, which leaves part of the oval fleet
+# unconverged on warm steps
+SPARSE_SOLVER = dict(max_iter=400, check_every=50, eps_abs=1e-3,
+                     eps_rel=1e-3, backend="pallas", factor_method="banded",
+                     scaling_iters=4, pallas_tile=4,
+                     pallas_precision="highest", pallas_check_inner=10,
+                     bf16_bulk_iters=0)
 # H100 SXM data-sheet peaks (dense): HBM bandwidth and non-tensor fp32
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_FLOPS = 67e12
@@ -113,32 +152,39 @@ def nvidia_smi() -> str:
 
 def fleet_config(formulation: str, hz=None):
     """x1_coupled_config or x1_decoupled_config, soft, on the lane solver
-    with bench.py's options; `hz` = (N_short, N_long) overrides the
-    horizon."""
+    with bench.py's options, or ("sparse") x1_coupled_config() as it comes
+    on the pallas solver with SPARSE_SOLVER; `hz` = (N_short, N_long)
+    overrides the horizon."""
     from pigeon_tpu_torch import mpc
     from pigeon_tpu_torch.config import SolverOptions
 
-    make = {"coupled": mpc.x1_coupled_config,
-            "decoupled": mpc.x1_decoupled_config}[formulation]
-    cfg = make(soft=True)
+    if formulation == "sparse":
+        cfg = mpc.x1_coupled_config(solver=SolverOptions(**SPARSE_SOLVER))
+    else:
+        make = {"coupled": mpc.x1_coupled_config,
+                "decoupled": mpc.x1_decoupled_config}[formulation]
+        cfg = make(soft=True)
     if hz is not None:
         cfg = dataclasses.replace(cfg, hz=dataclasses.replace(
             cfg.hz, N_short=hz[0], N_long=hz[1]))
+    if formulation == "sparse":
+        return cfg
     n_it = MAX_ITER[formulation]
     return dataclasses.replace(cfg, solver=SolverOptions(
         max_iter=n_it, check_every=n_it, eps_abs=1e-3, eps_rel=1e-3,
         backend="lanes", scaling_iters=2, pallas_check_inner=10))
 
 
-def make_setup(torch, B: int, device, hz=None, formulation="coupled"):
-    """The fleet on the in-repo oval (bench.py's placement)."""
+def make_setup(torch, B: int, device, hz=None, formulation="coupled",
+               seed=0):
+    """The fleet on the in-repo oval (bench.py's placement, from `seed`)."""
     from pigeon_tpu_torch import hji, mpc, trajectory
 
     cols = trajectory.oval_columns()
     tube = trajectory.make_tube(**cols, pad_to=1024, device=device)
     cache = hji.inactive_cache(device=device)
     cfg = fleet_config(formulation, hz)
-    rng = np.random.default_rng(0)
+    rng = np.random.default_rng(seed)
     k0 = rng.integers(0, 900, B)
     E = cols["E"][k0] + rng.uniform(-0.5, 0.5, B)
     N = cols["N"][k0] + rng.uniform(-0.5, 0.5, B)
@@ -182,14 +228,22 @@ def capture_kernel_inputs(step):
     """Record the first call of each kernel wrapper during `step()`."""
     from pigeon_tpu_torch import discretize as dz
     from pigeon_tpu_torch.qp import decoupled as qd
+    from pigeon_tpu_torch.solver import banded as bd
     from pigeon_tpu_torch.solver import lane_admm as la
+    from pigeon_tpu_torch.solver import pallas_admm as pa
+    from pigeon_tpu_torch.solver import pallas_ruiz as pr
 
     seen = {}
-    originals = {(dz, "vanloan"): dz.vanloan,
-                 (dz, "expm_dense"): dz.expm_dense,
-                 (qd, "rollout_affine"): qd.rollout_affine,
-                 (la, "chol_inverse"): la.chol_inverse,
-                 (la, "admm_iterations"): la.admm_iterations}
+    # (module, function): the name the capture is recorded under
+    originals = {(dz, "vanloan"): "vanloan", (dz, "expm_dense"): "expm_dense",
+                 (qd, "rollout_affine"): "rollout_affine",
+                 (la, "chol_inverse"): "chol_inverse",
+                 (la, "admm_iterations"): "admm_iterations",
+                 (pr, "ruiz_batched"): "ruiz",
+                 (bd, "chol_factor"): "banded_chol",
+                 (bd, "factor_inv_banded"): "factor_inv_banded",
+                 (pa, "admm_iterations"): "admm_dense"}
+    functions = {key: getattr(*key) for key in originals}
 
     def spy(name, fn):
         def inner(*args, **kw):
@@ -198,12 +252,12 @@ def capture_kernel_inputs(step):
         return inner
 
     try:
-        for (mod, name), fn in originals.items():
-            setattr(mod, name, spy(name, fn))
+        for (mod, attr), name in originals.items():
+            setattr(mod, attr, spy(name, functions[(mod, attr)]))
         step()
     finally:
-        for (mod, name), fn in originals.items():
-            setattr(mod, name, fn)
+        for (mod, attr), fn in functions.items():
+            setattr(mod, attr, fn)
     return seen
 
 
@@ -548,6 +602,322 @@ def check_expm_dense(torch, args, kw, extra):
     return r
 
 
+def diff_finite(k, p):
+    """(largest difference, the same relative to the largest magnitude)
+    over the finite entries of `p`; the non-finite entries must be
+    equal."""
+    fin = p.isfinite()
+    require(bool((k.isfinite() == fin).all())
+            and bool((k[~fin] == p[~fin]).all()),
+            "non-finite entries differ")
+    if not bool(fin.any()):
+        return 0.0, 0.0
+    d = float((k[fin] - p[fin]).abs().max())
+    return d, d / max(float(p[fin].abs().max()), 1e-30)
+
+
+def check_ruiz(torch, args, kw, small=None):
+    """`args`: the sparse fleet's (P, q, A, l, u); `small`: the 12-stage
+    horizon's call."""
+    from pigeon_tpu_torch.solver import admm as TA
+    from pigeon_tpu_torch.solver import pallas_ruiz as pr
+
+    iters = kw.get("iters", 4)
+
+    def both(a):
+        k = pr.ruiz_batched(*a, iters=iters)
+        (Pb, qb, Ab, lb, ub), D, E, c = TA.ruiz(TA.QPData(*a), iters)
+        torch.cuda.synchronize()
+        return k, (Pb, qb, Ab, lb, ub, D, E, c)
+
+    out_k, out_p = both(args)
+    # both float32 with the same products, maxima and square roots; only
+    # the cost scaling's mean sums in another order: 1e-5 of each output's
+    # scale
+    diffs = [diff_finite(k, p) for k, p in zip(out_k, out_p)]
+    rel = max(r for _, r in diffs)
+    require(rel <= 1e-5, f"ruiz kernel vs plain: relative error {rel}")
+    others = [[a[:B_RAGGED].contiguous() for a in args]]
+    if small is not None:
+        others.append(list(small[0]))
+    for a in others:
+        r = max(diff_finite(k, p)[1] for k, p in zip(*both(a)))
+        require(r <= 1e-5, f"ruiz at {tuple(a[2].shape)}: relative {r}")
+    ms = cuda_ms(torch, lambda: pr.ruiz_batched(*args, iters=iters), 20)
+    plain = cuda_ms(torch, lambda: TA.ruiz(TA.QPData(*args), iters), 5)
+    Bn, m, n = args[2].shape
+    # per sweep: two passes over |A| (a product and a max per entry), the
+    # square roots and the cost scaling; then the scaled copy
+    flops = Bn * (iters * (4 * m * n + 4 * (m + n) + 8 * n)
+                  + 2 * m * n + 6 * n + 2 * m)
+    b_ms, b_by = bound(nbytes(*args, *out_k), flops)
+    return dict(err=max(d for d, _ in diffs), rel=rel, ms=ms,
+                plain_ms=plain, library_ms=None,
+                bound_ms=b_ms, bound_by=b_by, shapes=[list(args[2].shape)])
+
+
+def rel_per_instance(k, ref):
+    dims = tuple(range(1, ref.dim()))
+    scale = ref.abs().amax(dim=dims).clamp(min=1e-30)
+    return float(((k - ref).abs().amax(dim=dims) / scale).max())
+
+
+def check_banded_chol(torch, args, kw, extra):
+    """`args`: the sparse fleet's stage blocks (K_diag, K_sub);
+    `extra["small"]`: the 12-stage horizon's call; `extra["factor"]`: the
+    fleet's `factor_inv_banded` call, for |K K^-1 - I| of the whole
+    factor against the dense Cholesky inverse of the same K."""
+    from pigeon_tpu_torch.solver import banded as bd
+
+    def held(Kd, Ks):
+        """Kernel and plain (float32), each against the float64 plain
+        version: the kernel no further from it than twice the float32
+        plain version (K's stiff equality rows make the float32 factor
+        rounding-limited; the bar scales with that limit)."""
+        Lk, Sk = bd.chol_factor(Kd, Ks)
+        Lp, Sp = bd.chol_factor_plain(Kd, Ks)
+        L64, S64 = bd.chol_factor_plain(Kd.double(), Ks.double())
+        torch.cuda.synchronize()
+        out = {}
+        for name, k, p, e in (("Linv", Lk, Lp, L64), ("S", Sk, Sp, S64)):
+            d_k = rel_per_instance(k.double(), e)
+            d_p = rel_per_instance(p.double(), e)
+            out[name] = dict(vs_plain=rel_per_instance(k, p),
+                             kernel_vs_f64=d_k, plain_vs_f64=d_p)
+            require(bool(torch.isfinite(k).all()), f"banded_chol {name} "
+                                                   f"not finite")
+            require(d_k <= 2.0 * d_p + 1e-6,
+                    f"banded_chol {name} at {tuple(Kd.shape)}: {out[name]}")
+        return out
+
+    Kd, Ks = args
+    # the main-path call, a ragged batch and the 12-stage horizon's call
+    path_errs = held(Kd, Ks)
+    errs = held(Kd[:B_RAGGED].contiguous(), Ks[:B_RAGGED].contiguous())
+    small_errs = held(*extra["small"][0])
+    Lp, Sp = bd.chol_factor_plain(Kd, Ks)
+    Lk, Sk = bd.chol_factor(Kd, Ks)
+    torch.cuda.synchronize()
+    rel = max(rel_per_instance(Lk, Lp), rel_per_instance(Sk, Sp))
+
+    # the whole factor: |K K^-1 - I| of the banded K^-1 (kernel route)
+    # and of the dense Cholesky inverse of the same float32 K, both
+    # measured in float64
+    Pb, Ab, rho, sigma = extra["factor"][0][:4]
+    plan = extra["factor"][0][4:8]
+    Kinv = bd.factor_inv_banded(Pb, Ab, rho, sigma, *plan)
+    K32 = (Ab.transpose(-1, -2) * rho[:, None, :]) @ Ab
+    K32 = K32 + torch.diag_embed(Pb + sigma)
+    n = K32.shape[-1]
+    eye = torch.eye(n, device=K32.device)
+
+    def dense_inv():
+        L, info = torch.linalg.cholesky_ex(K32)
+        W = torch.linalg.solve_triangular(L, eye.expand_as(K32), upper=False)
+        return W.transpose(-1, -2) @ W, info
+
+    Kinv_d, info = dense_inv()
+    K64 = K32.double()
+    resid = lambda X: (K64 @ X.double() - eye.double()).abs().amax(dim=(1, 2))
+    r_b, r_d = resid(Kinv), resid(Kinv_d)
+    ok = info == 0
+    require(bool(ok.any()), "dense Cholesky failed on every instance")
+    r_b_max = float(r_b.max())
+    r_d_max = float(r_d[ok].max())
+    require(bool(torch.isfinite(Kinv).all())
+            and float(r_b[ok].max()) <= 10.0 * r_d_max + 1e-3,
+            f"banded K^-1 residual {r_b_max} vs dense {r_d_max}")
+
+    ms = cuda_ms(torch, lambda: bd.chol_factor(Kd, Ks), 20)
+    plain = cuda_ms(torch, lambda: bd.chol_factor_plain(Kd, Ks), 3)
+    dense_ms = cuda_ms(torch, dense_inv, 5)
+    Bn, nb, bw, _ = Kd.shape
+    # per stage: S = K_sub Linv', D = K - S S' (2 bw^3 each), the
+    # Cholesky and the triangular inverse (bw^3 / 3 each)
+    flops = Bn * nb * (4 * bw ** 3 + 2 * bw ** 3 / 3)
+    b_ms, b_by = bound(nbytes(Kd, Ks, Lk, Sk), flops)
+    return dict(err=float(max((Lk - Lp).abs().max(), (Sk - Sp).abs().max())),
+                rel=rel, path_errs=path_errs, ragged_errs=errs,
+                small_horizon_errs=small_errs,
+                kkt_resid_banded=r_b_max, kkt_resid_dense_chol=r_d_max,
+                dense_chol_failed=int((~ok).sum()), ms=ms, plain_ms=plain,
+                library_ms=None, dense_chol_inverse_ms=dense_ms,
+                bound_ms=b_ms, bound_by=b_by, shapes=[list(Kd.shape)])
+
+
+def dense_admm(torch, ops, kw, n_iters, check, plain=False, dtype=None):
+    """One call of the dense ADMM kernel (or its plain version, in
+    `dtype` if given) on the captured operands `ops` = (Kinv, A, q, l, u,
+    rho, x, z, y) with the captured options `kw`."""
+    from pigeon_tpu_torch.solver import pallas_admm as pa
+
+    D, E, c, Pu, qu = kw["scalings"]
+    sigma, alpha = kw["sigma"], kw["alpha"]
+    eps = dict(eps_abs=kw["eps_abs"], eps_rel=kw["eps_rel"])
+    if not plain:
+        return pa.admm_iterations(*ops, n_iters, sigma, alpha,
+                                  tile=kw["tile"], scalings=kw["scalings"],
+                                  check=check, **eps)
+    cast = (lambda t: t) if dtype is None else (lambda t: t.to(dtype))
+    return pa.admm_iterations_plain(
+        *[cast(t) for t in ops], cast(E), cast(Pu * D), cast(qu),
+        cast(1.0 / (D * c[:, None])), n_iters, sigma, alpha, kw["tile"],
+        check, **eps)
+
+
+def held_vs_f64(torch, out_k, out_p, out_e, what, keep=None):
+    """Kernel and float32 plain outputs, each against the float64 plain
+    version, over the instances in `keep` (all if None): for x, z, y and
+    stats rows 0-5 (admm_errors' scales) the kernel's error is at most
+    twice the float32 plain version's plus ADMM_REL."""
+    lane = lambda o: [t.double().T for t in o]
+    e_l = lane(out_e)
+    errs_k = admm_errors(torch, lane(out_k), e_l, keep)
+    errs_p = admm_errors(torch, lane(out_p), e_l, keep)
+    vs_plain = admm_errors(torch, lane(out_k), lane(out_p), keep)
+    bad = {name: (errs_k[name], errs_p[name]) for name in errs_k
+           if not errs_k[name] <= 2.0 * errs_p[name] + ADMM_REL}
+    require(not bad, f"admm_dense {what} vs float64: {bad}")
+    return dict(vs_plain=vs_plain, kernel_vs_f64=errs_k, plain_vs_f64=errs_p)
+
+
+def three_ways(torch, ops, kw, n_iters, check):
+    """The kernel, the float32 plain and the float64 plain version of one
+    segment on the same operands."""
+    k = dense_admm(torch, ops, kw, n_iters, check)
+    p = dense_admm(torch, ops, kw, n_iters, check, plain=True)
+    e = dense_admm(torch, ops, kw, n_iters, check, plain=True,
+                   dtype=torch.float64)
+    torch.cuda.synchronize()
+    return k, p, e
+
+
+def held_fixed(torch, ops, kw, n_iters, what):
+    """A fixed segment (no early exit), held by `held_vs_f64`."""
+    return held_vs_f64(torch, *three_ways(torch, ops, kw, n_iters, 0), what)
+
+
+def exits_consistent(torch, stats, tile, n_iters, kw, what):
+    """Every instance of a tile reports the same executed count, and a
+    tile that stopped early has every instance converged by its own
+    statistics."""
+    ex = stats[:, 6]
+    B = ex.shape[0]
+    full = (B // tile) * tile
+    require(bool((ex[:full].view(-1, tile) == ex[:full].view(-1, tile)[:, :1])
+                 .all()) and bool((ex[full:] == ex[-1]).all()),
+            f"admm_dense {what}: executed counts differ within a tile")
+    eps_p = kw["eps_abs"] + kw["eps_rel"] * torch.maximum(stats[:, 2],
+                                                          stats[:, 3])
+    amax_qu = kw["scalings"][4].abs().amax(dim=-1)
+    eps_d = kw["eps_abs"] + kw["eps_rel"] * torch.maximum(
+        torch.maximum(stats[:, 4], stats[:, 5]), amax_qu)
+    conv = (stats[:, 0] <= eps_p) & (stats[:, 1] <= eps_d)
+    early = ex < n_iters
+    require(bool(conv[early].all()),
+            f"admm_dense {what}: a tile stopped before converging")
+
+
+def held_segment(torch, ops, kw, n_iters, check, what, some_early=True):
+    """A segment with the early exit per tile, kernel against the float32
+    and the float64 plain versions.  Exits at the tolerance's edge are
+    rounding-determined, so a tile's executed count may differ between
+    the three; the kernel must:
+    - report one count per tile, and stop a tile early only when all its
+      instances have converged by its own statistics;
+    - differ from the float32 plain version in at most
+      B8_EXITS_DIFFER_MAX of the tiles;
+    - differ from the float64 plain version's counts in at most twice the
+      share of tiles the float32 plain version does, plus one tile, and
+      in no tile by more than the float32 plain version's largest
+      difference from them plus one check period;
+    - on the tiles where all three counts agree, meet `held_vs_f64`.
+    Returns the outputs and a record of the shares."""
+    tile = kw["tile"]
+    k, p, e = three_ways(torch, ops, kw, n_iters, check)
+    exits_consistent(torch, k[3], tile, n_iters, kw, what)
+    ek, ep, ee = (o[3][:, 6].double() for o in (k, p, e))
+    tk, tp, te = ek[::tile], ep[::tile], ee[::tile]
+    n_tiles = tk.numel()
+    share = lambda a, b: float((a != b).double().mean())
+    most = lambda a, b: float((a - b).abs().max())
+    rec = dict(tiles=n_tiles, differ_vs_plain=share(tk, tp),
+               differ_vs_f64=share(tk, te),
+               plain_differ_vs_f64=share(tp, te),
+               max_count_diff=most(tk, tp),
+               max_count_diff_vs_f64=most(tk, te),
+               plain_max_count_diff_vs_f64=most(tp, te),
+               mean=[float(ek.mean()), float(ep.mean()), float(ee.mean())],
+               last_tile=[float(ek[-1]), float(ep[-1]), float(ee[-1])])
+    require(bool((ek < n_iters).any()) or not some_early,
+            f"admm_dense {what}: no tile stopped early")
+    require(rec["differ_vs_plain"] <= B8_EXITS_DIFFER_MAX
+            and rec["differ_vs_f64"]
+            <= 2.0 * rec["plain_differ_vs_f64"] + 1.0 / n_tiles
+            and rec["max_count_diff_vs_f64"]
+            <= rec["plain_max_count_diff_vs_f64"] + check,
+            f"admm_dense {what}: executed counts {rec}")
+    same = ((ek == ep) & (ek == ee)).nonzero().flatten()
+    rec["agreeing_share"] = same.numel() / ek.numel()
+    rec.update(held_vs_f64(torch, k, p, e, f"{what}, agreeing tiles",
+                           keep=same))
+    return k, p, rec
+
+
+def check_admm_dense(torch, args, kw, extra):
+    """`args`: the sparse fleet's first segment of its cold step (Kinv, A,
+    q, l, u, rho, x, z, y, n_iters, sigma, alpha); `extra["warm"]`: the
+    first segment of a warm step, `extra["small"]`: the 12-stage
+    horizon's call.
+
+    On the cold step no tile converges within the segment, so the early
+    exit per tile is held on the warm step's segment too, where most
+    tiles stop at a check before the segment's end."""
+    ops, (n_iters, sigma, alpha) = args[:9], args[9:12]
+    kw = dict(kw, sigma=sigma, alpha=alpha)
+    check = kw["check"]
+    fixed = held_fixed(torch, ops, kw, 10, "(10 fixed)")
+    # the main-path call (its executed counts give the bound's work)
+    ok_, op_, cold_exits = held_segment(torch, ops, kw, n_iters, check,
+                                        "(cold segment)", some_early=False)
+    w_args, w_kw = extra["warm"]
+    w_ops, w_kw = w_args[:9], dict(w_kw, sigma=sigma, alpha=alpha)
+    warm_exits = held_segment(torch, w_ops, w_kw, n_iters, check,
+                              "(warm segment)")[2]
+    # the ragged last tile (B_RAGGED = 32 tiles of 4 and one of 2), and
+    # the run-time n, m build on the 12-stage horizon's operands
+    cut = lambda ops_, kw_: (
+        [o[:B_RAGGED].contiguous() for o in ops_],
+        dict(kw_, scalings=tuple(t[:B_RAGGED].contiguous()
+                                 for t in kw_["scalings"])))
+    ragged = held_fixed(torch, *cut(ops, kw), 10, "(10 fixed, ragged)")
+    ragged_exits = held_segment(torch, *cut(w_ops, w_kw), n_iters, check,
+                                "(warm segment, ragged)",
+                                some_early=False)[2]
+    s_args, s_kw = extra["small"]
+    s_kw = dict(s_kw, sigma=s_args[10], alpha=s_args[11])
+    small_errs = held_fixed(torch, s_args[:9], s_kw, 10,
+                            f"(10 fixed) at {tuple(s_args[1].shape)}")
+    ms = cuda_ms(torch, lambda: dense_admm(torch, ops, kw, n_iters, check), 5)
+    plain = cuda_ms(torch, lambda: dense_admm(torch, ops, kw, n_iters, check,
+                                              plain=True), 2)
+    n, m = ops[0].shape[-1], ops[1].shape[1]
+    it_flops = 4 * m * n + 2 * n * n + 10 * m + 5 * n
+    st_flops = 4 * m * n + 10 * m + 12 * n
+    executed = ok_[3][:, 6].double()
+    checks = torch.ceil(executed / check)
+    flops = float((executed * it_flops + checks * st_flops).sum())
+    b_ms, b_by = bound(nbytes(*ops, *kw["scalings"], *ok_), flops)
+    return dict(err=float((ok_[0] - op_[0]).abs().max()),
+                rel=fixed["vs_plain"]["x"], fixed_errs=fixed,
+                cold_exits=cold_exits, warm_exits=warm_exits,
+                ragged_errs=ragged, ragged_exits=ragged_exits,
+                small_horizon_errs=small_errs,
+                iters_mean=float(executed.mean()), ms=ms, plain_ms=plain,
+                library_ms=None, bound_ms=b_ms, bound_by=b_by,
+                shapes=[list(ops[0].shape), list(ops[1].shape)])
+
+
 KERNEL_META = {
     "vanloan": ("pigeon_tpu_torch/csrc/vanloan.cu",
                 "pigeon_tpu/discretize.py:563", check_vanloan),
@@ -561,6 +931,12 @@ KERNEL_META = {
     "expm_dense": ("pigeon_tpu_torch/csrc/expm_dense.cu",
                    "pigeon_tpu/discretize.py:341 and "
                    "pigeon_tpu/discretize.py:285", check_expm_dense),
+    "ruiz": ("pigeon_tpu_torch/csrc/ruiz.cu",
+             "pigeon_tpu/solver/pallas_ruiz.py:37", check_ruiz),
+    "banded_chol": ("pigeon_tpu_torch/csrc/banded_chol.cu",
+                    "pigeon_tpu/solver/banded.py:132", check_banded_chol),
+    "admm_dense": ("pigeon_tpu_torch/csrc/admm_dense.cu",
+                   "pigeon_tpu/solver/pallas_admm.py:38", check_admm_dense),
 }
 
 
@@ -592,18 +968,20 @@ def run_fleet(torch, B: int, steps: int, kernels, formulation="coupled"):
         require(bool(torch.isfinite(u3).all()), f"step {i}: non-finite")
         recs.append(dict(step=i, ms=start.elapsed_time(end),
                          conv=float(diag.converged.float().mean()),
-                         iters=float(diag.iterations.float().mean())))
+                         iters=float(diag.iterations.float().mean()),
+                         launches={k: v for k, v in grew.items() if v}))
     return recs, st
 
 
-def copy_state(torch, st, device, dtype):
-    """The same fleet state on another device / in another dtype."""
+def copy_state(torch, st, device, dtype, cfg=None):
+    """The same fleet state on another device / in another dtype (with
+    another configuration if `cfg` is given)."""
     from pigeon_tpu_torch import hji, mpc, trajectory
 
     conv = lambda x: x.to(device=device, dtype=dtype) \
         if x.is_floating_point() else x.to(device)
     return dict(
-        cfg=st["cfg"], cache=hji.inactive_cache(device=device),
+        cfg=cfg or st["cfg"], cache=hji.inactive_cache(device=device),
         tube=trajectory.make_tube(**trajectory.oval_columns(), pad_to=1024,
                                   device=device, dtype=dtype),
         carry=mpc.MPCCarry(*[conv(x) for x in st["carry"]]),
@@ -643,7 +1021,42 @@ def profile_step(torch, st):
     return profile_call(torch, lambda: closed_loop_step(torch, st))
 
 
-def reference_check(torch, formulation="coupled"):
+def reference_verdict(torch, sparse, check, card, c32, u64):
+    """One step of `reference_check`'s rule: `card` and `c32` are the
+    (commands, diagnostics) of the card and of the CPU float32 path, `u64`
+    the CPU float64 commands.  Returns the record and the rules broken."""
+    (ug, dg_), (u32, d32) = card, c32
+    bar = torch.tensor([2e-4, 2.0, 2.0], dtype=torch.float64)
+    dg = (ug.cpu().double() - u64).abs()
+    gap = (u32.double() - u64).abs()
+    scale = gap.amax(dim=0) if sparse else gap
+    allowed = torch.minimum(bar + 2.0 * scale, REF_CAP_BARS * bar)
+    it_g = dg_.iterations.cpu().double()
+    it_c = d32.iterations.double()
+    conv_g, conv_c = dg_.converged.cpu(), d32.converged
+    rec = dict(err_bars=float((dg / bar).max()),
+               gap32_bars=float((gap / bar).max()),
+               gap32_abs=gap.amax(dim=0).tolist(),
+               max_excess=float((dg - allowed).max()),
+               outside_bar=float((dg > bar).any(dim=-1).double().mean()),
+               iters_diff=int((it_g - it_c).abs().max()),
+               iters_mean=[float(it_g.mean()), float(it_c.mean())],
+               converged=[float(conv_g.double().mean()),
+                          float(conv_c.double().mean())])
+    if sparse:
+        same = (abs(int(conv_g.sum()) - int(conv_c.sum())) <= 2
+                and abs(float(it_g.mean() - it_c.mean())) <= check)
+    else:
+        same = (bool((conv_g == conv_c).all())
+                and rec["iters_diff"] <= check)
+    broken = [name for name, ok in (
+        ("commands", rec["max_excess"] <= 0.0),
+        ("outside_bar", rec["outside_bar"] <= REF_OUTSIDE_MAX),
+        ("iterations", same)) if not ok]
+    return rec, broken
+
+
+def reference_check(torch, formulation="coupled", device="cuda"):
     """A B_REF-vehicle fleet stepped on the card; each step is also run on
     the CPU (plain versions) from the card's state, at float64 (the path
     the CPU tests hold against the JAX package) and at float32.
@@ -652,41 +1065,72 @@ def reference_check(torch, formulation="coupled"):
     float32 rounding of the QP data alone moves them by many times the
     test_soft.py bar (2e-4 rad, 2 N).  `gap32_bars` prints that CPU
     float32-to-float64 gap per step, in bars.  Per step, the card must
-    meet all of:
+    meet all of (`reference_verdict`):
     - every command within the bar plus twice that vehicle's CPU gap of
       the float64 command, and never more than REF_CAP_BARS bars from it;
     - at most REF_OUTSIDE_MAX of the vehicles outside the bare bar;
     - converged flags equal to the CPU float32 path's and executed
       iterations within one check period of them (the bar
       tests/test_torch_mpc.py and tests/test_torch_mpc_decoupled.py hold
-      the port to against the JAX package)."""
-    gpu = make_setup(torch, B_REF, "cuda", formulation=formulation)
-    check = gpu["cfg"].solver.pallas_check_inner
-    bar = torch.tensor([2e-4, 2.0, 2.0], dtype=torch.float64)
-    steps = []
-    for i in range(3):
-        c32 = copy_state(torch, gpu, "cpu", torch.float32)
-        c64 = copy_state(torch, gpu, "cpu", torch.float64)
-        ug, dg_ = closed_loop_step(torch, gpu)
-        u32, d32 = closed_loop_step(torch, c32)
-        u64 = closed_loop_step(torch, c64)[0]
-        dg = (ug.cpu().double() - u64).abs()
-        gap = (u32.double() - u64).abs()
-        allowed = torch.minimum(bar + 2.0 * gap, REF_CAP_BARS * bar)
-        outside = float((dg > bar).any(dim=-1).double().mean())
-        diters = (dg_.iterations.cpu() - d32.iterations).abs().max()
-        rec = dict(step=i, err_bars=float((dg / bar).max()),
-                   gap32_bars=float((gap / bar).max()),
-                   gap32_abs=gap.amax(dim=0).tolist(),
-                   max_excess=float((dg - allowed).max()),
-                   outside_bar=outside, iters_diff=int(diters))
-        steps.append(rec)
-        require(rec["max_excess"] <= 0.0 and outside <= REF_OUTSIDE_MAX,
-                f"card commands vs CPU float64: {rec}")
-        require(bool((dg_.converged.cpu() == d32.converged).all())
-                and int(diters) <= check,
-                f"card iterations vs CPU float32: {rec}")
-    return dict(steps=steps)
+      the port to against the JAX package).
+
+    The sparse QP's stiff equality rows (rho_eq = 1e3 rho) make its
+    float32 solve rounding-determined: the card and the CPU float32 path
+    are two independent roundings, each its own distance from float64, so
+    a vehicle's CPU gap does not bound that vehicle's card error, and
+    exits at the tolerance's edge move by segments
+    (tests/test_torch_mpc_sparse.py finds the same between the JAX
+    package's float32 pipeline and the port's).  For "sparse" the first
+    rule takes the largest CPU gap of the step over the fleet, per
+    command, in place of the vehicle's own; and the third compares the
+    fleet's converged share (within 2 vehicles) and mean executed
+    iterations (within one segment).  That rule is run on every fleet
+    placement of REF_SEEDS, and on the first it must reject the
+    REF_CONTROLS so marked: the card's step from the same state with a
+    solver option a port could get wrong."""
+    sparse = formulation == "sparse"
+    seeds = []
+    for seed in REF_SEEDS[formulation]:
+        gpu = make_setup(torch, B_REF, device, formulation=formulation,
+                         seed=seed)
+        solver = gpu["cfg"].solver
+        check = solver.check_every if sparse else solver.pallas_check_inner
+        controls = {
+            name: dataclasses.replace(gpu["cfg"], solver=dataclasses.replace(
+                solver, **change))
+            for name, (change, _) in REF_CONTROLS.items()
+            if sparse and seed == REF_SEEDS[formulation][0]}
+        rejected = {name: [] for name in controls}
+        steps = []
+        for i in range(3):
+            c32 = copy_state(torch, gpu, "cpu", torch.float32)
+            c64 = copy_state(torch, gpu, "cpu", torch.float64)
+            ctl = {name: copy_state(torch, gpu, device, torch.float32, cfg)
+                   for name, cfg in controls.items()}
+            card = closed_loop_step(torch, gpu)
+            cpu32 = closed_loop_step(torch, c32)
+            u64 = closed_loop_step(torch, c64)[0]
+            rec, broken = reference_verdict(torch, sparse, check, card,
+                                            cpu32, u64)
+            require(not broken, f"card vs CPU ({formulation}, seed {seed}, "
+                                f"step {i}): {broken} {rec}")
+            for name, st in ctl.items():
+                crec, cbroken = reference_verdict(
+                    torch, sparse, check, closed_loop_step(torch, st),
+                    cpu32, u64)
+                rec[f"control_{name}"] = dict(
+                    broken=cbroken, err_bars=crec["err_bars"],
+                    max_excess=crec["max_excess"],
+                    iters_mean=crec["iters_mean"][0],
+                    converged=crec["converged"][0])
+                if cbroken:
+                    rejected[name].append(i)
+            steps.append(dict(step=i, **rec))
+        for name, at in rejected.items():
+            require(at or not REF_CONTROLS[name][1],
+                    f"the sparse reference rule took control {name}")
+        seeds.append(dict(seed=seed, steps=steps, controls_rejected=rejected))
+    return dict(seeds=seeds)
 
 
 # ---------------------------------------------------------------------------
@@ -824,6 +1268,18 @@ def main() -> int:
     cap = capture_fleet("coupled")
     cap_dec = capture_fleet("decoupled")
     small = capture_fleet("coupled", B_SMALL, HZ_SMALL)
+    cap_sp = capture_fleet("sparse", B_SPARSE)
+    small_sp = capture_fleet("sparse", B_SMALL, HZ_SMALL)
+    # the sparse fleet's second (warm) step, for B8's early exit
+    st_sp = make_setup(torch, B_SPARSE, "cuda", formulation="sparse")
+    closed_loop_step(torch, st_sp)
+    warm_sp = capture_kernel_inputs(lambda: closed_loop_step(torch, st_sp))
+    del st_sp
+    require(cap_sp["admm_dense"][0][1].shape == (B_SPARSE, 290, 193)
+            and cap_sp["banded_chol"][0][0].shape == (B_SPARSE, 16, 13, 13)
+            and small_sp["admm_dense"][0][1].shape == (B_SMALL, 234, 156)
+            and small_sp["banded_chol"][0][0].shape[1] == 13,
+            "the sparse fleet's QP and block sizes")
     require(small["admm_iterations"][0][2].shape[0] == 2 * sum(HZ_SMALL),
             "the 12-stage horizon's QP size")
     require(cap_dec["admm_iterations"][0][1].shape[:2] == (180, 30)
@@ -834,7 +1290,14 @@ def main() -> int:
     extra = {"rollout": None,
              "expm_dense": dict(
                  decoupled=capture_step("decoupled")["expm_dense"],
-                 fleet_vanloan=cap["vanloan"][0])}
+                 fleet_vanloan=cap["vanloan"][0]),
+             "ruiz": small_sp["ruiz"],
+             "admm_dense": dict(small=small_sp["admm_dense"],
+                                warm=warm_sp["admm_dense"]),
+             "banded_chol": dict(small=small_sp["banded_chol"],
+                                 factor=cap_sp["factor_inv_banded"])}
+    for kname in ("ruiz", "banded_chol", "admm_dense"):
+        cap[kname] = cap_sp[kname]
     require(cap["expm_dense"][0][0].shape == (1, 15, 19, 19)
             and extra["expm_dense"]["decoupled"][0][0].shape
             == (1, 30, 17, 17), "the unbatched route's dense stacks")
@@ -857,30 +1320,35 @@ def main() -> int:
             # n=4, T=30; the solver kernels at n=30, m=180
             second[kname] = fn(torch, *cap_dec[kname])
             log_check(kname, second[kname], path="fleet_decoupled")
-    del cap, cap_dec, small, extra
+        if kname == "vanloan":
+            # the structured exponential at the sparse fleet's shapes
+            second["vanloan_sparse"] = fn(torch, *cap_sp["vanloan"])
+            log_check(kname, second["vanloan_sparse"], path="fleet_sparse")
+    del cap, cap_dec, small, extra, cap_sp, small_sp, warm_sp
 
     # ---- path: the coupled fleet ------------------------------------------
     launches = {}
 
-    def fleet_phase(formulation, phase):
+    def fleet_phase(formulation, phase, B=B_FLEET):
         kernels.reset_launches()
-        recs, st = run_fleet(torch, B_FLEET, WARM_STEPS[formulation], kernels,
+        recs, st = run_fleet(torch, B, WARM_STEPS[formulation], kernels,
                              formulation)
         launches[phase] = kernels.launches()
         warm_ms = [r["ms"] for r in recs[1:]]
         last = recs[-1]
-        log(phase=phase, batch=B_FLEET, cold_ms=recs[0]["ms"],
+        log(phase=phase, batch=B, cold_ms=recs[0]["ms"],
             warm_ms_median=float(np.median(warm_ms)),
-            solves_per_s=B_FLEET / (float(np.median(warm_ms)) / 1e3),
+            solves_per_s=B / (float(np.median(warm_ms)) / 1e3),
             iters_mean_last=last["iters"], converged_last=last["conv"],
             launches=launches[phase], steps=recs)
         require(last["conv"] >= 0.99, f"converged fraction {last['conv']}")
-        log(phase="profile", path=phase, batch=B_FLEET,
-            **profile_step(torch, st))
+        log(phase="profile", path=phase, batch=B, **profile_step(torch, st))
 
     fleet_phase("coupled", "fleet")
     # ---- path: the decoupled fleet ----------------------------------------
     fleet_phase("decoupled", "fleet_decoupled")
+    # ---- path: the sparse coupled fleet -----------------------------------
+    fleet_phase("sparse", "fleet_sparse", B_SPARSE)
 
     # ---- path: the unbatched closed loop ----------------------------------
     sim_logs = {}
@@ -899,7 +1367,7 @@ def main() -> int:
     require(all(v > 0 for v in main_launches.values()), main_launches)
 
     # ---- reference checks -------------------------------------------------
-    for formulation in ("coupled", "decoupled"):
+    for formulation in ("coupled", "decoupled", "sparse"):
         log(phase="reference", formulation=formulation, batch=B_REF,
             **reference_check(torch, formulation))
     for formulation, sim_log in sim_logs.items():
@@ -924,6 +1392,7 @@ def main() -> int:
                    launches_by_path={ph: per[k]
                                      for ph, per in launches.items()})
         others = dict(fleet_decoupled=second.get(k),
+                      fleet_sparse=second.get(f"{k}_sparse"),
                       decoupled_step=r.get("decoupled_step"),
                       fleet_stack=r.get("fleet_stack"))
         keys = ("shapes", "err", "ms", "plain_ms", "bound_ms", "bound_by",

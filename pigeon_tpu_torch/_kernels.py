@@ -74,6 +74,12 @@ KERNELS = {
                       [_P, _P, _P, _L, _I, _I, _I]),
     "expm_dense": Kernel("expm_dense_f32", "expm_dense.cu",
                          [_P, _P, _L, _I, _I, _I]),
+    "ruiz": Kernel("ruiz_f32", "ruiz.cu", [_P] * 13 + [_I, _I, _I, _I]),
+    "banded_chol": Kernel("banded_chol_f32", "banded_chol.cu",
+                          [_P] * 4 + [_L, _I, _I]),
+    "admm_dense": Kernel(
+        "admm_dense_f32", "admm_dense.cu",
+        [_P] * 14 + [_I, _I, _I, _I, _I, _F, _F, _I, _F, _F]),
 }
 
 

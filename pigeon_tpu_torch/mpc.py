@@ -3,19 +3,21 @@ linearization-node seeding (cold trim rollout and warm resampling), the
 batched control step `mpc_step_batched`, the single-vehicle `mpc_step`
 and the closed-loop `simulate`.
 
-Counterpart of the soft paths of `pigeon_tpu/mpc.py`, coupled and
-decoupled: path projection, node seeding, HJI constraint, exact
-linearization and soft condensed QP assembly, the ADMM solve, control
-extraction, clamping and NaN fallback.  Every tensor carries a leading
+Counterpart of `pigeon_tpu/mpc.py` for the soft condensed formulations,
+coupled and decoupled, and the sparse (hard-constraint) coupled
+formulation: path projection, node seeding, HJI constraint, exact
+linearization and QP assembly, the ADMM solve, control extraction,
+clamping and NaN fallback.  Every tensor carries a leading
 batch dimension where the JAX package used `vmap`, and each `lax.scan`
 over stages is a Python loop.
 
 Two routes, as in the JAX package.  `mpc_step_batched` (a fleet)
 linearizes through the structured Van Loan kernel and solves with
 `solve_qp_batched`; on the "lanes" backend with one segment
-(max_iter == check_every) the step makes no host sync.  `mpc_step` (one
-vehicle) linearizes through the dense stage matrix on the dense expm
-kernel and solves with the single-instance `solve_qp`.
+(max_iter == check_every) the step makes no host sync, on the "pallas"
+backend (the sparse QP) one per solver segment but the last.  `mpc_step`
+(one vehicle) linearizes through the dense stage matrix on the dense
+expm kernel and solves with the single-instance `solve_qp`.
 """
 
 from __future__ import annotations
@@ -35,6 +37,7 @@ from pigeon_tpu_torch.config import (CoupledControlParams,
                                      SolverOptions, VehicleParams, x1_params)
 from pigeon_tpu_torch.math_utils import adiff
 from pigeon_tpu_torch.qp import condensed as qp_condensed
+from pigeon_tpu_torch.qp import coupled as qp_coupled
 from pigeon_tpu_torch.qp import decoupled as qp_decoupled
 from pigeon_tpu_torch.qp.coupled import CoupledStageData, u_normalization
 from pigeon_tpu_torch.solver.admm import (QPData, QPSolution, QPWarmStart,
@@ -45,8 +48,9 @@ from pigeon_tpu_torch.solver.admm import (QPData, QPSolution, QPWarmStart,
 class MPCConfig:
     """Static controller configuration, the same fields as
     `pigeon_tpu.mpc.MPCConfig`.  The port runs the soft condensed
-    formulations, coupled and decoupled; `_check_supported` rejects the
-    options it has not ported."""
+    formulations, coupled and decoupled, and the sparse coupled one
+    (`soft=False, condensed=False`, the JAX package's default);
+    `_check_supported` rejects the options it has not ported."""
 
     veh: VehicleParams
     hz: HorizonParams
@@ -84,8 +88,10 @@ def _check_supported(cfg: MPCConfig):
     unsupported = []
     if cfg.formulation not in ("coupled", "decoupled"):
         unsupported.append(f"unknown formulation {cfg.formulation!r}")
-    if not cfg.soft:
-        unsupported.append("only the soft formulations are ported")
+    if not cfg.soft and cfg.formulation == "decoupled":
+        unsupported.append("the sparse decoupled QP is not ported")
+    if not cfg.soft and cfg.condensed:
+        unsupported.append("the hard condensed QP is not ported")
     if cfg.lin_method != "expm":
         unsupported.append("only lin_method='expm' is ported")
     if cfg.lin_substeps != 1:
@@ -149,10 +155,30 @@ class StepDiagnostics(NamedTuple):
     solution_finite: torch.Tensor
 
 
-def _soft_layout(cfg: MPCConfig):
+def _sparse(cfg: MPCConfig) -> bool:
+    """The sparse (hard-constraint) coupled QP."""
+    return cfg.formulation == "coupled" and not cfg.soft
+
+
+def _layout(cfg: MPCConfig):
+    if _sparse(cfg):
+        return qp_coupled.get_layout(cfg.hz, cfg.coupled.use_walls)
     if cfg.formulation == "coupled":
         return qp_condensed.get_soft_layout(cfg.hz, cfg.coupled.use_walls)
     return qp_decoupled.get_soft_layout(cfg.hz)
+
+
+def _banded_plan_for(cfg: MPCConfig):
+    """The stage plan of the banded factor, for the sparse coupled QP."""
+    if cfg.solver.factor_method == "banded" and _sparse(cfg):
+        from pigeon_tpu_torch.solver.banded import coupled_stage_plan
+        return coupled_stage_plan(cfg.hz, cfg.coupled.use_walls)
+    return None
+
+
+def _eq_rows_for(cfg: MPCConfig):
+    """The statically known equality rows of the sparse coupled QP."""
+    return _layout(cfg).eq_rows if _sparse(cfg) else None
 
 
 def init_carry(cfg: MPCConfig, batch: "int | None", dtype=torch.float32,
@@ -166,7 +192,7 @@ def init_carry(cfg: MPCConfig, batch: "int | None", dtype=torch.float32,
         return MPCCarry(*[x[0] for x in init_carry(cfg, 1, dtype, device)])
     N = cfg.hz.N
     nx = 6 if cfg.formulation == "coupled" else 4
-    L = _soft_layout(cfg)
+    L = _layout(cfg)
     z = lambda *shape: torch.zeros((batch,) + shape, dtype=dtype,
                                    device=device)
     no = torch.zeros((batch,), dtype=torch.bool, device=device)
@@ -356,10 +382,10 @@ class _PreAux(NamedTuple):
     e0: torch.Tensor
     V_hji: torch.Tensor
     us: torch.Tensor
-    G: torch.Tensor
-    g: torch.Tensor
-    w: torch.Tensor
     q0_node: torch.Tensor
+    G: "torch.Tensor | None" = None   # soft: the rollout map
+    g: "torch.Tensor | None" = None
+    w: "torch.Tensor | None" = None   # soft: per-row penalty weights
 
 
 def _pre_solve(cfg: MPCConfig, tube, cache, carry: MPCCarry, q0, u0,
@@ -368,7 +394,9 @@ def _pre_solve(cfg: MPCConfig, tube, cache, carry: MPCCarry, q0, u0,
     assembly.  Coupled: both node sets are computed and selected per
     vehicle by `carry.solved` (the JAX package's "auto" branch; equal to
     its warm-only branch when every carry is warm), so no host sync.
-    Decoupled: always the trim-seeded nodes, no HJI row.  `unbatched`
+    Decoupled: always the trim-seeded nodes, no HJI row.  The coupled
+    QP is the soft condensed one or, with `cfg.soft` False, the sparse
+    one (`qp/coupled.py`).  `unbatched`
     (set by `mpc_step`) takes the single-vehicle route of the assembly:
     dense linearization, sequential rollout."""
     veh, hz = cfg.veh, cfg.hz
@@ -419,23 +447,31 @@ def _pre_solve(cfg: MPCConfig, tube, cache, carry: MPCCarry, q0, u0,
                            device=q0.device)
 
     data = CoupledStageData(dt=dt, qs=qs, us=us, ps=ps, hji_M=M, hji_b=b)
+    if _sparse(cfg):
+        qp = qp_coupled.build_qp(veh, cfg.coupled, hz, data,
+                                 lin_method=cfg.lin_method,
+                                 unbatched=unbatched)
+        return _pack_pre(carry, qp, ts, s0, e0, V_hji, us, qs)
     sqp = qp_condensed.build_qp_soft(veh, cfg.coupled, hz, data,
                                      unbatched=unbatched)
     return _pack_pre(carry, sqp, ts, s0, e0, V_hji, us, qs)
 
 
 def _pack_pre(carry: MPCCarry, sqp, ts, s0, e0, V_hji, us, qs):
-    """The solver's inputs from an assembled soft QP: (QPData, warm start
-    masked by `carry.solved`, _PreAux)."""
-    qp = QPData(sqp.P, sqp.q, sqp.A, sqp.l, sqp.u)
+    """The solver's inputs from an assembled QP (a soft QP, or the sparse
+    QP as QPData): (QPData, warm start masked by `carry.solved`,
+    _PreAux)."""
+    soft = not isinstance(sqp, QPData)
+    qp = QPData(sqp.P, sqp.q, sqp.A, sqp.l, sqp.u) if soft else sqp
     solved = carry.solved
     warm_start = QPWarmStart(
         x=torch.where(solved[:, None], carry.warm_x, 0.0),
         y=torch.where(solved[:, None], carry.warm_y, 0.0),
         z=torch.where(solved[:, None], carry.warm_z, 0.0),
         rho_scale=torch.where(solved, carry.warm_rho, 1.0))
-    aux = _PreAux(ts=ts, s0=s0, e0=e0, V_hji=V_hji, us=us, G=sqp.G,
-                  g=sqp.g, w=sqp.w, q0_node=qs[:, 0])
+    aux = _PreAux(ts=ts, s0=s0, e0=e0, V_hji=V_hji, us=us, q0_node=qs[:, 0])
+    if soft:
+        aux = aux._replace(G=sqp.G, g=sqp.g, w=sqp.w)
     return qp, warm_start, aux
 
 
@@ -443,7 +479,10 @@ def _post_solve(cfg: MPCConfig, carry: MPCCarry, q0, sol: QPSolution,
                 aux: _PreAux):
     """Control extraction, clamping, NaN fallback and carry update."""
     veh, hz = cfg.veh, cfg.hz
-    if cfg.formulation == "coupled":
+    if _sparse(cfg):
+        u2 = qp_coupled.extract_control(veh, hz, sol.x)
+        q_sol, u_sol = qp_coupled.extract_trajectory(hz, sol.x, veh)
+    elif cfg.formulation == "coupled":
         u2 = qp_condensed.extract_control_soft(veh, hz, sol.x)
         q_sol, u_sol = qp_condensed.extract_trajectory_soft(
             sol.x, veh, aux.G, aux.g, aux.q0_node, aux.us[:, 0])
@@ -492,15 +531,19 @@ def mpc_step_batched(cfg: MPCConfig, tube: trj.TrajectoryTube,
 
     The solver is `cfg.solver.backend`'s, as in the JAX package.  The
     default, "xla", is the plain PyTorch ADMM on whatever device the
-    tensors lie; the two solver kernels (`chol_inverse`,
-    `admm_iterations`) run only under backend="lanes", which a caller
-    sets with `dataclasses.replace(cfg, solver=SolverOptions(
-    backend="lanes", ...))`.  The linearization and rollout kernels run
-    under either."""
+    tensors lie.  The soft QPs' solver kernels (`chol_inverse`,
+    `admm_iterations`) run under backend="lanes"; the sparse QP's
+    (`ruiz`, `admm_dense`) under backend="pallas", with the
+    `banded_chol` factor under factor_method="banded" (also with "xla").
+    A caller sets them with `dataclasses.replace(cfg,
+    solver=SolverOptions(backend=..., ...))`.  The linearization and
+    rollout kernels run under any backend."""
     _check_supported(cfg)
     qp, warm, aux = _pre_solve(cfg, tube, cache, carries, q0s, u0s,
                                other_cars, ts)
-    sol = solve_qp_batched(qp, warm, cfg.solver, w_soft=aux.w)
+    sol = solve_qp_batched(qp, warm, cfg.solver,
+                           banded_plan=_banded_plan_for(cfg),
+                           eq_rows=_eq_rows_for(cfg), w_soft=aux.w)
     return _post_solve(cfg, carries, q0s, sol, aux)
 
 
@@ -515,7 +558,8 @@ def mpc_step(cfg: MPCConfig, tube: trj.TrajectoryTube,
     B=1: the horizon is linearized through the dense Van Loan stage
     matrix on `discretize.expm_dense`, the decoupled rollout is the
     sequential loop, and the QP is solved by the single-instance
-    `solve_qp`, whatever `cfg.solver.backend` says."""
+    `solve_qp`, whatever `cfg.solver.backend` says (the sparse QP's
+    banded factor runs its plain stage scan there)."""
     _check_supported(cfg)
     like = dict(dtype=carry.warm_x.dtype, device=carry.warm_x.device)
     lift = lambda v: torch.as_tensor(v, **like)[None]
@@ -525,7 +569,9 @@ def mpc_step(cfg: MPCConfig, tube: trj.TrajectoryTube,
                                lift(other_car), lift(t), unbatched=True)
     sol = solve_qp(QPData(*[x[0] for x in qp]),
                    QPWarmStart(*[x[0] for x in warm]), cfg.solver,
-                   w_soft=aux.w[0])
+                   banded_plan=_banded_plan_for(cfg),
+                   eq_rows=_eq_rows_for(cfg),
+                   w_soft=None if aux.w is None else aux.w[0])
     new_carry, u3, diag = _post_solve(
         cfg, carry_b, q0_b, QPSolution(*[x[None] for x in sol]), aux)
     return (MPCCarry(*[x[0] for x in new_carry]), u3[0],

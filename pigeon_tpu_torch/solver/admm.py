@@ -1,8 +1,9 @@
 """OSQP-style ADMM QP solver in plain PyTorch, batched over a leading
 instance dimension: containers, cold start, Ruiz equilibration, the
 explicit KKT inverse and the segment loop with adaptive rho.  Counterpart
-of `pigeon_tpu/solver/admm.py` without its "pallas" backend and its
-banded factorization.
+of `pigeon_tpu/solver/admm.py` with the natively batched "pallas"
+pipeline (Ruiz kernel, banded factor, dense ADMM kernel) and the banded
+factorization.
 
 Canonical form: minimize 1/2 x'Px + q'x subject to l <= Ax <= u, with P a
 dense (..., n, n) Hessian or a (..., n) diagonal.
@@ -65,6 +66,33 @@ def cold_start(qp: QPData) -> QPWarmStart:
                        rho_scale=torch.ones_like(qp.q[..., 0]))
 
 
+# OSQP's adaptive rho: a refactor when the suggested multiplier moves by
+# more than this factor
+ADAPT_TOL = 5.0
+
+
+def _rho_start(qp: QPData, warm: QPWarmStart, opts: SolverOptions):
+    """Per-row base rho (equality rows, l == u, get the stiff scaling, as
+    OSQP) and the warm start's multiplier."""
+    is_eq = (qp.u - qp.l) < 1e-10
+    rho_base = torch.where(
+        is_eq, torch.full_like(qp.l, opts.rho * opts.rho_eq_scale),
+        torch.full_like(qp.l, opts.rho))
+    rho_scale = (torch.ones_like(qp.q[:, 0]) if warm.rho_scale is None
+                 else torch.clamp(warm.rho_scale, 1e-6, 1e6).to(qp.q.dtype))
+    return rho_base, rho_scale
+
+
+def rho_suggestion(rho_scale, r_prim, r_dual, m_prim, m_dual, amax_q):
+    """OSQP's suggested multiplier from the residuals relative to their
+    magnitudes: (the clamped new rho_scale, the factor it moved by)."""
+    num = r_prim / torch.clamp(m_prim, min=1e-12)
+    den = r_dual / torch.maximum(m_dual, torch.clamp(amax_q, min=1e-12))
+    scale = torch.clamp(torch.sqrt(num / torch.clamp(den, min=1e-12)),
+                        1e-3, 1e3)
+    return torch.clamp(rho_scale * scale, 1e-6, 1e6), scale
+
+
 def ruiz(qp: QPData, iters: int):
     """Modified Ruiz equilibration of [[P, A'], [A, 0]] plus cost scaling
     (OSQP semantics), per instance.  Returns the scaled problem and the
@@ -105,17 +133,32 @@ def ruiz(qp: QPData, iters: int):
 # Core solve
 # ---------------------------------------------------------------------------
 
-def _factor_inv(Pb, Ab, rho_vec, sigma: float, opts: SolverOptions):
+def _factor_inv(Pb, Ab, rho_vec, sigma: float, opts: SolverOptions,
+                banded_plan=None, unbatched: bool = False):
     """Explicit inverse of K = P + sigma I + A' rho A per instance:
     Pb (B, n) or (B, n, n), Ab (B, m, n), rho_vec (B, m).
 
     "chol": Cholesky and the triangular inverse.  "ns": Newton-Schulz
     X <- X (2I - K X) from X0 = K / ||K||_inf^2, `opts.ns_iters` steps,
-    symmetrized."""
+    symmetrized.  "banded": the block-tridiagonal stage factor of
+    `solver/banded.py` for a diagonal P and a `banded_plan`, its stage
+    recursion on the `banded_chol` kernel unless `unbatched` (the
+    single-instance route, where the JAX package runs its XLA scan)."""
     method = opts.factor_method
+    if method == "banded":
+        if banded_plan is None or Pb.dim() != Ab.dim() - 1:
+            raise NotImplementedError(
+                "factor_method='banded' without a banded_plan or with a "
+                "dense P (the JAX package falls back to 'chol' there) is "
+                "not ported")
+        from pigeon_tpu_torch.solver.banded import factor_inv_banded
+        slots, n_, bw, nb = banded_plan
+        return factor_inv_banded(Pb, Ab, rho_vec, sigma, slots, n_, bw, nb,
+                                 tp_axis=opts.tp_axis, kernel=not unbatched)
     if method not in ("chol", "ns"):
         raise NotImplementedError(
-            f"factor_method={method!r} is not ported (only 'chol', 'ns')")
+            f"factor_method={method!r} is not ported (only 'chol', 'ns', "
+            f"'banded')")
     n = Pb.shape[-1]
     eye = torch.eye(n, dtype=Ab.dtype, device=Ab.device)
     K = (Ab.transpose(-1, -2) * rho_vec[..., None, :]) @ Ab
@@ -151,15 +194,19 @@ def _mtv(M, v):
 
 
 def _solve_masked(qp: QPData, warm: "QPWarmStart | None",
-                  opts: SolverOptions, w_soft=None) -> QPSolution:
+                  opts: SolverOptions, w_soft=None, banded_plan=None,
+                  unbatched: bool = False) -> QPSolution:
     """The batched solve: every leaf of `qp` and `warm` has a leading
-    batch dimension, `w_soft` is None or (B, m)."""
+    batch dimension, `w_soft` is None or (B, m).  `unbatched` marks the
+    single-instance route (`solve_qp`)."""
     dtype, dev = qp.q.dtype, qp.q.device
     B = qp.q.shape[0]
     if warm is None:
         warm = cold_start(qp)
     if opts.backend == "pallas" and w_soft is None:
-        raise NotImplementedError("solver backend 'pallas' is not ported")
+        raise NotImplementedError(
+            "solve_qp with backend 'pallas' (one instance through the dense "
+            "ADMM kernel) is not ported; solve_qp_batched runs it")
 
     if opts.scaling_iters > 0:
         qps, D, E, c = ruiz(qp, opts.scaling_iters)
@@ -174,14 +221,7 @@ def _solve_masked(qp: QPData, warm: "QPWarmStart | None",
     # of y_bar)
     wb = None if w_soft is None else c1 * w_soft / E
 
-    # per-row rho: equality rows (l == u) get the stiff scaling, as OSQP
-    is_eq = (qp.u - qp.l) < 1e-10
-    rho_base = torch.where(
-        is_eq, torch.full_like(qp.l, opts.rho * opts.rho_eq_scale),
-        torch.full_like(qp.l, opts.rho))
-    rho_scale = (torch.ones((B,), dtype=dtype, device=dev)
-                 if warm.rho_scale is None
-                 else torch.clamp(warm.rho_scale, 1e-6, 1e6).to(dtype))
+    rho_base, rho_scale = _rho_start(qp, warm, opts)
 
     # the warm start in the equilibrated space
     x = warm.x / D
@@ -228,15 +268,6 @@ def _solve_masked(qp: QPData, warm: "QPWarmStart | None",
             x, z = x_n, z_n
         return x, z, y
 
-    ADAPT_TOL = 5.0
-
-    def rho_suggestion(rho_scale, r_prim, r_dual, m_prim, m_dual):
-        num = r_prim / torch.clamp(m_prim, min=1e-12)
-        den = r_dual / torch.maximum(m_dual, torch.clamp(amax_q, min=1e-12))
-        scale = torch.clamp(torch.sqrt(num / torch.clamp(den, min=1e-12)),
-                            1e-3, 1e3)
-        return torch.clamp(rho_scale * scale, 1e-6, 1e6), scale
-
     # Two levels, as OSQP: the outer level factorizes; the inner level runs
     # `check_every`-iteration segments against the fixed factor and leaves
     # when the instance has converged, spent its segments, or its adaptive
@@ -251,7 +282,8 @@ def _solve_masked(qp: QPData, warm: "QPWarmStart | None",
     while bool(outer.any()):
         rho_vec = torch.clamp(rho_base * rho_scale[:, None], RHO_MIN,
                               RHO_MAX)
-        Kinv = _factor_inv(Pb, Ab, rho_vec, sigma, opts)
+        Kinv = _factor_inv(Pb, Ab, rho_vec, sigma, opts, banded_plan,
+                           unbatched)
         pending = rho_scale
         drift = torch.zeros_like(converged)
         inner = outer            # at least one segment per factorization
@@ -261,7 +293,7 @@ def _solve_masked(qp: QPData, warm: "QPWarmStart | None",
             conv = (rp <= eps_p) & (rd <= eps_d)
             if opts.adaptive_rho:
                 pend, scale = rho_suggestion(rho_scale, rp, rd, m_prim,
-                                             m_dual)
+                                             m_dual, amax_q)
                 dr = ((scale > ADAPT_TOL) | (scale < 1.0 / ADAPT_TOL)) & ~conv
             else:
                 pend, dr = pending, torch.zeros_like(conv)
@@ -286,10 +318,14 @@ def _solve_masked(qp: QPData, warm: "QPWarmStart | None",
 
 
 def solve_qp(qp: QPData, warm: "QPWarmStart | None" = None,
-             opts: SolverOptions = SolverOptions(),
-             w_soft=None) -> QPSolution:
+             opts: SolverOptions = SolverOptions(), banded_plan=None,
+             eq_rows=None, w_soft=None) -> QPSolution:
     """Solve one QP: P (n,) or (n, n), q (n,), A (m, n), l, u (m,).
 
+    banded_plan: the static stage plan (`solver/banded.py`) that
+    factor_method "banded" needs; on this route its stage recursion is
+    the plain PyTorch scan, as the JAX package's unbatched factor is its
+    XLA scan.  eq_rows: accepted for symmetry with `solve_qp_batched`.
     w_soft: optional (m,) exact-penalty weights (inf = hard row); a
     finite-weight row's z-update is the shrinkage prox of
     W dist(., [l, u]) in place of the box projection.  As in the JAX
@@ -299,23 +335,149 @@ def solve_qp(qp: QPData, warm: "QPWarmStart | None" = None,
     if warm is not None:
         warm = QPWarmStart(*[lift(t) for t in warm])
     sol = _solve_masked(QPData(*[t[None] for t in qp]), warm, opts,
-                        lift(w_soft))
+                        lift(w_soft), banded_plan, unbatched=True)
     return QPSolution(*[t[0] for t in sol])
 
 
 def solve_qp_batched(qp: QPData, warm: QPWarmStart,
                      opts: SolverOptions = SolverOptions(),
+                     banded_plan=None, eq_rows=None,
                      w_soft=None) -> QPSolution:
     """Solve a batch of QPs (leading batch dimension on every leaf).
     backend "xla": `solve_qp` per instance, as a masked batch; "lanes":
-    the lane solver on its CUDA kernels (`solver/lane_admm.py`); "pallas"
-    is not ported.  w_soft: (m,) or (B, m)."""
+    the lane solver on its CUDA kernels (`solver/lane_admm.py`); "pallas":
+    the natively batched pipeline (`_solve_qp_pallas_batched`) for hard
+    QPs with a diagonal P.  w_soft: (m,) or (B, m), for "xla" and
+    "lanes".  eq_rows: the statically known equality rows, which only the
+    mixed-precision kernel modes (not ported) would use."""
     if opts.backend == "lanes":
         from pigeon_tpu_torch.solver.lane_admm import solve_lanes_batched
         return solve_lanes_batched(qp, warm, opts, w_soft)
+    if opts.backend == "pallas":
+        if w_soft is not None:
+            raise NotImplementedError(
+                "soft rows are supported by the 'xla' and 'lanes' backends; "
+                "the dense ADMM kernel has no shrink prox")
+        return _solve_qp_pallas_batched(qp, warm, opts, banded_plan)
     if opts.backend != "xla":
         raise NotImplementedError(
             f"solver backend {opts.backend!r} is not ported")
     if w_soft is not None and w_soft.dim() == 1:
         w_soft = w_soft.expand(qp.l.shape)
-    return _solve_masked(qp, warm, opts, w_soft)
+    return _solve_masked(qp, warm, opts, w_soft, banded_plan)
+
+
+def run_segments(qp: QPData, warm: QPWarmStart, opts: SolverOptions, D, E,
+                 c, factor, run_iters, layout=None) -> QPSolution:
+    """The segment loop of the kernel pipelines ("lanes" and "pallas"),
+    on the scalings (D, E, c) of the Ruiz step: up to `max_iter //
+    check_every` segments of `run_iters(fac, x, z, y) -> (x, z, y, stats)`
+    on the whole batch, stats (B, 8) the unscaled residual statistics with
+    the executed iterations in column 6, and `fac = factor(rho_vec)` the
+    factor of the per-row rho.
+
+    Unlike the masked "xla" loop, a segment runs on the whole batch until
+    every instance has converged, so a converged instance keeps iterating
+    in later segments and its executed iterations keep adding up, as the
+    JAX package's loops do.  When an instance's adaptive rho drifts and
+    another segment follows, the whole batch is refactored (the others
+    keep their rho, so their factor does not change).  Between segments
+    two flags are read on the host: one sync per segment but the last.
+    `layout` = (to, back) maps the (B, k) iterates to run_iters' layout
+    and back."""
+    to_k, back = layout or (lambda v: v, lambda v: v)
+    dtype, dev = qp.q.dtype, qp.q.device
+    B = qp.q.shape[0]
+    rho_base, rho_scale = _rho_start(qp, warm, opts)
+    rho_of = lambda s: torch.clamp(rho_base * s[:, None], RHO_MIN, RHO_MAX)
+    x, z, y = (to_k(v) for v in (warm.x / D, E * warm.z,
+                                 c[:, None] * warm.y / E))
+    amax_qu = torch.abs(qp.q).amax(dim=-1)
+    fac = factor(rho_of(rho_scale))
+    n_seg = max(1, opts.max_iter // opts.check_every)
+    r_prim = r_dual = torch.full((B,), math.inf, dtype=dtype, device=dev)
+    converged = torch.zeros((B,), dtype=torch.bool, device=dev)
+    iters_acc = torch.zeros((B,), dtype=dtype, device=dev)
+    for seg in range(n_seg):
+        x, z, y, stats = run_iters(fac, x, z, y)
+        stats = stats.to(dtype)
+        iters_acc = iters_acc + stats[:, 6]
+        r_prim, r_dual, m_Ax, m_z, m_Px, m_Aty = stats[:, :6].unbind(-1)
+        m_prim = torch.maximum(m_Ax, m_z)
+        m_dual = torch.maximum(m_Px, m_Aty)
+        eps_p = opts.eps_abs + opts.eps_rel * m_prim
+        eps_d = opts.eps_abs + opts.eps_rel * torch.maximum(m_dual, amax_qu)
+        converged = (r_prim <= eps_p) & (r_dual <= eps_d)
+        drift = torch.zeros_like(converged)
+        if opts.adaptive_rho:
+            pending, scale = rho_suggestion(rho_scale, r_prim, r_dual,
+                                            m_prim, m_dual, amax_qu)
+            drift = (((scale > ADAPT_TOL) | (scale < 1.0 / ADAPT_TOL))
+                     & ~converged)
+            rho_scale = torch.where(drift, pending, rho_scale)
+        if seg + 1 == n_seg:
+            break
+        all_conv, any_drift = torch.stack(
+            [converged.all(), drift.any()]).tolist()
+        if all_conv:
+            break
+        if any_drift:
+            fac = factor(rho_of(rho_scale))
+    x, z, y = (back(v).to(dtype) for v in (x, z, y))
+    return QPSolution(
+        x=D * x, y=(E * y) / c[:, None], z=z / E,
+        iterations=iters_acc.to(torch.int32), prim_res=r_prim,
+        dual_res=r_dual, converged=converged, rho_scale=rho_scale)
+
+
+def _solve_qp_pallas_batched(qp: QPData, warm: QPWarmStart,
+                             opts: SolverOptions,
+                             banded_plan=None) -> QPSolution:
+    """The natively batched pipeline of the JAX package's "pallas"
+    backend: Ruiz equilibration (`pallas_ruiz.ruiz_batched`), the K^-1 of
+    `_factor_inv` for the whole batch, then `run_segments` with segments
+    of `check_every` iterations through `pallas_admm.admm_iterations`,
+    each with the in-kernel early exit per tile of `opts.pallas_tile`
+    instances.  The kernels compute in float32, the rest in the QP's
+    dtype."""
+    from pigeon_tpu_torch.solver.pallas_admm import admm_iterations
+    from pigeon_tpu_torch.solver.pallas_ruiz import ruiz_batched
+
+    if qp.P_diag.dim() == 3:
+        raise NotImplementedError(
+            "the pallas pipeline with a dense P (the condensed QP) is not "
+            "ported")
+    if opts.bf16_bulk_iters > 0:
+        raise NotImplementedError(
+            "the bf16 bulk phase (bf16_bulk_iters) is not ported")
+    if opts.pallas_precision != "highest":
+        raise NotImplementedError(
+            f"pallas_precision={opts.pallas_precision!r} is not ported "
+            f"(only 'highest')")
+    dtype = qp.q.dtype
+    f32 = lambda t: t.to(torch.float32).contiguous()
+    if opts.scaling_iters > 0:
+        out = ruiz_batched(*[f32(t) for t in qp], iters=opts.scaling_iters)
+        Pb, qb, Ab, lb, ub, D, E, c = [t.to(dtype) for t in out]
+    else:
+        Pb, qb, Ab, lb, ub = qp
+        D, E = torch.ones_like(qp.q), torch.ones_like(qp.l)
+        c = torch.ones_like(qp.q[:, 0])
+    sigma = float(opts.sigma)
+
+    def factor(rho_vec):
+        return (f32(_factor_inv(Pb, Ab, rho_vec, sigma, opts, banded_plan)),
+                f32(rho_vec))
+
+    kernel_ops = [f32(t) for t in (Ab, qb, lb, ub)]
+    scalings = tuple(f32(t) for t in (D, E, c, qp.P_diag, qp.q))
+
+    def run_iters(fac, x, z, y):
+        return admm_iterations(
+            fac[0], *kernel_ops, fac[1], x, z, y, opts.check_every, sigma,
+            float(opts.alpha), tile=opts.pallas_tile, scalings=scalings,
+            check=int(opts.pallas_check_inner),
+            eps_abs=float(opts.eps_abs), eps_rel=float(opts.eps_rel))
+
+    return run_segments(qp, warm, opts, D, E, c, factor, run_iters,
+                        layout=(f32, lambda v: v))

@@ -29,8 +29,8 @@ import torch
 
 from pigeon_tpu_torch import _kernels
 from pigeon_tpu_torch.config import SolverOptions
-from pigeon_tpu_torch.solver.admm import (RHO_MAX, RHO_MIN, QPData,
-                                          QPSolution, QPWarmStart, ruiz)
+from pigeon_tpu_torch.solver.admm import (QPData, QPSolution, QPWarmStart,
+                                          ruiz, run_segments)
 
 # Instances per early-exit group.  This is semantics, not tiling: the TPU
 # kernel stops a 128-lane block only when all of its lanes have converged,
@@ -230,11 +230,10 @@ def _lane_mat(M):
 
 def solve_lanes_batched(qp: QPData, warm: QPWarmStart, opts: SolverOptions,
                         w_soft=None) -> QPSolution:
-    """Batched solve: Ruiz equilibration, per-row rho, `max_iter //
-    check_every` segments with in-kernel early exit every
-    `opts.pallas_check_inner` iterations, and OSQP adaptive rho (a
-    refactor runs only when another segment follows).  The segment loop
-    reads convergence on the host only between segments, so a
+    """Batched solve: Ruiz equilibration, then `admm.run_segments` (per-row
+    rho, `max_iter // check_every` segments with in-kernel early exit
+    every `opts.pallas_check_inner` iterations, OSQP adaptive rho with a
+    refactor only when another segment follows) on the lane kernels.  A
     one-segment solve (max_iter == check_every) needs no host sync."""
     dtype = qp.q.dtype
     B, n = qp.q.shape
@@ -258,19 +257,6 @@ def solve_lanes_batched(qp: QPData, warm: QPWarmStart, opts: SolverOptions,
         w_soft = torch.full((m,), math.inf, dtype=dtype, device=dev)
     wb = c[:, None] * torch.broadcast_to(w_soft, (B, m)) / E
 
-    is_eq = (qp.u - qp.l) < 1e-10
-    rho_base = torch.where(is_eq,
-                           torch.full_like(qp.l, opts.rho * opts.rho_eq_scale),
-                           torch.full_like(qp.l, opts.rho))
-    rho_scale = (torch.ones((B,), dtype=dtype, device=dev)
-                 if warm.rho_scale is None
-                 else torch.clamp(warm.rho_scale, 1e-6, 1e6).to(dtype))
-
-    # warm start into the equilibrated space
-    x_l = _lane_vec(warm.x / D)
-    z_l = _lane_vec(E * warm.z)
-    y_l = _lane_vec(c[:, None] * warm.y / E)
-
     A_l = _lane_mat(Ab)
     q_l, l_l, u_l = _lane_vec(qb), _lane_vec(lb), _lane_vec(ub)
     E_l = _lane_vec(E)
@@ -283,70 +269,21 @@ def solve_lanes_batched(qp: QPData, warm: QPWarmStart, opts: SolverOptions,
     eye = torch.eye(n, dtype=dtype, device=dev)
 
     def factor(rho_vec):
+        """K^-1, rho and the soft rows' cap W / rho, in lane layouts."""
         K = Pb + torch.einsum("bmi,bm,bmj->bij", Ab, rho_vec, Ab)
         K = K + sigma * eye
         Kinv = chol_inverse(K.to(torch.float32).contiguous(),
                             polish=opts.lane_polish)
-        return _lane_mat(Kinv)
+        return _lane_mat(Kinv), _lane_vec(rho_vec), _lane_vec(wb / rho_vec)
 
-    def lanes_rho(rho_vec):
-        return _lane_vec(rho_vec), _lane_vec(wb / rho_vec)
-
-    amax_qu = torch.abs(qp.q).amax(dim=-1)
-
-    def residuals(stats):
-        stats = stats.to(dtype)
-        r_prim, r_dual, m_Ax, m_z, m_Px, m_Aty = stats[:6]
-        eps_p = opts.eps_abs + opts.eps_rel * torch.maximum(m_Ax, m_z)
-        eps_d = opts.eps_abs + opts.eps_rel * torch.maximum(
-            torch.maximum(m_Px, m_Aty), amax_qu)
-        return r_prim, r_dual, eps_p, eps_d, m_Ax, m_z, m_Px, m_Aty
-
-    def rho_suggestion(rho_scale, r_prim, r_dual, m_Ax, m_z, m_Px, m_Aty):
-        num = r_prim / torch.clamp(torch.maximum(m_Ax, m_z), min=1e-12)
-        den = r_dual / torch.maximum(torch.maximum(m_Px, m_Aty),
-                                     torch.clamp(amax_qu, min=1e-12))
-        scale = torch.clamp(torch.sqrt(num / torch.clamp(den, min=1e-12)),
-                            1e-3, 1e3)
-        return torch.clamp(rho_scale * scale, 1e-6, 1e6), scale
-
-    rho_vec = torch.clamp(rho_base * rho_scale[:, None], RHO_MIN, RHO_MAX)
-    Kinv_l = factor(rho_vec)
-    rho_l, cap_l = lanes_rho(rho_vec)
-
-    n_seg = max(1, opts.max_iter // opts.check_every)
-    ADAPT_TOL = 5.0
-    r_prim = r_dual = torch.full((B,), math.inf, dtype=dtype, device=dev)
-    converged = torch.zeros((B,), dtype=torch.bool, device=dev)
-    iters_acc = torch.zeros((B,), dtype=dtype, device=dev)
-    for seg in range(n_seg):
-        if seg > 0 and bool(converged.all()):
-            break
+    def run_iters(fac, x_l, z_l, y_l):
+        Kinv_l, rho_l, cap_l = fac
         x_l, z_l, y_l, stats = admm_iterations(
             Kinv_l, A_l, q_l, l_l, u_l, rho_l, cap_l, x_l, z_l, y_l, E_l,
             PuD_l, qu_l, invDc_l, opts.check_every, sigma,
             float(opts.alpha), check=int(opts.pallas_check_inner),
             eps_abs=float(opts.eps_abs), eps_rel=float(opts.eps_rel))
-        iters_acc = iters_acc + stats[6].to(dtype)
-        (r_prim, r_dual, eps_p, eps_d, m_Ax, m_z, m_Px,
-         m_Aty) = residuals(stats)
-        converged = (r_prim <= eps_p) & (r_dual <= eps_d)
-        if opts.adaptive_rho:
-            pending, scale = rho_suggestion(rho_scale, r_prim, r_dual,
-                                            m_Ax, m_z, m_Px, m_Aty)
-            drift = (((scale > ADAPT_TOL) | (scale < 1.0 / ADAPT_TOL))
-                     & ~converged)
-            rho_scale = torch.where(drift, pending, rho_scale)
-            if seg + 1 < n_seg and bool(drift.any()):
-                new_rho = torch.clamp(rho_base * rho_scale[:, None],
-                                      RHO_MIN, RHO_MAX)
-                Kinv_l = factor(new_rho)
-                rho_l, cap_l = lanes_rho(new_rho)
+        return x_l, z_l, y_l, stats.T
 
-    x = x_l.T.to(dtype)
-    z = z_l.T.to(dtype)
-    y = y_l.T.to(dtype)
-    return QPSolution(
-        x=D * x, y=(E * y) / c[:, None], z=z / E,
-        iterations=iters_acc.to(torch.int32), prim_res=r_prim,
-        dual_res=r_dual, converged=converged, rho_scale=rho_scale)
+    return run_segments(qp, warm, opts, D, E, c, factor, run_iters,
+                        layout=(_lane_vec, lambda v: v.T))

@@ -129,7 +129,8 @@ def test_carry_matches(steps, k):
 
 @pytest.mark.parametrize("change", [
     dict(lin_substeps=2), dict(coupled=TCP(use_walls=True)),
-    dict(lin_method="rk4"), dict(use_hji_policy=True), dict(soft=False),
+    dict(lin_method="rk4"), dict(use_hji_policy=True),
+    dict(soft=False, condensed=True),
     dict(formulation="decoupled", soft=False),
     dict(formulation="lateral")],
     ids=["lin_substeps", "walls", "lin_method", "hji_policy", "hard",
