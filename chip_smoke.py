@@ -19,7 +19,10 @@ Phases (any failure raises, so the script exits non-zero):
    kernels (ruiz, banded_chol, admm_dense) whose float32 results are
    rounding-limited by the stiff equality rows are also held against the
    float64 plain version: the kernel no further from it than twice the
-   float32 plain version;
+   float32 plain version.  The two ADMM kernels launch as thread block
+   clusters (one per exit group or tile); their checks print how many
+   clusters fit the card at once and the shared memory of a block, and
+   their bounds count A's nonzeros, not m n;
 4. path "fleet": the coupled soft MPC for a fleet of 8192 vehicles on an
    oval (x1_coupled_config(soft=True), N_short=5, N_long=10, the lane
    solver with bench.py's options), one cold step and 10 warm closed-loop
@@ -284,6 +287,19 @@ def bound(bytes_moved: float, flops: float):
     return (max(tb, tf), "bytes" if tb >= tf else "operations")
 
 
+def admm_flops(torch, nnz, executed, check, n, it_extra, st_extra):
+    """Operations of an ADMM segment as this run's data needs them, per
+    instance: each executed iteration A'w and A x (2 per nonzero of the
+    instance's A each, `nnz`), the K^-1 product (2 n^2) and `it_extra`
+    elementwise; each check A x and A'y again and `st_extra`."""
+    executed = executed.double()
+    nnz = nnz.double()
+    checks = (torch.ceil(executed / check) if check > 0
+              else torch.ones_like(executed))
+    return float((executed * (4 * nnz + 2 * n * n + it_extra)
+                  + checks * (4 * nnz + st_extra)).sum())
+
+
 def dense_stage_matrices(torch, P0, Cu0, cc0, rr):
     """The (B T, n+2m+1, n+2m+1) dense Van Loan stage matrices of the
     structured exponential's inputs."""
@@ -484,11 +500,10 @@ def check_admm(torch, args, kw, small=None):
     plain = cuda_ms(torch, lambda: la.admm_iterations_plain(
         *ops, n_iters, sigma, alpha, check=check, **eps), 2)
     n, m = ops[2].shape[0], ops[3].shape[0]
-    it_flops = 2 * m * n * 2 + 2 * n * n + 4 * n + 14 * m
-    st_flops = 2 * m * n * 2 + 2 * n * n + 8 * m + 8 * n
     executed = sk[6].double()
-    checks = torch.ceil(executed / check) if check > 0 else executed * 0 + 1
-    flops = float((executed * it_flops + checks * st_flops).sum())
+    # P x (2 n^2) is part of each check
+    flops = admm_flops(torch, (ops[1] != 0).sum(dim=(0, 1)), executed, check,
+                       n, 4 * n + 14 * m, 2 * n * n + 8 * m + 8 * n)
     outs = la.admm_iterations(*ops, n_iters, sigma, alpha, check=check,
                               **eps)
     b_ms, b_by = bound(nbytes(*ops, *outs), flops)
@@ -499,6 +514,10 @@ def check_admm(torch, args, kw, small=None):
                 ragged_exec=ragged_exec,
                 iters_mean=float(executed.mean()), ms=ms, plain_ms=plain,
                 library_ms=None, bound_ms=b_ms, bound_by=b_by,
+                a_nonzeros_mean=float((ops[1] != 0).sum(dim=(0, 1))
+                                      .double().mean()),
+                max_active_clusters=la.max_active_clusters(n, m),
+                smem_bytes=la.plan_smem(n, m),
                 shapes=[list(ops[1].shape)])
 
 
@@ -646,10 +665,11 @@ def check_ruiz(torch, args, kw, small=None):
     ms = cuda_ms(torch, lambda: pr.ruiz_batched(*args, iters=iters), 20)
     plain = cuda_ms(torch, lambda: TA.ruiz(TA.QPData(*args), iters), 5)
     Bn, m, n = args[2].shape
-    # per sweep: two passes over |A| (a product and a max per entry), the
+    # per sweep: two passes over |A| (a product and a max per nonzero), the
     # square roots and the cost scaling; then the scaled copy
-    flops = Bn * (iters * (4 * m * n + 4 * (m + n) + 8 * n)
-                  + 2 * m * n + 6 * n + 2 * m)
+    nnz = float((args[2] != 0).sum())
+    flops = (iters * (4 * nnz + Bn * (4 * (m + n) + 8 * n))
+             + 2 * nnz + Bn * (6 * n + 2 * m))
     b_ms, b_by = bound(nbytes(*args, *out_k), flops)
     return dict(err=max(d for d, _ in diffs), rel=rel, ms=ms,
                 plain_ms=plain, library_ms=None,
@@ -755,9 +775,12 @@ def dense_admm(torch, ops, kw, n_iters, check, plain=False, dtype=None):
     sigma, alpha = kw["sigma"], kw["alpha"]
     eps = dict(eps_abs=kw["eps_abs"], eps_rel=kw["eps_rel"])
     if not plain:
+        # the pipeline's pattern and packed A where `kw` has them; without
+        # a pattern the wrapper derives the batch's
         return pa.admm_iterations(*ops, n_iters, sigma, alpha,
                                   tile=kw["tile"], scalings=kw["scalings"],
-                                  check=check, **eps)
+                                  check=check, pattern=kw.get("pattern"),
+                                  A_packed=kw.get("A_packed"), **eps)
     cast = (lambda t: t) if dtype is None else (lambda t: t.to(dtype))
     return pa.admm_iterations_plain(
         *[cast(t) for t in ops], cast(E), cast(Pu * D), cast(qu),
@@ -873,10 +896,24 @@ def check_admm_dense(torch, args, kw, extra):
     On the cold step no tile converges within the segment, so the early
     exit per tile is held on the warm step's segment too, where most
     tiles stop at a check before the segment's end."""
+    from pigeon_tpu_torch.solver import pallas_admm as pa
+
     ops, (n_iters, sigma, alpha) = args[:9], args[9:12]
     kw = dict(kw, sigma=sigma, alpha=alpha)
     check = kw["check"]
+    # the pipeline passes its layout's pattern and packed A on the card
+    pattern = kw.get("pattern") or pa.pattern_from(ops[1])
+    kw.setdefault("A_packed", pa.pack(ops[1], pattern))
     fixed = held_fixed(torch, ops, kw, 10, "(10 fixed)")
+    # the layout's static pattern and the union pattern of the batch (one
+    # host read) skip only exact zeros, in the same order: the same bits
+    derived = dense_admm(torch, ops, dict(kw, pattern=None, A_packed=None),
+                         10, 0)
+    static = dense_admm(torch, ops, kw, 10, 0)
+    torch.cuda.synchronize()
+    union = pa.pattern_from(ops[1])
+    require(all(torch.equal(a, b) for a, b in zip(derived, static)),
+            "admm_dense with the batch's union pattern vs the layout's")
     # the main-path call (its executed counts give the bound's work)
     ok_, op_, cold_exits = held_segment(torch, ops, kw, n_iters, check,
                                         "(cold segment)", some_early=False)
@@ -888,8 +925,9 @@ def check_admm_dense(torch, args, kw, extra):
     # the run-time n, m build on the 12-stage horizon's operands
     cut = lambda ops_, kw_: (
         [o[:B_RAGGED].contiguous() for o in ops_],
-        dict(kw_, scalings=tuple(t[:B_RAGGED].contiguous()
-                                 for t in kw_["scalings"])))
+        dict(kw_, A_packed=None,
+             scalings=tuple(t[:B_RAGGED].contiguous()
+                            for t in kw_["scalings"])))
     ragged = held_fixed(torch, *cut(ops, kw), 10, "(10 fixed, ragged)")
     ragged_exits = held_segment(torch, *cut(w_ops, w_kw), n_iters, check,
                                 "(warm segment, ragged)",
@@ -899,15 +937,25 @@ def check_admm_dense(torch, args, kw, extra):
     small_errs = held_fixed(torch, s_args[:9], s_kw, 10,
                             f"(10 fixed) at {tuple(s_args[1].shape)}")
     ms = cuda_ms(torch, lambda: dense_admm(torch, ops, kw, n_iters, check), 5)
+    warm_ms = cuda_ms(torch, lambda: dense_admm(torch, w_ops, w_kw, n_iters,
+                                                check), 5)
+    pack_ms = cuda_ms(torch, lambda: pa.pack(ops[1], pattern), 20)
+    # the pack runs once per solve, outside the kernel
+    log(phase="admm_dense_pack", ms=pack_ms, shape=list(kw["A_packed"].shape),
+        bytes=nbytes(ops[1], kw["A_packed"]))
     plain = cuda_ms(torch, lambda: dense_admm(torch, ops, kw, n_iters, check,
                                               plain=True), 2)
     n, m = ops[0].shape[-1], ops[1].shape[1]
-    it_flops = 4 * m * n + 2 * n * n + 10 * m + 5 * n
-    st_flops = 4 * m * n + 10 * m + 12 * n
     executed = ok_[3][:, 6].double()
-    checks = torch.ceil(executed / check)
-    flops = float((executed * it_flops + checks * st_flops).sum())
-    b_ms, b_by = bound(nbytes(*ops, *kw["scalings"], *ok_), flops)
+    flops = admm_flops(torch, (ops[1] != 0).sum(dim=(1, 2)), executed, check,
+                       n, 10 * m + 5 * n, 10 * m + 12 * n)
+    # the kernel's inputs as the pipeline passes them: A packed, not dense
+    pat = pattern.tensors(ops[1].device)
+    b_ms, b_by = bound(nbytes(ops[0], kw["A_packed"], *ops[2:],
+                              *kw["scalings"], *ok_,
+                              *[pat[k] for k in ("row_code", "col_slot",
+                                                 "col_row")]),
+                       flops)
     return dict(err=float((ok_[0] - op_[0]).abs().max()),
                 rel=fixed["vs_plain"]["x"], fixed_errs=fixed,
                 cold_exits=cold_exits, warm_exits=warm_exits,
@@ -915,6 +963,17 @@ def check_admm_dense(torch, args, kw, extra):
                 small_horizon_errs=small_errs,
                 iters_mean=float(executed.mean()), ms=ms, plain_ms=plain,
                 library_ms=None, bound_ms=b_ms, bound_by=b_by,
+                warm_ms=warm_ms,
+                warm_iters_mean=warm_exits["mean"][0], pack_ms=pack_ms,
+                pattern=dict(nonzeros=pattern.nnz,
+                             widths=[pattern.row_width, pattern.col_width],
+                             union_nonzeros=union.nnz,
+                             a_nonzeros_mean=float((ops[1] != 0).sum(
+                                 dim=(1, 2)).double().mean())),
+                max_active_clusters=pa.max_active_clusters(pattern,
+                                                           kw["tile"]),
+                smem_bytes=pa.plan_smem(n, m, pattern.row_width,
+                                        pattern.col_width),
                 shapes=[list(ops[0].shape), list(ops[1].shape)])
 
 

@@ -35,6 +35,13 @@ _L = ctypes.c_longlong
 _F = ctypes.c_float
 
 
+def _load(source: str, name: str, argtypes: list):
+    fn = getattr(ctypes.CDLL(str(build(source))), name)
+    fn.argtypes = argtypes
+    fn.restype = _I
+    return fn
+
+
 class Kernel:
     """One C entry point of one source file; `launches` counts the calls
     that launched it."""
@@ -48,11 +55,7 @@ class Kernel:
 
     def launch(self, *args):
         if self._fn is None:
-            lib = ctypes.CDLL(str(build(self.source)))
-            fn = getattr(lib, self.name)
-            fn.argtypes = self.argtypes
-            fn.restype = _I
-            self._fn = fn
+            self._fn = _load(self.source, self.name, self.argtypes)
         conv = [a.data_ptr() if isinstance(a, torch.Tensor) else a
                 for a in args]
         err = self._fn(*conv, torch.cuda.current_stream().cuda_stream)
@@ -79,8 +82,16 @@ KERNELS = {
                           [_P] * 4 + [_L, _I, _I]),
     "admm_dense": Kernel(
         "admm_dense_f32", "admm_dense.cu",
-        [_P] * 14 + [_I, _I, _I, _I, _I, _F, _F, _I, _F, _F]),
+        [_P] * 17 + [_I] * 7 + [_F, _F, _I, _F, _F]),
 }
+
+
+def call_helper(source: str, name: str, argtypes: list, *args):
+    """Call a host-side C helper of `source`'s library (an occupancy query,
+    not a launch: nothing is counted); raises if it returns an error."""
+    err = _load(source, name, argtypes)(*args)
+    if err != 0:
+        raise RuntimeError(f"{name} failed: cudaError {err}")
 
 
 def reset_launches():

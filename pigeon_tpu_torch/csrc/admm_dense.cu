@@ -1,6 +1,8 @@
 // OSQP ADMM iterations of the sparse MPC QP with a dense explicit K^-1
-// ("highest" precision, diagonal P), one thread block per tile of `tile`
-// consecutive instances.
+// ("highest" precision, diagonal P): one thread block per instance, its
+// K^-1 and the nonzeros of its A resident in shared memory for the whole
+// call, and the early-exit tile of `tile` instances one thread block
+// cluster.
 //
 // Replaces the TPU kernel pigeon_tpu/solver/pallas_admm.py:_kernel in its
 // "highest" mode.  Per iteration (instance-local, scaled problem):
@@ -11,54 +13,141 @@
 // Every `check` iterations (0 < check < n_iters) each instance computes
 // its unscaled statistics (r_prim, r_dual, max|Ax|, max|z|, max|Px|,
 // max|A'y|) with A x and A'y against the scaled matrix and the scalings
-// (1/E, P_u D, q_u, 1/(D c)), and the block stops once every instance of
-// the tile has converged (__syncthreads_and; instances past B count as
-// converged, as the TPU kernel's zero-padded instances do).  The tile is
-// semantics, not tiling: it is the TPU kernel's grid step, whose early
-// exit takes all instances of the step.  The last check block runs only
-// the remainder of n_iters, so the executed count (stats column 6) is
-// exact.  check == 0 (or >= n_iters) runs a fixed n_iters.
+// (1/E, P_u D, q_u, 1/(D c)), and the tile stops once every instance of
+// it has converged.  The tile is semantics, not tiling: it is the TPU
+// kernel's grid step, whose early exit takes all instances of the step.
+// The last check block runs only the remainder of n_iters, so the
+// executed count (stats column 6) is exact.  check == 0 (or >= n_iters)
+// runs a fixed n_iters.
 //
-// Layout: K^-1 (B, n, n), A (B, m, n), vectors (B, n) and (B, m), stats
-// (B, 8), all instance-major; n <= 256 and m <= 512 at run time.  The
-// tile's vectors live in shared memory; K^-1 and A (0.6 MB per instance
-// at n = 193, m = 290) stream from global memory on every iteration: A'w
-// with one thread per column (coalesced along a row), xt with one thread
-// per column of K^-1 (K^-1 is read by rows, as rhs' K^-1), A xt with one
-// warp per row.  No transposed copy of A is needed.
+// Residency.  Each block loads its instance's K^-1 (n x n; 148,996 B at
+// n = 193) with cp.async once per call, and A as its nonzeros: a row-ELL
+// of values (m x W, W = 11 at m = 290) packed by the wrapper with one
+// gather, beside the pattern shared by every instance (a code per
+// row-ELL slot, and a column-ELL of row-ELL slots, Wc = 15), plus the
+// vectors.  ~196 KB at n = 193, m = 290 (`smem_bytes`, mirrored by
+// pallas_admm.smem_bytes); a shape over the 227 KB a block may use is
+// refused (n > 211 at this m).  Each instance's matrices are read from
+// device memory once per call, not once per iteration.
 //
-// Bound on the card: each iteration reads A twice and K^-1 once, 0.6 MB
-// per instance; at B=2048 A and K^-1 (0.77 GB) do not fit the 50 MB L2, so
-// an iteration of the whole batch is bound by device memory at ~0.37 ms.
+// Products, each in the summation order of the first (streaming) design,
+// so skipping A's zeros leaves every sum's rounding unchanged:
+//   A'w    a thread per column, its nonzeros in ascending row;
+//   xt     a thread per column k of K^-1, read row by row (consecutive
+//          threads read consecutive words), j ascending;
+//   A x    a thread per row: the first design's warp per row summed
+//          lane l's columns j = l, l + 32, ... in ascending order, then
+//          added the lanes' sums in the xor butterfly's tree; the thread
+//          adds the same sums in the same tree without the absent lanes
+//          (`mat_vec`).  The row-ELL is ordered for it.
+//
+// The tile is a cluster of `tile` blocks (1..8, portable), launched with
+// cudaLaunchKernelEx and cudaLaunchAttributeClusterDimension; the grid is
+// padded to whole tiles and blocks past B hold no data and vote
+// "converged".  At each check every block writes its instance's
+// convergence into its shared memory, one barrier.cluster, and every
+// block reads the tile's flags through distributed shared memory; the
+// flags are double-buffered by check index, so one cluster barrier per
+// check is enough.  tile == 1 launches no cluster.
+//
+// Bound on the card (H100 SXM): the call must read K^-1 and A's nonzeros
+// once (0.16 MB per instance at the path's shapes, 0.33 GB at B = 2048:
+// ~0.1 ms of device memory), and do per iteration 2 n^2 + 4 nnz(A)
+// operations (~0.08 MFLOP per instance).  The first design streamed K^-1
+// once and the dense A twice per iteration from device memory (0.6 MB per
+// instance and iteration) and read 28.87 ms per 50-iteration cold segment
+// at B = 2048 (PERF.md).  Here the shared-memory pipe and its latency
+// set the time: per iteration the K^-1 product's n^2 loads (149 KB, ~1,160
+// clocks at 128 B a clock) and the dependent loads of A x and A'w.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int THREADS = 256;
-constexpr int WARPS = THREADS / 32;
-constexpr int TILE_MAX = WARPS;     // one warp per instance in the stats
-constexpr int NMAX = 256, MMAX = 512;
+// ten warps: the row loops (A x, the z and y update) take the path's m =
+// 290 rows in one pass
+constexpr int THREADS = 320;
+// a row slot's code (the wrapper's EllPattern.row_code): its column, the
+// merges after it, whether it starts and whether it ends its lane's sum
+constexpr int CODE_COL = 0xffff;
+constexpr int CODE_MERGE_SHIFT = 16;
+constexpr int CODE_FIRST = 1 << 19;
+constexpr int CODE_LAST = 1 << 20;
+constexpr int TILE_MAX = 8;               // the portable cluster size
+constexpr int SMEM_MAX = 232448;          // 227 KB: a block's opt-in limit
 constexpr unsigned FULL = 0xffffffffu;
 
 struct Args {
-  const float* __restrict__ Kinv;   // (B, n, n)
-  const float* __restrict__ A;      // (B, m, n)
-  const float* __restrict__ q;      // (B, n)
-  const float* __restrict__ l;      // (B, m)
-  const float* __restrict__ u;      // (B, m)
-  const float* __restrict__ rho;    // (B, m)
-  float* __restrict__ x;            // (B, n) in/out
-  float* __restrict__ z;            // (B, m) in/out
-  float* __restrict__ y;            // (B, m) in/out
-  const float* __restrict__ E;      // (B, m)
-  const float* __restrict__ PuD;    // (B, n)
-  const float* __restrict__ qu;     // (B, n)
-  const float* __restrict__ invDc;  // (B, n)
-  float* __restrict__ stats;        // (B, 8)
-  int B, n, m, tile, n_iters, check;
+  const float* __restrict__ Kinv;     // (B, n, n)
+  const float* __restrict__ Aval;     // (B, m, W) row-ELL values
+  const int* __restrict__ rcode;      // (m, W) code of each slot, -1 pad
+  const short* __restrict__ cslot;    // (n, Wc) row-ELL slots, -1 pad
+  const short* __restrict__ crow;     // (n, Wc) their rows
+  const float* __restrict__ q;        // (B, n)
+  const float* __restrict__ l;        // (B, m)
+  const float* __restrict__ u;        // (B, m)
+  const float* __restrict__ rho;      // (B, m)
+  float* __restrict__ x;              // (B, n) in/out
+  float* __restrict__ z;              // (B, m) in/out
+  float* __restrict__ y;              // (B, m) in/out
+  const float* __restrict__ E;        // (B, m)
+  const float* __restrict__ PuD;      // (B, n)
+  const float* __restrict__ qu;       // (B, n)
+  const float* __restrict__ invDc;    // (B, n)
+  float* __restrict__ stats;          // (B, 8)
+  int B, n, m, W, Wc, tile, n_iters, check;
   float sigma, alpha, eps_abs, eps_rel;
 };
+
+__host__ __device__ inline int round4(int v) { return (v + 3) & ~3; }
+
+// Shared memory of one block, in this order: floats v1 (n rounded up to 4,
+// 16-byte aligned for float4 reads); the row-ELL as (value, code) pairs
+// (m W float2); floats x, v2, q, PuD, qu,
+// invDc (n each), z, y, w, ax, rho, l, u, E (m each), st (8), K^-1 (n n); int
+// flags (2); shorts cslot, crow (n Wc each).
+__host__ __device__ inline size_t smem_bytes(int n, int m, int W, int Wc) {
+  const size_t floats = 6 * (size_t)n + 8 * (size_t)m + 8 + (size_t)n * n;
+  return 4 * (size_t)round4(n) + 8 * (size_t)m * W
+         + 4 * floats + 8 + 4 * (size_t)n * Wc;
+}
+
+struct Smem {
+  float *v1, *x, *v2, *q, *PuD, *qu, *invDc;
+  float *z, *y, *w, *ax, *rho, *l, *u, *E, *st, *K;
+  float2* vc;
+  int* flags;
+  short *cslot, *crow;
+};
+
+__device__ Smem carve(float* sh, int n, int m, int W, int Wc) {
+  Smem s;
+  s.v1 = sh;
+  s.vc = reinterpret_cast<float2*>(s.v1 + round4(n));
+  s.x = reinterpret_cast<float*>(s.vc + m * W);
+  s.v2 = s.x + n;
+  s.q = s.v2 + n;
+  s.PuD = s.q + n;
+  s.qu = s.PuD + n;
+  s.invDc = s.qu + n;
+  s.z = s.invDc + n;
+  s.y = s.z + m;
+  s.w = s.y + m;
+  s.ax = s.w + m;
+  s.rho = s.ax + m;
+  s.l = s.rho + m;
+  s.u = s.l + m;
+  s.E = s.u + m;
+  s.st = s.E + m;
+  s.K = s.st + 8;
+  s.flags = reinterpret_cast<int*>(s.K + n * n);
+  s.cslot = reinterpret_cast<short*>(s.flags + 2);
+  s.crow = s.cslot + n * Wc;
+  return s;
+}
 
 __device__ __forceinline__ float nmax(float a, float b) {
   return (a > b || a != a) ? a : b;
@@ -70,124 +159,138 @@ __device__ __forceinline__ float warp_max(float v) {
   return v;
 }
 
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(FULL, v, o);
-  return v;
-}
-
 // clip(v, lo, hi) that keeps a NaN v, as jnp.clip and torch do
 __device__ __forceinline__ float clip_keep_nan(float v, float lo, float hi) {
   return (v != v) ? v : fminf(fmaxf(v, lo), hi);
 }
 
-// Shared vectors of the tile: instance i's slices at i * n or i * m.
-struct Tile {
-  float* x;     // (tile, n)
-  float* v1;    // (tile, n)  rhs, then A'y in the statistics
-  float* v2;    // (tile, n)  xt
-  float* z;     // (tile, m)
-  float* y;     // (tile, m)
-  float* w;     // (tile, m)  rho z - y, then A xt, then A x
-};
-
-// out[i][j] = sum_r A_i[r][j] v[i][r]: thread per (instance, column)
-__device__ __forceinline__ void mat_t_vec(const Args& a, long long b0, int cnt,
-                                          const float* v, float* out) {
-  const int n = a.n, m = a.m;
-  for (int e = threadIdx.x; e < cnt * n; e += THREADS) {
-    const int i = e / n, j = e - i * n;
-    const float* Ai = a.A + (b0 + i) * (long long)m * n + j;
-    const float* vi = v + i * m;
-    float acc = 0.0f;
-#pragma unroll 8
-    for (int r = 0; r < m; ++r) acc = acc + Ai[(long long)r * n] * vi[r];
-    out[i * n + j] = acc;
-  }
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d),
+               "l"(src));
 }
 
-// out[i][r] = sum_j A_i[r][j] v[i][j]: warp per (instance, row)
-__device__ __forceinline__ void mat_vec(const Args& a, long long b0, int cnt,
+// out[j] = sum_r A[r][j] v[r], a thread per column, ascending r (the
+// column's pads, -1, come last)
+__device__ __forceinline__ float col_dot(const Args& a, const Smem& s, int j,
+                                         const float* v) {
+  const short* slots = s.cslot + j * a.Wc;
+  const short* rows = s.crow + j * a.Wc;
+  float acc = 0.0f;
+#pragma unroll 5
+  for (int p = 0; p < a.Wc; ++p) {
+    const int slot = slots[p];
+    if (slot >= 0) acc = acc + s.vc[slot].x * v[rows[p]];
+  }
+  return acc;
+}
+
+// out[r] = sum_j A[r][j] v[j], a thread per row.  The first design summed
+// a row with a warp: lane l over the columns j = l, l + 32, ... in
+// ascending order, then the xor butterfly, which adds the lanes' partial
+// sums in a balanced binary tree over the lanes in bit-reversed order.
+// Leaving out the zeros changes none of those additions but drops the
+// ones with an absent lane, so the thread walks the row's slots in
+// (bit-reversed lane, col) order, sums each lane's slots, pushes each
+// lane's sum on a stack of six registers and merges the top two as many
+// times as the slot's code says (the pruned tree in post-order, planned
+// by the wrapper's EllPattern).
+__device__ __forceinline__ void mat_vec(const Args& a, const Smem& s,
                                         const float* v, float* out) {
-  const int n = a.n, m = a.m;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  for (int e = warp; e < cnt * m; e += WARPS) {
-    const int i = e / m, r = e - i * m;
-    const float* Ar = a.A + ((b0 + i) * (long long)m + r) * n;
-    const float* vi = v + i * n;
-    float acc = 0.0f;
-    for (int j = lane; j < n; j += 32) acc = acc + Ar[j] * vi[j];
-    acc = warp_sum(acc);
-    if (lane == 0) out[i * m + r] = acc;
+  for (int r = threadIdx.x; r < a.m; r += THREADS) {
+    const float2* e = s.vc + r * a.W;
+    float acc = 0.0f, t0 = 0.0f, t1 = 0.0f, t2 = 0.0f, t3 = 0.0f, t4 = 0.0f,
+          t5 = 0.0f;
+    for (int p = 0; p < a.W; ++p) {
+      const float2 ep = e[p];
+      const int code = __float_as_int(ep.y);
+      if (code < 0) break;                    // the row's pads come last
+      if (code & CODE_FIRST) acc = 0.0f;
+      acc = acc + ep.x * v[code & CODE_COL];
+      if (code & CODE_LAST) {
+        t5 = t4; t4 = t3; t3 = t2; t2 = t1; t1 = t0; t0 = acc;
+        const int merges = (code >> CODE_MERGE_SHIFT) & 7;
+#pragma unroll
+        for (int k = 0; k < 5; ++k) {
+          if (k < merges) {
+            t0 = t1 + t0; t1 = t2; t2 = t3; t3 = t4; t4 = t5;
+          }
+        }
+      }
+    }
+    out[r] = t0;
   }
 }
 
-__device__ void iterate(const Args& a, long long b0, int cnt, const Tile& s) {
+// w = rho z - y of the current iterate
+__device__ __forceinline__ float w_of(const Smem& s, int r) {
+  return s.rho[r] * s.z[r] - s.y[r];
+}
+
+// One iteration; s.w holds w on entry and on exit.
+__device__ void iterate(const Args& a, const Smem& s) {
   const int n = a.n, m = a.m;
-  for (int e = threadIdx.x; e < cnt * m; e += THREADS) {
-    const long long o = b0 * m + e;
-    s.w[e] = a.rho[o] * s.z[e] - s.y[e];
-  }
+  for (int j = threadIdx.x; j < n; j += THREADS)
+    s.v1[j] = (a.sigma * s.x[j] - s.q[j]) + col_dot(a, s, j, s.w);
   __syncthreads();
-  mat_t_vec(a, b0, cnt, s.w, s.v1);
-  __syncthreads();
-  for (int e = threadIdx.x; e < cnt * n; e += THREADS)
-    s.v1[e] = (a.sigma * s.x[e] - a.q[b0 * n + e]) + s.v1[e];
-  __syncthreads();
-  // xt = rhs' K^-1: thread per (instance, column k), rows of K^-1 streamed
-  for (int e = threadIdx.x; e < cnt * n; e += THREADS) {
-    const int i = e / n, k = e - i * n;
-    const float* Ki = a.Kinv + (b0 + i) * (long long)n * n + k;
-    const float* rhs = s.v1 + i * n;
-    float acc = 0.0f;
-#pragma unroll 8
-    for (int j = 0; j < n; ++j) acc = acc + rhs[j] * Ki[(long long)j * n];
-    s.v2[e] = acc;
-  }
-  __syncthreads();
-  mat_vec(a, b0, cnt, s.v2, s.w);
-  __syncthreads();
+  // xt = rhs' K^-1 (thread per column k), and x's relaxation
   const float al = a.alpha, om = 1.0f - a.alpha;
-  for (int e = threadIdx.x; e < cnt * n; e += THREADS)
-    s.x[e] = al * s.v2[e] + om * s.x[e];
-  for (int e = threadIdx.x; e < cnt * m; e += THREADS) {
-    const long long o = b0 * m + e;
-    const float rho = a.rho[o];
-    const float zm = al * s.w[e] + om * s.z[e];
-    const float zn = clip_keep_nan(zm + s.y[e] * (1.0f / rho), a.l[o], a.u[o]);
-    s.y[e] = s.y[e] + rho * (zm - zn);
-    s.z[e] = zn;
+  const float4* rhs4 = reinterpret_cast<const float4*>(s.v1);
+  for (int k = threadIdx.x; k < n; k += THREADS) {
+    const float* Kk = s.K + k;
+    float acc = 0.0f;
+    int j = 0;
+#pragma unroll 4
+    for (; j + 4 <= n; j += 4) {
+      const float4 r4 = rhs4[j >> 2];
+      acc = acc + r4.x * Kk[j * n];
+      acc = acc + r4.y * Kk[(j + 1) * n];
+      acc = acc + r4.z * Kk[(j + 2) * n];
+      acc = acc + r4.w * Kk[(j + 3) * n];
+    }
+    for (; j < n; ++j) acc = acc + s.v1[j] * Kk[j * n];
+    s.v2[k] = acc;
+    s.x[k] = al * acc + om * s.x[k];
+  }
+  __syncthreads();
+  mat_vec(a, s, s.v2, s.w);                 // zt, in place of w
+  __syncthreads();
+  for (int r = threadIdx.x; r < m; r += THREADS) {
+    const float rho = s.rho[r];
+    const float zm = al * s.w[r] + om * s.z[r];
+    const float zn = clip_keep_nan(zm + s.y[r] * (1.0f / rho), s.l[r], s.u[r]);
+    s.y[r] = s.y[r] + rho * (zm - zn);
+    s.z[r] = zn;
+    s.w[r] = w_of(s, r);                    // the next iteration's
   }
   __syncthreads();
 }
 
-// Unscaled statistics of instance `warp` of the tile into st (tile, 8);
-// returns whether every instance of the tile has converged.
-__device__ bool calc_stats(const Args& a, long long b0, int cnt,
-                           const Tile& s, float* st) {
+// Unscaled statistics of the block's instance into s.st (warp 0); returns
+// whether it has converged (uniform across the block).
+__device__ bool calc_stats(const Args& a, const Smem& s) {
   const int n = a.n, m = a.m;
-  mat_vec(a, b0, cnt, s.x, s.w);        // A x
-  mat_t_vec(a, b0, cnt, s.y, s.v1);     // A'y
+  mat_vec(a, s, s.x, s.ax);                         // A x
+  for (int j = threadIdx.x; j < n; j += THREADS)    // A'y
+    s.v1[j] = col_dot(a, s, j, s.y);
   __syncthreads();
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   bool conv = true;
-  if (warp < cnt) {
-    const int i = warp;
-    const long long bm = (b0 + i) * m, bn = (b0 + i) * n;
+  if (warp == 0) {
     float s0 = 0.0f, s2 = 0.0f, s3 = 0.0f;
     for (int r = lane; r < m; r += 32) {
-      const float invE = 1.0f / a.E[bm + r];
-      const float Ax_u = s.w[i * m + r] * invE;
-      const float z_u = s.z[i * m + r] * invE;
+      const float invE = 1.0f / s.E[r];
+      const float Ax_u = s.ax[r] * invE;
+      const float z_u = s.z[r] * invE;
       s0 = nmax(s0, fabsf(Ax_u - z_u));
       s2 = nmax(s2, fabsf(Ax_u));
       s3 = nmax(s3, fabsf(z_u));
     }
     float s1 = 0.0f, s4 = 0.0f, s5 = 0.0f, aqu = 0.0f;
     for (int j = lane; j < n; j += 32) {
-      const float Px_u = a.PuD[bn + j] * s.x[i * n + j];
-      const float qu = a.qu[bn + j];
-      const float Aty_u = s.v1[i * n + j] * a.invDc[bn + j];
+      const float Px_u = s.PuD[j] * s.x[j];
+      const float qu = s.qu[j];
+      const float Aty_u = s.v1[j] * s.invDc[j];
       s1 = nmax(s1, fabsf(Px_u + qu + Aty_u));
       s4 = nmax(s4, fabsf(Px_u));
       s5 = nmax(s5, fabsf(Aty_u));
@@ -197,9 +300,8 @@ __device__ bool calc_stats(const Args& a, long long b0, int cnt,
     s3 = warp_max(s3); s4 = warp_max(s4); s5 = warp_max(s5);
     aqu = warp_max(aqu);
     if (lane == 0) {
-      float* si = st + i * 8;
-      si[0] = s0; si[1] = s1; si[2] = s2; si[3] = s3; si[4] = s4; si[5] = s5;
-      si[6] = 0.0f; si[7] = 0.0f;
+      s.st[0] = s0; s.st[1] = s1; s.st[2] = s2; s.st[3] = s3;
+      s.st[4] = s4; s.st[5] = s5; s.st[6] = 0.0f; s.st[7] = 0.0f;
     }
     const float eps_p = a.eps_abs + a.eps_rel * nmax(s2, s3);
     const float eps_d = a.eps_abs + a.eps_rel * nmax(nmax(s4, s5), aqu);
@@ -208,79 +310,158 @@ __device__ bool calc_stats(const Args& a, long long b0, int cnt,
   return __syncthreads_and(conv) != 0;
 }
 
-__global__ void __launch_bounds__(THREADS)
-admm_dense_kernel(Args a) {
-  extern __shared__ float sh[];
-  const int n = a.n, m = a.m;
-  const long long b0 = (long long)blockIdx.x * a.tile;
-  const int cnt = (int)min((long long)a.tile, (long long)a.B - b0);
-  Tile s;
-  s.x = sh;
-  s.v1 = s.x + a.tile * n;
-  s.v2 = s.v1 + a.tile * n;
-  s.z = s.v2 + a.tile * n;
-  s.y = s.z + a.tile * m;
-  s.w = s.y + a.tile * m;
-  float* st = s.w + a.tile * m;         // (tile, 8)
-
-  for (int e = threadIdx.x; e < cnt * n; e += THREADS) s.x[e] = a.x[b0 * n + e];
-  for (int e = threadIdx.x; e < cnt * m; e += THREADS) {
-    s.z[e] = a.z[b0 * m + e];
-    s.y[e] = a.y[b0 * m + e];
+__device__ void load(const Args& a, const Smem& s, long long b) {
+  const int n = a.n, m = a.m, W = a.W, Wc = a.Wc;
+  const float* Kb = a.Kinv + b * n * n;
+  for (int e = threadIdx.x; e < n * n; e += THREADS) cp_async4(s.K + e, Kb + e);
+  const float* Vb = a.Aval + b * m * W;
+  for (int e = threadIdx.x; e < m * W; e += THREADS)
+    cp_async4(&s.vc[e].x, Vb + e);
+  asm volatile("cp.async.commit_group;\n" ::);
+  for (int e = threadIdx.x; e < m * W; e += THREADS)
+    s.vc[e].y = __int_as_float(a.rcode[e]);
+  for (int e = threadIdx.x; e < n * Wc; e += THREADS) {
+    s.cslot[e] = a.cslot[e];
+    s.crow[e] = a.crow[e];
   }
+  for (int j = threadIdx.x; j < n; j += THREADS) {
+    s.x[j] = a.x[b * n + j];
+    s.q[j] = a.q[b * n + j];
+    s.PuD[j] = a.PuD[b * n + j];
+    s.qu[j] = a.qu[b * n + j];
+    s.invDc[j] = a.invDc[b * n + j];
+  }
+  for (int r = threadIdx.x; r < m; r += THREADS) {
+    s.z[r] = a.z[b * m + r];
+    s.y[r] = a.y[b * m + r];
+    s.rho[r] = a.rho[b * m + r];
+    s.l[r] = a.l[b * m + r];
+    s.u[r] = a.u[b * m + r];
+    s.E[r] = a.E[b * m + r];
+  }
+  asm volatile("cp.async.wait_all;\n" ::);
   __syncthreads();
+  for (int r = threadIdx.x; r < m; r += THREADS) s.w[r] = w_of(s, r);
+  __syncthreads();
+}
+
+__global__ void __launch_bounds__(THREADS, 1)
+admm_dense_kernel(Args a) {
+  extern __shared__ float4 sh4[];
+  const Smem s = carve(reinterpret_cast<float*>(sh4), a.n, a.m, a.W, a.Wc);
+  const long long b = blockIdx.x;
+  const bool active = b < a.B;               // uniform across the block
+  if (active) load(a, s, b);
 
   int executed;
   if (0 < a.check && a.check < a.n_iters) {
     const int n_blocks = (a.n_iters + a.check - 1) / a.check;
+    const int lane = threadIdx.x % 32;
     int it = 0;
     bool done = false;
-    while (!done && it < n_blocks) {       // uniform across the block
+    while (!done && it < n_blocks) {         // uniform across the tile
       const int k_len = min(a.check, a.n_iters - it * a.check);
-      for (int t = 0; t < k_len; ++t) iterate(a, b0, cnt, s);
-      done = calc_stats(a, b0, cnt, s, st);
+      bool conv = true;                      // blocks past B
+      if (active) {
+        for (int t = 0; t < k_len; ++t) iterate(a, s);
+        conv = calc_stats(a, s);
+      }
+      if (a.tile > 1) {
+        cg::cluster_group cluster = cg::this_cluster();
+        if (threadIdx.x == 0) s.flags[it & 1] = conv;
+        cluster.sync();
+        int all = 1;
+        if (lane < a.tile)
+          all = *cluster.map_shared_rank(s.flags + (it & 1), lane);
+        done = __all_sync(FULL, all) != 0;
+      } else {
+        done = conv;
+      }
       ++it;
     }
     executed = min(it * a.check, a.n_iters);
+    // no block leaves while another may still read its flags
+    if (a.tile > 1) cg::this_cluster().sync();
   } else {
-    for (int t = 0; t < a.n_iters; ++t) iterate(a, b0, cnt, s);
-    calc_stats(a, b0, cnt, s, st);
+    if (active) {
+      for (int t = 0; t < a.n_iters; ++t) iterate(a, s);
+      calc_stats(a, s);
+    }
     executed = a.n_iters;
   }
-  if (threadIdx.x < cnt) st[threadIdx.x * 8 + 6] = (float)executed;
+  if (!active) return;
+  if (threadIdx.x == 0) s.st[6] = (float)executed;
   __syncthreads();
-  for (int e = threadIdx.x; e < cnt * n; e += THREADS) a.x[b0 * n + e] = s.x[e];
-  for (int e = threadIdx.x; e < cnt * m; e += THREADS) {
-    a.z[b0 * m + e] = s.z[e];
-    a.y[b0 * m + e] = s.y[e];
+  for (int j = threadIdx.x; j < a.n; j += THREADS) a.x[b * a.n + j] = s.x[j];
+  for (int r = threadIdx.x; r < a.m; r += THREADS) {
+    a.z[b * a.m + r] = s.z[r];
+    a.y[b * a.m + r] = s.y[r];
   }
-  for (int e = threadIdx.x; e < cnt * 8; e += THREADS)
-    a.stats[b0 * 8 + e] = st[e];
+  if (threadIdx.x < 8) a.stats[b * 8 + threadIdx.x] = s.st[threadIdx.x];
+}
+
+cudaLaunchConfig_t launch_config(int B, int tile, size_t shmem,
+                                 cudaLaunchAttribute* attr, void* stream) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)(((B + tile - 1) / tile) * tile));
+  cfg.blockDim = dim3(THREADS);
+  cfg.dynamicSmemBytes = shmem;
+  cfg.stream = (cudaStream_t)stream;
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = (unsigned)tile;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = tile > 1 ? 1 : 0;
+  return cfg;
+}
+
+cudaError_t prepare(int n, int m, int W, int Wc, int tile, size_t* shmem) {
+  if (n < 1 || m < 1 || W < 1 || Wc < 1 || tile < 1 || tile > TILE_MAX
+      || (long long)m * W > 32767)
+    return cudaErrorInvalidValue;
+  *shmem = smem_bytes(n, m, W, Wc);
+  if (*shmem > (size_t)SMEM_MAX) return cudaErrorInvalidValue;
+  return cudaFuncSetAttribute(admm_dense_kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)*shmem);
 }
 
 }  // namespace
 
 // x, z and y are updated in place (the wrapper passes fresh copies).
 extern "C" int admm_dense_f32(
-    const float* Kinv, const float* A, const float* q, const float* l,
-    const float* u, const float* rho, float* x, float* z, float* y,
-    const float* E, const float* PuD, const float* qu, const float* invDc,
-    float* stats, int B, int n, int m, int tile, int n_iters, float sigma,
-    float alpha, int check, float eps_abs, float eps_rel, void* stream) {
-  if (n < 1 || n > NMAX || m < 1 || m > MMAX || tile < 1 || tile > TILE_MAX
-      || n_iters < 0 || check < 0)
-    return (int)cudaErrorInvalidValue;
+    const float* Kinv, const float* Aval, const int* rcode,
+    const short* cslot, const short* crow,
+    const float* q, const float* l, const float* u, const float* rho,
+    float* x, float* z, float* y, const float* E, const float* PuD,
+    const float* qu, const float* invDc, float* stats, int B, int n, int m,
+    int W, int Wc, int tile, int n_iters, float sigma, float alpha,
+    int check, float eps_abs, float eps_rel, void* stream) {
+  size_t shmem = 0;
+  cudaError_t err = prepare(n, m, W, Wc, tile, &shmem);
+  if (err != cudaSuccess || n_iters < 0 || check < 0)
+    return (int)(err != cudaSuccess ? err : cudaErrorInvalidValue);
   if (B <= 0) return 0;
-  Args a{Kinv, A, q, l, u, rho, x, z, y, E, PuD, qu, invDc, stats,
-         B, n, m, tile, n_iters, check, sigma, alpha, eps_abs, eps_rel};
-  const size_t shmem = (size_t)tile * (3 * n + 3 * m + 8) * sizeof(float);
-  if (shmem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        admm_dense_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)shmem);
-    if (err != cudaSuccess) return (int)err;
-  }
-  const int blocks = (B + tile - 1) / tile;
-  admm_dense_kernel<<<blocks, THREADS, shmem, (cudaStream_t)stream>>>(a);
+  Args a{Kinv, Aval, rcode, cslot, crow, q, l, u, rho, x, z, y, E,
+         PuD, qu, invDc, stats, B, n, m, W, Wc, tile, n_iters, check,
+         sigma, alpha, eps_abs, eps_rel};
+  cudaLaunchAttribute attr[1];
+  const cudaLaunchConfig_t cfg = launch_config(B, tile, shmem, attr, stream);
+  err = cudaLaunchKernelEx(&cfg, admm_dense_kernel, a);
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
+}
+
+// How many clusters of `tile` blocks of this kernel the card holds at once
+// (cudaOccupancyMaxActiveClusters), into *out.
+extern "C" int admm_dense_max_clusters(int n, int m, int W, int Wc, int tile,
+                                       int* out) {
+  size_t shmem = 0;
+  cudaError_t err = prepare(n, m, W, Wc, tile, &shmem);
+  if (err != cudaSuccess) return (int)err;
+  cudaLaunchAttribute attr[1];
+  cudaLaunchConfig_t cfg = launch_config(tile, tile, shmem, attr, nullptr);
+  cfg.numAttrs = 1;
+  return (int)cudaOccupancyMaxActiveClusters(out, admm_dense_kernel, &cfg);
 }

@@ -176,6 +176,15 @@ def _banded_plan_for(cfg: MPCConfig):
     return None
 
 
+def _a_pattern_for(cfg: MPCConfig):
+    """The sparse coupled QP's static nonzero pattern of A, for the
+    "pallas" pipeline's dense ADMM kernel."""
+    if cfg.solver.backend == "pallas" and _sparse(cfg):
+        from pigeon_tpu_torch.solver.pallas_admm import layout_pattern
+        return layout_pattern(_layout(cfg).lay)
+    return None
+
+
 def _eq_rows_for(cfg: MPCConfig):
     """The statically known equality rows of the sparse coupled QP."""
     return _layout(cfg).eq_rows if _sparse(cfg) else None
@@ -543,7 +552,8 @@ def mpc_step_batched(cfg: MPCConfig, tube: trj.TrajectoryTube,
                                other_cars, ts)
     sol = solve_qp_batched(qp, warm, cfg.solver,
                            banded_plan=_banded_plan_for(cfg),
-                           eq_rows=_eq_rows_for(cfg), w_soft=aux.w)
+                           eq_rows=_eq_rows_for(cfg), w_soft=aux.w,
+                           a_pattern=_a_pattern_for(cfg))
     return _post_solve(cfg, carries, q0s, sol, aux)
 
 

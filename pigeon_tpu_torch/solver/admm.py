@@ -342,14 +342,17 @@ def solve_qp(qp: QPData, warm: "QPWarmStart | None" = None,
 def solve_qp_batched(qp: QPData, warm: QPWarmStart,
                      opts: SolverOptions = SolverOptions(),
                      banded_plan=None, eq_rows=None,
-                     w_soft=None) -> QPSolution:
+                     w_soft=None, a_pattern=None) -> QPSolution:
     """Solve a batch of QPs (leading batch dimension on every leaf).
     backend "xla": `solve_qp` per instance, as a masked batch; "lanes":
     the lane solver on its CUDA kernels (`solver/lane_admm.py`); "pallas":
     the natively batched pipeline (`_solve_qp_pallas_batched`) for hard
     QPs with a diagonal P.  w_soft: (m,) or (B, m), for "xla" and
     "lanes".  eq_rows: the statically known equality rows, which only the
-    mixed-precision kernel modes (not ported) would use."""
+    mixed-precision kernel modes (not ported) would use.  a_pattern: A's
+    static nonzero pattern (`pallas_admm.EllPattern`) for "pallas"'s dense
+    ADMM kernel; without it the pipeline derives the batch's (one host
+    read per solve)."""
     if opts.backend == "lanes":
         from pigeon_tpu_torch.solver.lane_admm import solve_lanes_batched
         return solve_lanes_batched(qp, warm, opts, w_soft)
@@ -358,7 +361,8 @@ def solve_qp_batched(qp: QPData, warm: QPWarmStart,
             raise NotImplementedError(
                 "soft rows are supported by the 'xla' and 'lanes' backends; "
                 "the dense ADMM kernel has no shrink prox")
-        return _solve_qp_pallas_batched(qp, warm, opts, banded_plan)
+        return _solve_qp_pallas_batched(qp, warm, opts, banded_plan,
+                                        a_pattern)
     if opts.backend != "xla":
         raise NotImplementedError(
             f"solver backend {opts.backend!r} is not ported")
@@ -431,16 +435,18 @@ def run_segments(qp: QPData, warm: QPWarmStart, opts: SolverOptions, D, E,
 
 
 def _solve_qp_pallas_batched(qp: QPData, warm: QPWarmStart,
-                             opts: SolverOptions,
-                             banded_plan=None) -> QPSolution:
+                             opts: SolverOptions, banded_plan=None,
+                             a_pattern=None) -> QPSolution:
     """The natively batched pipeline of the JAX package's "pallas"
     backend: Ruiz equilibration (`pallas_ruiz.ruiz_batched`), the K^-1 of
     `_factor_inv` for the whole batch, then `run_segments` with segments
     of `check_every` iterations through `pallas_admm.admm_iterations`,
     each with the in-kernel early exit per tile of `opts.pallas_tile`
-    instances.  The kernels compute in float32, the rest in the QP's
-    dtype."""
-    from pigeon_tpu_torch.solver.pallas_admm import admm_iterations
+    instances.  On the card the scaled A is packed into `a_pattern`'s ELL
+    form once per solve (the pattern of the batch when None).  The kernels
+    compute in float32, the rest in the QP's dtype."""
+    from pigeon_tpu_torch.solver.pallas_admm import (admm_iterations, pack,
+                                                      pattern_from)
     from pigeon_tpu_torch.solver.pallas_ruiz import ruiz_batched
 
     if qp.P_diag.dim() == 3:
@@ -471,13 +477,18 @@ def _solve_qp_pallas_batched(qp: QPData, warm: QPWarmStart,
 
     kernel_ops = [f32(t) for t in (Ab, qb, lb, ub)]
     scalings = tuple(f32(t) for t in (D, E, c, qp.P_diag, qp.q))
+    ell = {}
+    if kernel_ops[0].device.type != "cpu":
+        pattern = (a_pattern if a_pattern is not None
+                   else pattern_from(kernel_ops[0]))
+        ell = dict(pattern=pattern, A_packed=pack(kernel_ops[0], pattern))
 
     def run_iters(fac, x, z, y):
         return admm_iterations(
             fac[0], *kernel_ops, fac[1], x, z, y, opts.check_every, sigma,
             float(opts.alpha), tile=opts.pallas_tile, scalings=scalings,
             check=int(opts.pallas_check_inner),
-            eps_abs=float(opts.eps_abs), eps_rel=float(opts.eps_rel))
+            eps_abs=float(opts.eps_abs), eps_rel=float(opts.eps_rel), **ell)
 
     return run_segments(qp, warm, opts, D, E, c, factor, run_iters,
                         layout=(f32, lambda v: v))

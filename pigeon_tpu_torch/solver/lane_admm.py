@@ -2,13 +2,15 @@
 
 Counterpart of `pigeon_tpu/solver/lane_admm.py`.  The per-instance QPs are
 tiny (n=30 variables, m=124 rows, no equality rows), so every instance is
-solved by its own thread (the iterations) or warp (the KKT inverse):
+solved by its own warp:
 
 - `chol_inverse` (`csrc/chol_inverse.cu`): K^-1 per instance by column
   Cholesky, forward substitution and one Newton-Schulz polish step.
 - `admm_iterations` (`csrc/admm_iterations.cu`): the OSQP iterations with
   the shrink-prox z-update for exact-penalty rows, in-kernel convergence
-  checks and an early exit per group of `GROUP` consecutive instances.
+  checks and an early exit per group of `GROUP` consecutive instances;
+  each instance's K^-1 and A stay in shared memory for the call, and a
+  group is one cluster of 16 blocks of 8 instances.
 
 Each wrapper launches its kernel for CUDA tensors and runs its plain
 PyTorch version (same algorithm, same group exit) for CPU tensors.
@@ -17,12 +19,13 @@ and the OSQP segment loop with adaptive rho.
 
 Layouts at the kernel boundary: `chol_inverse` takes (B, n, n); the
 iteration operands are "lane" layouts with the instance index last --
-matrices (rows, cols, B), vectors (len, B) -- so a thread per instance
-reads them coalesced.
+matrices (rows, cols, B), vectors (len, B) -- so a block's 8 consecutive
+instances read each entry as 32 contiguous bytes.
 """
 
 from __future__ import annotations
 
+import ctypes
 import math
 
 import torch
@@ -38,8 +41,45 @@ from pigeon_tpu_torch.solver.admm import (QPData, QPSolution, QPWarmStart,
 # and its x, z, y, statistics and executed count depend on the group.
 GROUP = 128
 
-# The iteration kernel holds x in registers for n up to this size.
+# The iteration kernel holds one entry of x a lane (n <= 32), up to six
+# rows a lane (m <= 192), and 8 instances' K^-1 and A (rows padded to an
+# odd stride n | 1) with two vectors each in one block's 227 KB of shared
+# memory.
 N_MAX = 32
+M_MAX = 192
+INSTANCES_PER_BLOCK = 8
+SMEM_MAX = 232448
+
+
+def smem_bytes(n: int, m: int) -> int:
+    """Shared memory of one block of the iteration kernel (`smem_bytes` in
+    csrc/admm_iterations.cu): 4 flag words, each instance's two vectors
+    (m rounded up to 4, and 32 floats), then each instance's K^-1 and A."""
+    return 4 * (4 + INSTANCES_PER_BLOCK * (-(-m // 4) * 4 + 32
+                                           + n * n + m * (n | 1)))
+
+
+def plan_smem(n: int, m: int) -> int:
+    """`smem_bytes`, or ValueError for an (n, m) the kernel does not take:
+    n <= 32, m <= 192 and 8 instances' K^-1, A and vectors within 227 KB
+    (156,816 B at (30, 124), 214,160 B at (30, 180))."""
+    need = smem_bytes(n, m)
+    if not (1 <= n <= N_MAX and 1 <= m <= M_MAX and need <= SMEM_MAX):
+        raise ValueError(
+            f"the ADMM iteration kernel takes n <= {N_MAX}, m <= {M_MAX} and "
+            f"8 instances' K^-1 and A in one block's shared memory; (n, m) = "
+            f"({n}, {m}) needs {need} B of {SMEM_MAX}")
+    return need
+
+
+def max_active_clusters(n: int, m: int) -> int:
+    """How many exit groups (16-block clusters) of the iteration kernel's
+    (n, m) build the card holds at once (cudaOccupancyMaxActiveClusters)."""
+    out = ctypes.c_int(0)
+    _kernels.call_helper("admm_iterations.cu", "admm_iterations_max_clusters",
+                         [ctypes.c_int, ctypes.c_int, ctypes.c_void_p], n, m,
+                         ctypes.addressof(out))
+    return out.value
 
 
 # ---------------------------------------------------------------------------
@@ -187,10 +227,11 @@ def admm_iterations(Kinv, A, q, l, u, rho, cap, x, z, y, E, PuD, qu, invDc,
     max|Px|, max|A'y|, executed iterations, 0], unscaled.
 
     Replaces the TPU kernel `pigeon_tpu/solver/lane_admm.py:_iter_kernel`.
-    One thread per instance, one block per group; per iteration an
-    instance reads A twice and K^-1 once (~33 KB; 274 MB at B=8192, A
-    does not fit in L2).  With 64 blocks at B=8192 the card is half
-    occupied, so load latency, not bandwidth, sets the time."""
+    One warp per instance with its K^-1 and A in shared memory for the
+    call (read from device memory once), 8 instances per block, and each
+    exit group of 128 instances one cluster of 16 blocks that votes on
+    the exit through distributed shared memory.  `plan_smem` raises
+    ValueError for an (n, m) that does not fit."""
     n, B = q.shape
     m = l.shape[0]
     ops = dict(zip(_ITER_FIELDS, (Kinv, A, q, l, u, rho, cap, x, z, y, E,
@@ -205,8 +246,7 @@ def admm_iterations(Kinv, A, q, l, u, rho, cap, x, z, y, E, PuD, qu, invDc,
             Kinv, A, q, l, u, rho, cap, x, z, y, E, PuD, qu, invDc,
             n_iters, sigma, alpha, check, eps_abs, eps_rel)
     _kernels.check_cuda_f32(**ops)
-    if n > N_MAX:
-        raise ValueError(f"the CUDA kernel takes n <= {N_MAX}, got {n}")
+    plan_smem(n, m)
     x, z, y = x.clone(), z.clone(), y.clone()
     stats = torch.empty((8, B), dtype=q.dtype, device=q.device)
     _kernels.KERNELS["admm_iterations"].launch(

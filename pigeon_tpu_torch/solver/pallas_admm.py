@@ -7,18 +7,193 @@ its plain PyTorch version, `admm_iterations_plain` (same iteration, same
 statistics, same early exit per tile), for CPU tensors.  Both compute in
 the inputs' dtype; the solver passes float32, as the JAX package's kernel
 computes.
+
+The kernel holds each instance's K^-1 and the nonzeros of its A in one
+block's shared memory.  A reaches it in an ELL form: `EllPattern` is the
+static nonzero pattern (shared by every instance; the sparse QP's layout
+gives it, see `layout_pattern`) and `pack` gathers an A's values into it.
 """
 
 from __future__ import annotations
 
+import ctypes
+import functools
+
+import numpy as np
 import torch
 
 from pigeon_tpu_torch import _kernels
 from pigeon_tpu_torch.solver.admm import _mtv, _mv
 
-# the kernel's limits (run-time n, m; one warp per instance of a tile in
-# the statistics)
-N_MAX, M_MAX, TILE_MAX = 256, 512, 8
+# the kernel's limits: the tile is a cluster of `tile` blocks (the portable
+# cluster size), a block may use 227 KB of shared memory, and row-ELL
+# slots are 16-bit
+TILE_MAX = 8
+SMEM_MAX = 232448
+SLOTS_MAX = 32767
+
+
+# a row slot's code (csrc/admm_dense.cu): column, merges after the slot,
+# first and last slot of its lane's sum
+CODE_MERGE_SHIFT, CODE_FIRST, CODE_LAST = 16, 1 << 19, 1 << 20
+
+
+def _bitrev5(v):
+    return sum(((v >> b) & 1) << (4 - b) for b in range(5))
+
+
+def _merges(keys) -> list:
+    """The merges after each leaf when the leaves at `keys` (ascending, in
+    0..31) are added in the balanced binary tree over 0..31 with the
+    absent leaves left out, as a stack evaluates it in post-order."""
+    def post(lo, size):
+        inside = [k for k in keys if lo <= k < lo + size]
+        if not inside:
+            return []
+        if size == 1:
+            return ["leaf"]
+        left, right = post(lo, size // 2), post(lo + size // 2, size // 2)
+        return left + right + ["merge"] if left and right else left or right
+    out = []
+    for t in post(0, 32):
+        if t == "leaf":
+            out.append(0)
+        else:
+            out[-1] += 1
+    return out
+
+
+class EllPattern:
+    """The nonzero positions (rows, cols) of an m x n matrix in the
+    kernel's forms (numpy; `tensors` moves them to a device):
+
+    - row-ELL: each row's `row_width` slots; `flat` the index r n + c of
+      each slot in the flattened A (pads point at entry 0 and are never
+      read); `row_code` (m, row_width) int32, -1 pads: the column, and
+      what the kernel's thread per row does after the slot.  The first
+      design summed a row with a warp, lane l over columns j = l, l + 32,
+      ... and then the lanes' sums in the xor butterfly, a balanced tree
+      over the lanes in bit-reversed order; so the slots are in
+      (bit-reversed col % 32, col) order, CODE_FIRST and CODE_LAST mark a
+      lane's first and last slot, and the bits from CODE_MERGE_SHIFT count
+      the tree's merges after that lane's sum (the absent lanes' zero
+      sums left out);
+    - column-ELL: each column's row-ELL slots in ascending row, `col_slot`
+      and `col_row` (n, col_width) int16, -1 pads."""
+
+    def __init__(self, rows, cols, m: int, n: int):
+        rows = np.asarray(rows, np.int64)
+        cols = np.asarray(cols, np.int64)
+        key = np.unique(rows * n + cols)
+        rows, cols = key // n, key % n
+        self.m, self.n, self.nnz = m, n, key.size
+        if n > 1 << CODE_MERGE_SHIFT:
+            raise ValueError(f"n={n} exceeds the kernel's 16-bit columns")
+        lane_key = _bitrev5(cols % 32)
+        order = np.lexsort((cols, lane_key, rows))
+        rows, cols, lane_key = rows[order], cols[order], lane_key[order]
+        per_row = np.bincount(rows, minlength=m)
+        self.row_width = max(1, int(per_row.max(initial=0)))
+        start = np.concatenate([[0], np.cumsum(per_row)[:-1]])
+        pos = np.arange(rows.size) - start[rows]
+        slot = rows * self.row_width + pos
+        if m * self.row_width > SLOTS_MAX:
+            raise ValueError(f"{m} rows of {self.row_width} slots exceed the "
+                             f"kernel's {SLOTS_MAX} 16-bit slot indices")
+        self.flat = np.zeros(m * self.row_width, np.int64)
+        self.flat[slot] = rows * n + cols
+        code = cols.copy()
+        for r in range(m):
+            at = np.flatnonzero(rows == r)
+            if at.size == 0:
+                continue
+            keys = lane_key[at]
+            first = np.r_[True, keys[1:] != keys[:-1]]
+            last = np.r_[keys[1:] != keys[:-1], True]
+            merges = np.zeros(at.size, np.int64)
+            merges[last] = _merges(list(keys[last]))
+            code[at] |= (first * CODE_FIRST + last * CODE_LAST
+                         + (merges << CODE_MERGE_SHIFT))
+        self.row_code = np.full((m, self.row_width), -1, np.int32)
+        self.row_code[rows, pos] = code
+        by_col = np.lexsort((rows, cols))
+        per_col = np.bincount(cols, minlength=n)
+        self.col_width = max(1, int(per_col.max(initial=0)))
+        cstart = np.concatenate([[0], np.cumsum(per_col)[:-1]])
+        cpos = np.arange(cols.size) - cstart[cols[by_col]]
+        self.col_slot = np.full((n, self.col_width), -1, np.int16)
+        self.col_row = np.full((n, self.col_width), -1, np.int16)
+        self.col_slot[cols[by_col], cpos] = slot[by_col]
+        self.col_row[cols[by_col], cpos] = rows[by_col]
+        self._on = {}
+
+    def tensors(self, device) -> dict:
+        """The pattern's arrays on `device` (cached per device)."""
+        key = str(torch.device(device))
+        if key not in self._on:
+            t = lambda a: torch.as_tensor(np.ascontiguousarray(a),
+                                          device=device)
+            self._on[key] = dict(flat=t(self.flat), row_code=t(self.row_code),
+                                 col_slot=t(self.col_slot),
+                                 col_row=t(self.col_row))
+        return self._on[key]
+
+
+@functools.lru_cache(maxsize=None)
+def layout_pattern(layout) -> EllPattern:
+    """The static pattern of a `QPLayout`'s constraint matrix: every
+    position `assemble_A` writes.  Ruiz scaling keeps zeros zero, so it
+    covers the scaled A too."""
+    return EllPattern(layout._row_cat, layout._col_cat, layout.m, layout.n)
+
+
+def pattern_from(A) -> EllPattern:
+    """The union pattern of a batch A (B, m, n): every position nonzero (or
+    NaN) in some instance.  One host read (the positions)."""
+    _, m, n = A.shape
+    nz = (A != 0).any(dim=0).nonzero().cpu().numpy()
+    return EllPattern(nz[:, 0], nz[:, 1], m, n)
+
+
+def pack(A, pattern: EllPattern):
+    """A (B, m, n) -> its row-ELL values (B, m, row_width), one gather;
+    entries of A outside the pattern are dropped."""
+    B, m, n = A.shape
+    flat = pattern.tensors(A.device)["flat"]
+    return A.reshape(B, m * n).index_select(1, flat).view(
+        B, m, pattern.row_width)
+
+
+def smem_bytes(n: int, m: int, row_width: int, col_width: int) -> int:
+    """Shared memory of one block of the kernel (`smem_bytes` in
+    csrc/admm_dense.cu): the vectors, the row-ELL as (value, code) pairs,
+    K^-1 and the 16-bit column-ELL."""
+    floats = 6 * n + 8 * m + 8 + n * n
+    return (4 * (-(-n // 4) * 4) + 8 * m * row_width + 4 * floats + 8
+            + 4 * n * col_width)
+
+
+def plan_smem(n: int, m: int, row_width: int, col_width: int) -> int:
+    """`smem_bytes`, or ValueError for a shape whose K^-1 and A do not fit
+    one block (n > 211 at the sparse QP's m = 290 and widths 11, 15)."""
+    need = smem_bytes(n, m, row_width, col_width)
+    if need > SMEM_MAX:
+        raise ValueError(
+            f"the dense ADMM kernel holds K^-1 and A's nonzeros in one "
+            f"block's shared memory: n={n}, m={m}, widths ({row_width}, "
+            f"{col_width}) need {need} B of the {SMEM_MAX} B a block may use")
+    return need
+
+
+def max_active_clusters(pattern: EllPattern, tile: int) -> int:
+    """How many clusters of `tile` blocks of the kernel the card holds at
+    once (cudaOccupancyMaxActiveClusters) for this pattern's shapes."""
+    out = ctypes.c_int(0)
+    _kernels.call_helper("admm_dense.cu", "admm_dense_max_clusters",
+                         [ctypes.c_int] * 5 + [ctypes.c_void_p], pattern.n,
+                         pattern.m, pattern.row_width, pattern.col_width,
+                         int(tile), ctypes.addressof(out))
+    return out.value
 
 
 def _stats(A, x, z, y, invE, PuD, qu, invDc, eps_abs, eps_rel):
@@ -100,7 +275,8 @@ def admm_iterations(Kinv, A, q, l, u, rho, x0, z0, y0, n_iters: int,
                     bf16: bool = False, precision: str = "highest",
                     scalings=None, m_eq: int = 0, check: int = 0,
                     eps_abs: float = 1e-3, eps_rel: float = 1e-3,
-                    dense_P: bool = False):
+                    dense_P: bool = False, pattern: EllPattern = None,
+                    A_packed=None):
     """Run up to `n_iters` ADMM iterations for a batch of scaled QPs:
     Kinv (B, n, n), A (B, m, n), q, x0 (B, n), l, u, rho, z0, y0 (B, m).
     Returns (x, z, y, stats) with stats (B, 8) the unscaled residual
@@ -113,9 +289,16 @@ def admm_iterations(Kinv, A, q, l, u, rho, x0, z0, y0, n_iters: int,
     tile of `tile` consecutive instances once all of them have converged.
 
     Replaces the TPU kernel `pigeon_tpu/solver/pallas_admm.py:_kernel`
-    ("highest" mode).  One block per tile; K^-1 and A stream from device
-    memory every iteration (0.6 MB per instance at n=193, m=290), so an
-    iteration of a 2048-instance batch is bound by device memory."""
+    ("highest" mode).  One block per instance holds its K^-1 and A's
+    nonzeros in shared memory for the call (`plan_smem` raises ValueError
+    for shapes that do not fit), and a tile is a thread block cluster.
+    `pattern`: A's nonzero pattern (an `EllPattern` covering every nonzero
+    of every instance; the pipeline passes its layout's); without one the
+    union pattern of the batch is derived from A, with one host read.
+    `A_packed`: `pack(A, pattern)` when the caller has it already (the
+    pipeline packs once per solve); else the wrapper packs, one gather.
+    Both are used only on the card: the CPU runs the dense plain
+    version."""
     if bf16 or precision != "highest":
         raise NotImplementedError(
             f"the dense ADMM kernel's precision mode "
@@ -149,15 +332,28 @@ def admm_iterations(Kinv, A, q, l, u, rho, x0, z0, y0, n_iters: int,
         return admm_iterations_plain(
             Kinv, A, q, l, u, rho, x0, z0, y0, E, PuD, qu, invDc, n_iters,
             sigma, alpha, tile, check, eps_abs, eps_rel)
-    _kernels.check_cuda_f32(**{k: v[0] for k, v in ops.items()})
-    if n > N_MAX or m > M_MAX or not 1 <= tile <= TILE_MAX:
-        raise ValueError(f"the CUDA kernel takes n <= {N_MAX}, m <= {M_MAX} "
-                         f"and 1 <= tile <= {TILE_MAX}; got n={n}, m={m}, "
-                         f"tile={tile}")
+    if not 1 <= tile <= TILE_MAX:
+        raise ValueError(f"the CUDA kernel takes 1 <= tile <= {TILE_MAX} "
+                         f"(a cluster of `tile` blocks); got tile={tile}")
+    if pattern is None:
+        pattern = pattern_from(A)
+    if (pattern.m, pattern.n) != (m, n):
+        raise ValueError(f"the pattern is of a {pattern.m} x {pattern.n} "
+                         f"matrix, A of {m} x {n}")
+    plan_smem(n, m, pattern.row_width, pattern.col_width)
+    if A_packed is None:
+        A_packed = pack(A, pattern)
+    _kernels.check_same(A_packed=(A_packed, (B, m, pattern.row_width)),
+                        q=(q, (B, n)))
+    _kernels.check_cuda_f32(A_packed=A_packed,
+                            **{k: v[0] for k, v in ops.items()})
+    pat = pattern.tensors(q.device)
     x, z, y = x0.clone(), z0.clone(), y0.clone()
     stats = torch.empty((B, 8), dtype=q.dtype, device=q.device)
     _kernels.KERNELS["admm_dense"].launch(
-        Kinv, A, q, l, u, rho, x, z, y, E, PuD, qu, invDc, stats, B, n, m,
-        int(tile), int(n_iters), float(sigma), float(alpha), int(check),
-        float(eps_abs), float(eps_rel))
+        Kinv, A_packed, pat["row_code"], pat["col_slot"],
+        pat["col_row"], q, l, u, rho, x, z, y, E, PuD, qu, invDc, stats, B,
+        n, m, pattern.row_width, pattern.col_width, int(tile), int(n_iters),
+        float(sigma), float(alpha), int(check), float(eps_abs),
+        float(eps_rel))
     return x, z, y, stats
