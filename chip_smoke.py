@@ -19,10 +19,13 @@ Phases (any failure raises, so the script exits non-zero):
    kernels (ruiz, banded_chol, admm_dense) whose float32 results are
    rounding-limited by the stiff equality rows are also held against the
    float64 plain version: the kernel no further from it than twice the
-   float32 plain version.  The two ADMM kernels launch as thread block
-   clusters (one per exit group or tile); their checks print how many
-   clusters fit the card at once and the shared memory of a block, and
-   their bounds count A's nonzeros, not m n;
+   float32 plain version; the Ruiz kernel must also be bit-equal to its
+   plain version on all three of its calls.  Each check prints its
+   kernel's ptxas registers (and static shared memory), and how many
+   blocks, or clusters, the card holds at once at the path's shape; the
+   two ADMM kernels and the Ruiz kernel launch as thread block clusters
+   and print the dynamic shared memory of a block.  The ADMM kernels'
+   bounds count A's nonzeros, not m n;
 4. path "fleet": the coupled soft MPC for a fleet of 8192 vehicles on an
    oval (x1_coupled_config(soft=True), N_short=5, N_long=10, the lane
    solver with bench.py's options), one cold step and 10 warm closed-loop
@@ -37,7 +40,8 @@ Phases (any failure raises, so the script exits non-zero):
 6. path "fleet_sparse": the sparse coupled MPC (x1_coupled_config() as
    it comes, N_short=5, N_long=10, QPs of n=193, m=290) for 2048 vehicles
    on the "pallas" solver with the banded factor, one cold and 10 warm
-   steps; its steps launch vanloan, ruiz, banded_chol and admm_dense;
+   steps; every step launches vanloan and ruiz once, and banded_chol and
+   admm_dense 8 times (SPARSE_STEP_LAUNCHES);
 7. path "simulate": `mpc.simulate` for one vehicle on the card, 30
    closed-loop steps per formulation -- the unbatched route, dense
    linearization and `solve_qp` -- which launches expm_dense once per
@@ -61,6 +65,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import re
 import subprocess
 import sys
 import time
@@ -107,6 +112,12 @@ REF_CONTROLS = {"rho_eq_scale_1": (dict(rho_eq_scale=1.0), True),
                 "max_iter_200": (dict(max_iter=200), True),
                 "alpha_1": (dict(alpha=1.0), True),
                 "one_segment_fewer": (dict(max_iter=350), False)}
+# Every step of the sparse fleet launches the kernels this often: one
+# solve, the 8 segments of its 400-iteration budget (the vehicles that stay
+# unconverged in float32 keep every step to the whole budget), one
+# factorization each
+SPARSE_STEP_LAUNCHES = {"vanloan": 1, "ruiz": 1, "banded_chol": 8,
+                        "admm_dense": 8}
 # The kernels every step of each main path must launch; it must launch no
 # other
 PATH_KERNELS = {
@@ -126,6 +137,12 @@ SPARSE_SOLVER = dict(max_iter=400, check_every=50, eps_abs=1e-3,
                      scaling_iters=4, pallas_tile=4,
                      pallas_precision="highest", pallas_check_inner=10,
                      bf16_bulk_iters=0)
+# the port's kernel functions (csrc/), whose device time the profiles
+# report one by one
+PORT_KERNEL_FUNCTIONS = {"vanloan_kernel", "chol_inverse_kernel",
+                         "admm_kernel", "rollout_kernel",
+                         "expm_dense_kernel", "ruiz_kernel",
+                         "banded_chol_kernel", "admm_dense_kernel"}
 # H100 SXM data-sheet peaks (dense): HBM bandwidth and non-tensor fp32
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_FLOPS = 67e12
@@ -361,8 +378,11 @@ def check_vanloan(torch, args, kw, small=None):
                            + 4 * n * m + n))
     b_ms, b_by = bound(nbytes(P0, Cu0, cc0, rr, *out_k),
                        flops_stage * Bn * T)
+    from pigeon_tpu_torch import _kernels
     return dict(err=err, rel=rel, ms=ms, plain_ms=plain, library_ms=lib,
                 bound_ms=b_ms, bound_by=b_by,
+                blocks_per_sm=_kernels.occupancy(
+                    "vanloan.cu", "vanloan_blocks_per_sm", n),
                 shapes=[list(P0.shape), list(Cu0.shape)])
 
 
@@ -405,9 +425,13 @@ def check_chol_inverse(torch, args, kw, small=None):
     Bn = K.shape[0]
     flops = Bn * (n ** 3 + polish * 4 * n ** 3)
     b_ms, b_by = bound(nbytes(K, Xk), flops)
+    from pigeon_tpu_torch import _kernels
     return dict(err=float((Xk - Xp).abs().max()), rel=rel, resid=resid,
                 asym=sym, ms=ms, plain_ms=plain, library_ms=lib,
-                bound_ms=b_ms, bound_by=b_by, shapes=[list(K.shape)])
+                bound_ms=b_ms, bound_by=b_by,
+                blocks_per_sm=_kernels.occupancy(
+                    "chol_inverse.cu", "chol_inverse_blocks_per_sm"),
+                shapes=[list(K.shape)])
 
 
 def admm_errors(torch, out_k, out_p, keep=None):
@@ -559,14 +583,20 @@ def check_rollout(torch, args, kw, small=None):
     plain = cuda_ms(torch, lambda: qc.rollout_affine_unroll(A, E), 5)
     Bn, T, d, w = E.shape
     b_ms, b_by = bound(nbytes(A, E, out_k), 2.0 * Bn * (T - 1) * d * d * w)
+    from pigeon_tpu_torch import _kernels
     return dict(err=float((out_k - out_p).abs().max()), rel=rel, ms=ms,
                 plain_ms=plain, library_ms=None, bound_ms=b_ms,
-                bound_by=b_by, shapes=[list(A.shape), list(E.shape)])
+                bound_by=b_by,
+                blocks_per_sm=_kernels.occupancy(
+                    "rollout.cu", "rollout_blocks_per_sm", T, d),
+                smem_bytes=4 * T * d * d * 4,
+                shapes=[list(A.shape), list(E.shape)])
 
 
 def expm_case(torch, M, sq, order, reps):
     """Kernel against plain and against float64 on one stack, with times
     and the bound."""
+    from pigeon_tpu_torch import _kernels
     from pigeon_tpu_torch import discretize as dz
 
     out_k = dz.expm_dense(M, sq, order)
@@ -596,7 +626,10 @@ def expm_case(torch, M, sq, order, reps):
                          reps[1]),
         library_ms=cuda_ms(torch, lambda: torch.linalg.matrix_exp(M),
                            reps[1]),
-        bound_ms=b_ms, bound_by=b_by, shapes=[list(M.shape)])
+        bound_ms=b_ms, bound_by=b_by,
+        blocks_per_sm=_kernels.occupancy("expm_dense.cu",
+                                         "expm_dense_blocks_per_sm"),
+        shapes=[list(M.shape)])
 
 
 def check_expm_dense(torch, args, kw, extra):
@@ -635,9 +668,15 @@ def diff_finite(k, p):
     return d, d / max(float(p[fin].abs().max()), 1e-30)
 
 
+def bit_equal(torch, k, p) -> bool:
+    return (k.dtype == p.dtype == torch.float32 and k.shape == p.shape
+            and torch.equal(k.view(torch.int32), p.view(torch.int32)))
+
+
 def check_ruiz(torch, args, kw, small=None):
     """`args`: the sparse fleet's (P, q, A, l, u); `small`: the 12-stage
     horizon's call."""
+    from pigeon_tpu_torch import _kernels
     from pigeon_tpu_torch.solver import admm as TA
     from pigeon_tpu_torch.solver import pallas_ruiz as pr
 
@@ -656,12 +695,18 @@ def check_ruiz(torch, args, kw, small=None):
     diffs = [diff_finite(k, p) for k, p in zip(out_k, out_p)]
     rel = max(r for _, r in diffs)
     require(rel <= 1e-5, f"ruiz kernel vs plain: relative error {rel}")
-    others = [[a[:B_RAGGED].contiguous() for a in args]]
+    bits = {"path": all(bit_equal(torch, k, p) for k, p in zip(out_k, out_p))}
+    others = {"ragged": [a[:B_RAGGED].contiguous() for a in args]}
     if small is not None:
-        others.append(list(small[0]))
-    for a in others:
-        r = max(diff_finite(k, p)[1] for k, p in zip(*both(a)))
+        others["small_horizon"] = list(small[0])
+    for name, a in others.items():
+        k_, p_ = both(a)
+        r = max(diff_finite(k, p)[1] for k, p in zip(k_, p_))
         require(r <= 1e-5, f"ruiz at {tuple(a[2].shape)}: relative {r}")
+        bits[name] = all(bit_equal(torch, k, p) for k, p in zip(k_, p_))
+    # the mean's sum, the one difference, has given the plain version's
+    # bits on these inputs in every run: required bit-equal on all three
+    require(all(bits.values()), f"ruiz not bit-equal to the plain: {bits}")
     ms = cuda_ms(torch, lambda: pr.ruiz_batched(*args, iters=iters), 20)
     plain = cuda_ms(torch, lambda: TA.ruiz(TA.QPData(*args), iters), 5)
     Bn, m, n = args[2].shape
@@ -671,9 +716,20 @@ def check_ruiz(torch, args, kw, small=None):
     flops = (iters * (4 * nnz + Bn * (4 * (m + n) + 8 * n))
              + 2 * nnz + Bn * (6 * n + 2 * m))
     b_ms, b_by = bound(nbytes(*args, *out_k), flops)
-    return dict(err=max(d for d, _ in diffs), rel=rel, ms=ms,
-                plain_ms=plain, library_ms=None,
-                bound_ms=b_ms, bound_by=b_by, shapes=[list(args[2].shape)])
+    cluster, smem = pr.plan_smem(n, m)
+    # the kernel at each cluster size whose blocks hold their rows (the
+    # plan takes pr.CLUSTER, the fastest of these on an H100)
+    outs = [torch.empty_like(t) for t in out_k]
+    cluster_ms = {
+        cl: cuda_ms(torch, lambda: _kernels.KERNELS["ruiz"].launch(
+            *args, *outs, Bn, n, m, iters, cl), 20)
+        for cl in range(3, pr.CLUSTER_MAX + 1)
+        if pr.smem_bytes(n, m, cl) <= pr.SMEM_MAX}
+    return dict(err=max(d for d, _ in diffs), rel=rel, bit_equal=bits,
+                ms=ms, plain_ms=plain, library_ms=None, cluster_ms=cluster_ms,
+                bound_ms=b_ms, bound_by=b_by, cluster=cluster,
+                smem_bytes=smem, max_active_clusters=pr.max_active_clusters(
+                    n, m), shapes=[list(args[2].shape)])
 
 
 def rel_per_instance(k, ref):
@@ -687,6 +743,7 @@ def check_banded_chol(torch, args, kw, extra):
     `extra["small"]`: the 12-stage horizon's call; `extra["factor"]`: the
     fleet's `factor_inv_banded` call, for |K K^-1 - I| of the whole
     factor against the dense Cholesky inverse of the same K."""
+    from pigeon_tpu_torch import _kernels
     from pigeon_tpu_torch.solver import banded as bd
 
     def held(Kd, Ks):
@@ -752,11 +809,29 @@ def check_banded_chol(torch, args, kw, extra):
     plain = cuda_ms(torch, lambda: bd.chol_factor_plain(Kd, Ks), 3)
     dense_ms = cuda_ms(torch, dense_inv, 5)
     Bn, nb, bw, _ = Kd.shape
+    # the padded build (any bw <= 16) on the same blocks: its padding is
+    # an exact fixed point, so it must give the exact build's bits
+    Lq, Sq = torch.empty_like(Kd), torch.empty_like(Kd)
+
+    def padded():
+        _kernels.KERNELS["banded_chol"].launch(Kd, Ks, Lq, Sq, Bn, nb, bw,
+                                               bd.BW_MAX)
+
+    padded()
+    torch.cuda.synchronize()
+    require(bit_equal(torch, Lq, Lk) and bit_equal(torch, Sq, Sk),
+            "banded_chol's padded build differs from the exact one")
+    padded_ms = cuda_ms(torch, padded, 20)
     # per stage: S = K_sub Linv', D = K - S S' (2 bw^3 each), the
     # Cholesky and the triangular inverse (bw^3 / 3 each)
     flops = Bn * nb * (4 * bw ** 3 + 2 * bw ** 3 / 3)
     b_ms, b_by = bound(nbytes(Kd, Ks, Lk, Sk), flops)
+    per_sm = bd.chol_blocks_per_sm(bw)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     return dict(err=float(max((Lk - Lp).abs().max(), (Sk - Sp).abs().max())),
+                build=bd.chol_build(bw), padded_build_ms=padded_ms,
+                blocks_per_sm=per_sm,
+                instances_resident=per_sm * sms * bd.CHOL_PER_BLOCK,
                 rel=rel, path_errs=path_errs, ragged_errs=errs,
                 small_horizon_errs=small_errs,
                 kkt_resid_banded=r_b_max, kkt_resid_dense_chol=r_d_max,
@@ -1068,10 +1143,16 @@ def profile_call(torch, fn, steps: int = 1):
         by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
     busy_us = sum(by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
+    port = {}
+    for name, us in by_name.items():
+        fn = re.search(r"::(\w+)[<(]", name)
+        if fn and fn.group(1) in PORT_KERNEL_FUNCTIONS:
+            port[fn.group(1)] = port.get(fn.group(1), 0.0) + us / 1e3 / steps
     return dict(wall_ms=wall_us / 1e3 / steps,
                 device_busy_ms=busy_us / 1e3 / steps,
                 idle_share=1.0 - busy_us / wall_us,
                 device_events=round(len(dev) / steps),
+                port_kernels_ms=port,
                 top_ms=[[name[:70], us / 1e3 / steps] for name, us in top])
 
 
@@ -1302,7 +1383,8 @@ def main() -> int:
     name = torch.cuda.get_device_name(0)
     log(phase="device", nvidia_smi=smi, torch=torch.__version__,
         cuda=torch.version.cuda, name=name,
-        count=torch.cuda.device_count())
+        count=torch.cuda.device_count(),
+        sms=torch.cuda.get_device_properties(0).multi_processor_count)
 
     t0 = time.perf_counter()
     build_out = kernels.build_all()
@@ -1364,7 +1446,9 @@ def main() -> int:
     def log_check(kname, r, **more):
         shown = ("err", "ms", "plain_ms", "library_ms", "bound_ms")
         log(phase="kernel_check", name=kname,
-            tpu_kernel=KERNEL_META[kname][1], max_abs_err=r["err"],
+            tpu_kernel=KERNEL_META[kname][1],
+            ptxas=regs.get(KERNEL_META[kname][0].rsplit("/", 1)[-1]),
+            max_abs_err=r["err"],
             kernel_ms=r["ms"], plain_ms=r["plain_ms"],
             library_ms=r["library_ms"], bound_ms=r["bound_ms"], **more,
             **{k: v for k, v in r.items() if k not in shown})
@@ -1401,6 +1485,9 @@ def main() -> int:
             iters_mean_last=last["iters"], converged_last=last["conv"],
             launches=launches[phase], steps=recs)
         require(last["conv"] >= 0.99, f"converged fraction {last['conv']}")
+        if formulation == "sparse":
+            require(all(r["launches"] == SPARSE_STEP_LAUNCHES for r in recs),
+                    f"sparse step launches {[r['launches'] for r in recs]}")
         log(phase="profile", path=phase, batch=B, **profile_step(torch, st))
 
     fleet_phase("coupled", "fleet")

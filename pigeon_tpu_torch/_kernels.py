@@ -77,21 +77,26 @@ KERNELS = {
                       [_P, _P, _P, _L, _I, _I, _I]),
     "expm_dense": Kernel("expm_dense_f32", "expm_dense.cu",
                          [_P, _P, _L, _I, _I, _I]),
-    "ruiz": Kernel("ruiz_f32", "ruiz.cu", [_P] * 13 + [_I, _I, _I, _I]),
+    "ruiz": Kernel("ruiz_f32", "ruiz.cu", [_P] * 13 + [_I] * 5),
     "banded_chol": Kernel("banded_chol_f32", "banded_chol.cu",
-                          [_P] * 4 + [_L, _I, _I]),
+                          [_P] * 4 + [_L, _I, _I, _I]),
     "admm_dense": Kernel(
         "admm_dense_f32", "admm_dense.cu",
         [_P] * 17 + [_I] * 7 + [_F, _F, _I, _F, _F]),
 }
 
 
-def call_helper(source: str, name: str, argtypes: list, *args):
-    """Call a host-side C helper of `source`'s library (an occupancy query,
-    not a launch: nothing is counted); raises if it returns an error."""
-    err = _load(source, name, argtypes)(*args)
+def occupancy(source: str, name: str, *args: int) -> int:
+    """What a host-side occupancy helper of `source` reports (resident
+    blocks per SM, or clusters on the card) for its int arguments `args`;
+    nothing is launched or counted.  Raises if the helper returns an
+    error."""
+    out = ctypes.c_int(0)
+    err = _load(source, name, [_I] * len(args) + [_P])(
+        *args, ctypes.addressof(out))
     if err != 0:
         raise RuntimeError(f"{name} failed: cudaError {err}")
+    return out.value
 
 
 def reset_launches():

@@ -146,3 +146,10 @@ extern "C" int chol_inverse_f32(const float* K, float* out, long long B,
                         (cudaStream_t)stream>>>(K, out, B, n, polish);
   return (int)cudaGetLastError();
 }
+
+// Resident blocks per SM (WARPS instances each;
+// cudaOccupancyMaxActiveBlocksPerMultiprocessor), into *out.
+extern "C" int chol_inverse_blocks_per_sm(int* out) {
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      out, chol_inverse_kernel, WARPS * 32, 0);
+}

@@ -98,3 +98,10 @@ extern "C" int expm_dense_f32(const float* M, float* out, long long count,
       M, out, d, squarings, order);
   return (int)cudaGetLastError();
 }
+
+// Resident blocks per SM, one matrix a block
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor), into *out.
+extern "C" int expm_dense_blocks_per_sm(int* out) {
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      out, expm_dense_kernel, THREADS, 0);
+}

@@ -97,3 +97,19 @@ extern "C" int rollout_f32(const float* A, const float* E, float* out,
     default: return launch<6>(A, E, out, B, T, w, s);
   }
 }
+
+// Resident blocks per SM (WARPS instances each) of the build for (T, d),
+// with its shared memory (cudaOccupancyMaxActiveBlocksPerMultiprocessor),
+// into *out.
+extern "C" int rollout_blocks_per_sm(int T, int d, int* out) {
+  if (d < 1 || d > 6 || T < 1 || T >= 64) return (int)cudaErrorInvalidValue;
+  const void* fns[6] = {(const void*)rollout_kernel<1>,
+                        (const void*)rollout_kernel<2>,
+                        (const void*)rollout_kernel<3>,
+                        (const void*)rollout_kernel<4>,
+                        (const void*)rollout_kernel<5>,
+                        (const void*)rollout_kernel<6>};
+  const size_t shared = (size_t)WARPS * T * d * d * sizeof(float);
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      out, fns[d - 1], WARPS * 32, shared);
+}

@@ -163,3 +163,12 @@ extern "C" int vanloan_f32(const float* P0, const float* Cu0,
         P0, Cu0, cc0, rr, A, X, Y, z, count, squarings, order);
   return (int)cudaGetLastError();
 }
+
+// Resident blocks per SM of the (n, 6) build, 128 threads a block
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor), into *out.
+extern "C" int vanloan_blocks_per_sm(int n, int* out) {
+  if (n != 6 && n != 4) return (int)cudaErrorInvalidValue;
+  const void* fn = n == 6 ? (const void*)vanloan_kernel<6, 6>
+                          : (const void*)vanloan_kernel<4, 6>;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(out, fn, 128, 0);
+}

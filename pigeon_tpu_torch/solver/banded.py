@@ -10,8 +10,10 @@ dense K^-1 the dense ADMM kernel consumes follows from a forward
 substitution against the identity (W = L^-1) and K^-1 = W'W.
 
 - `chol_factor` (`csrc/banded_chol.cu`): the block-Cholesky stage
-  recursion, one warp per instance; `chol_factor_plain` is its plain
-  version (`_chol_factor_impl` of the JAX package).
+  recursion, each instance's stage blocks in the registers of a
+  half-warp, bw fixed at compile time (`chol_build`);
+  `chol_factor_plain` is its plain version (`_chol_factor_impl` of the
+  JAX package).
 - `factor_inv_banded`: K = A' rho A as one float32 matmul, static slot
   gathers, the recursion, the forward substitution and W'W as batched
   matmuls, and the un-permutation.
@@ -32,8 +34,13 @@ import torch
 from pigeon_tpu_torch import _kernels
 from pigeon_tpu_torch.config import HorizonParams
 
-# the kernel's largest block width (one warp lane per block row)
+# the kernel's builds: the sparse QP's block width, fixed at compile
+# time, and the padded build for any other width up to BW_MAX (one lane
+# per block row)
+BW_EXACT = 13
 BW_MAX = 16
+# instances per block of the kernel (two warps of two)
+CHOL_PER_BLOCK = 4
 PIVOT_FLOOR = 1e-12
 
 
@@ -128,16 +135,30 @@ def chol_factor_plain(K_diag, K_sub):
     return torch.stack(Linvs, dim=1), torch.stack(Ss, dim=1)
 
 
+def chol_build(bw: int) -> int:
+    """The kernel build that takes block width `bw`: BW_EXACT for the
+    sparse QP's stages, the padded BW_MAX build for any other bw <= BW_MAX
+    (its padded rows and columns are exact fixed points); ValueError
+    above."""
+    if not 1 <= bw <= BW_MAX:
+        raise ValueError(f"the banded Cholesky kernel takes 1 <= bw <= "
+                         f"{BW_MAX}, got {bw}")
+    return BW_EXACT if bw == BW_EXACT else BW_MAX
+
+
 def chol_factor(K_diag, K_sub):
     """The block-Cholesky stage recursion for a batch (see
     `chol_factor_plain`), bw <= 16, any nb.
 
     Replaces the TPU kernel `pigeon_tpu/solver/banded.py:_chol_lane_kernel`.
-    One warp per instance, lane i holding row i of the stage's blocks in
-    shared memory; ~11 KB in and out and ~0.1 MFLOP per instance at
-    (nb, bw) = (16, 13), so at B=2048 the bound is ~7 us of device memory
-    traffic and the 16 dependent stages of ~bw sequential column steps set
-    its time."""
+    Each instance is a chain of nb dependent stages, and at B = 2048 all
+    are in flight at once, so one instance's chain sets the time, not the
+    bound (43,264 B in and out per instance at (nb, bw) = (16, 13): 0.0264
+    ms of device memory at B = 2048).  The kernel keeps an instance's
+    stage blocks in the registers of a half-warp, lane i on row i and on
+    column i of Linv_t, with bw fixed at compile time (`chol_build`), the
+    next stage loaded during this one, and the Cholesky and the inverse
+    in one pass over the columns."""
     if K_diag.dim() != 4 or K_diag.shape[-1] != K_diag.shape[-2]:
         raise ValueError(f"K_diag must be (B, nb, bw, bw), got "
                          f"{tuple(K_diag.shape)}")
@@ -147,12 +168,19 @@ def chol_factor(K_diag, K_sub):
         return chol_factor_plain(K_diag, K_sub)
     _kernels.check_cuda_f32(K_diag=K_diag, K_sub=K_sub)
     B, nb, bw, _ = K_diag.shape
-    if bw > BW_MAX:
-        raise ValueError(f"the CUDA kernel takes bw <= {BW_MAX}, got {bw}")
+    build = chol_build(bw)
     Linv = torch.empty_like(K_diag)
     S = torch.empty_like(K_diag)
-    _kernels.KERNELS["banded_chol"].launch(K_diag, K_sub, Linv, S, B, nb, bw)
+    _kernels.KERNELS["banded_chol"].launch(K_diag, K_sub, Linv, S, B, nb, bw,
+                                           build)
     return Linv, S
+
+
+def chol_blocks_per_sm(bw: int) -> int:
+    """Resident blocks per SM (CHOL_PER_BLOCK instances each) of the build
+    `chol_build(bw)` picks (cudaOccupancyMaxActiveBlocksPerMultiprocessor)."""
+    return _kernels.occupancy("banded_chol.cu", "banded_chol_blocks_per_sm",
+                              bw, chol_build(bw))
 
 
 # ---------------------------------------------------------------------------

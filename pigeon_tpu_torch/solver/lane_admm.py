@@ -25,7 +25,6 @@ instances read each entry as 32 contiguous bytes.
 
 from __future__ import annotations
 
-import ctypes
 import math
 
 import torch
@@ -75,11 +74,8 @@ def plan_smem(n: int, m: int) -> int:
 def max_active_clusters(n: int, m: int) -> int:
     """How many exit groups (16-block clusters) of the iteration kernel's
     (n, m) build the card holds at once (cudaOccupancyMaxActiveClusters)."""
-    out = ctypes.c_int(0)
-    _kernels.call_helper("admm_iterations.cu", "admm_iterations_max_clusters",
-                         [ctypes.c_int, ctypes.c_int, ctypes.c_void_p], n, m,
-                         ctypes.addressof(out))
-    return out.value
+    return _kernels.occupancy("admm_iterations.cu",
+                              "admm_iterations_max_clusters", n, m)
 
 
 # ---------------------------------------------------------------------------

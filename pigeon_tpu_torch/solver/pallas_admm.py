@@ -16,7 +16,6 @@ gives it, see `layout_pattern`) and `pack` gathers an A's values into it.
 
 from __future__ import annotations
 
-import ctypes
 import functools
 
 import numpy as np
@@ -188,12 +187,9 @@ def plan_smem(n: int, m: int, row_width: int, col_width: int) -> int:
 def max_active_clusters(pattern: EllPattern, tile: int) -> int:
     """How many clusters of `tile` blocks of the kernel the card holds at
     once (cudaOccupancyMaxActiveClusters) for this pattern's shapes."""
-    out = ctypes.c_int(0)
-    _kernels.call_helper("admm_dense.cu", "admm_dense_max_clusters",
-                         [ctypes.c_int] * 5 + [ctypes.c_void_p], pattern.n,
-                         pattern.m, pattern.row_width, pattern.col_width,
-                         int(tile), ctypes.addressof(out))
-    return out.value
+    return _kernels.occupancy("admm_dense.cu", "admm_dense_max_clusters",
+                              pattern.n, pattern.m, pattern.row_width,
+                              pattern.col_width, int(tile))
 
 
 def _stats(A, x, z, y, invE, PuD, qu, invDc, eps_abs, eps_rel):

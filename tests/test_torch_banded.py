@@ -146,3 +146,30 @@ def test_unported_factor_options_raise(scaled):
     for kw in (dict(tp_axis="tp"), dict(method="cr")):
         with pytest.raises(NotImplementedError):
             TB.factor_inv_banded(Pb, Ab, rho, SIGMA, slots, n, bw, nb, **kw)
+
+
+@pytest.mark.parametrize("bw, build", [(13, 13), (14, 16), (15, 16),
+                                       (16, 16), (1, 16), (12, 16)])
+def test_chol_build_picks_the_compiled_width(bw, build):
+    """The banded Cholesky kernel's builds: bw = 13 (the sparse QP's
+    stages) fixed at compile time, any other bw <= 16 padded."""
+    assert TB.chol_build(bw) == build
+
+
+@pytest.mark.parametrize("bw", [0, 17, 32])
+def test_chol_build_refuses_wider_blocks(bw):
+    with pytest.raises(ValueError):
+        TB.chol_build(bw)
+
+
+def test_chol_factor_cpu_takes_any_width():
+    """Only the card's kernel is limited to bw <= 16; a CPU tensor takes
+    the plain version at any width."""
+    rng = np.random.default_rng(3)
+    Kd = rng.normal(size=(2, 2, 17, 17))
+    Kd = Kd @ np.swapaxes(Kd, -1, -2) + 17.0 * np.eye(17)
+    Ks = np.zeros_like(Kd)
+    Linv, S = TB.chol_factor(t64(Kd), t64(Ks))
+    ref = np.linalg.inv(np.linalg.cholesky(Kd))
+    np.testing.assert_allclose(Linv.numpy(), ref, rtol=1e-10, atol=1e-12)
+    assert not S.any()

@@ -84,3 +84,29 @@ def test_plain_matches_jax_ruiz_fp64(qps):
                           (Pb, qb, Ab, lb, ub, D, E, c)):
         assert o.dtype == torch.float64
         assert _rel(o.numpy(), r) < 1e-12, name
+
+
+@pytest.mark.parametrize("n, m, cluster, need", [
+    (193, 290, 6, 42852),    # the sparse QP: 49 rows a block
+    (156, 234, 6, 28320),    # the 12-stage horizon (4, 8): 39 rows a block
+    (193, 2000, 7, 230536),  # 286 rows a block need a larger cluster
+])
+def test_plan_smem_takes_the_path_shapes(n, m, cluster, need):
+    """The Ruiz kernel's plan: the smallest cluster from CLUSTER up whose
+    blocks hold ceil(m / cluster) rows of A and the vectors (each rounded
+    up to 4 floats) in a block's 227 KB."""
+    from pigeon_tpu_torch.solver import pallas_ruiz as TP
+    rows = -(-m // cluster)
+    r4 = lambda v: -(-v // 4) * 4
+    assert TP.smem_bytes(n, m, cluster) == 4 * (
+        5 * r4(n) + 5 * r4(rows) + 16 + rows * n) == need
+    assert TP.plan_smem(n, m) == (cluster, need)
+    assert need <= TP.SMEM_MAX
+
+
+@pytest.mark.parametrize("n, m", [(400, 1200), (10000, 8)])
+def test_plan_smem_refuses_rows_over_a_cluster(n, m):
+    from pigeon_tpu_torch.solver import pallas_ruiz as TP
+    assert TP.smem_bytes(n, m, TP.CLUSTER_MAX) > TP.SMEM_MAX
+    with pytest.raises(ValueError):
+        TP.plan_smem(n, m)
