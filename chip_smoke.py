@@ -20,12 +20,15 @@ Phases (any failure raises, so the script exits non-zero):
    rounding-limited by the stiff equality rows are also held against the
    float64 plain version: the kernel no further from it than twice the
    float32 plain version; the Ruiz kernel must also be bit-equal to its
-   plain version on all three of its calls.  Each check prints its
+   plain version on all three of its calls, and the structured
+   exponential and the Cholesky inverse bit-equal on the ragged batch to
+   the same instances of the full call.  Each check prints its
    kernel's ptxas registers (and static shared memory), and how many
-   blocks, or clusters, the card holds at once at the path's shape; the
-   two ADMM kernels and the Ruiz kernel launch as thread block clusters
-   and print the dynamic shared memory of a block.  The ADMM kernels'
-   bounds count A's nonzeros, not m n;
+   blocks, or clusters, the card holds at once at the path's shape, and
+   the shared memory of a block (for the structured exponential and the
+   Cholesky inverse the Python plan must match the kernel's own); the two
+   ADMM kernels and the Ruiz kernel launch as thread block clusters.  The
+   ADMM kernels' bounds count A's nonzeros, not m n;
 4. path "fleet": the coupled soft MPC for a fleet of 8192 vehicles on an
    oval (x1_coupled_config(soft=True), N_short=5, N_long=10, the lane
    solver with bench.py's options), one cold step and 10 warm closed-loop
@@ -282,10 +285,20 @@ def capture_kernel_inputs(step):
 
 
 def cuda_ms(torch, fn, reps: int) -> float:
+    """Device time of one call of `fn`, over `reps` calls back to back: a
+    sleep kernel holds the stream while the host queues them, so the
+    wrapper's host time (some 20-50 us a call) does not stand in for a
+    kernel that takes less."""
     fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    host_s = time.perf_counter() - t0
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    # clock cycles at up to 2 GHz
+    torch.cuda._sleep(int(min(1.5 * reps * host_s, 2.0) * 2e9))
     start.record()
     for _ in range(reps):
         fn()
@@ -356,17 +369,28 @@ def check_vanloan(torch, args, kw, small=None):
     require(bool(zoh.any()) and bool((out_k[2][zoh] == 0).all()),
             "ZOH stages need Phi_qv == 0")
     # a ragged last block (B_RAGGED instances x T stages is no multiple of
-    # the 128-thread block), and the 12-stage horizon's inputs
+    # a block's stages), and the 12-stage horizon's inputs; the ragged
+    # call bit-equal to the same instances of the full call
     sub = [a[:B_RAGGED].contiguous() if isinstance(a, torch.Tensor) else a
            for a in args]
     for a in (sub,) + (() if small is None else (small[0],)):
-        for k, p in zip(dz.vanloan(*a), dz.vanloan_plain(*a)):
+        out_s = dz.vanloan(*a)
+        for k, p in zip(out_s, dz.vanloan_plain(*a)):
             d = float((k - p).abs().max())
             require(d <= 1e-5 * max(float(p.abs().max()), 1e-30),
                     f"vanloan kernel at {tuple(a[0].shape)}: {d}")
+        if a is sub:
+            require(all(bit_equal(torch, k, f[:B_RAGGED])
+                        for k, f in zip(out_s, out_k)),
+                    "vanloan: the ragged call differs from the full call")
 
     Bn, T, n, _ = P0.shape
     m = Cu0.shape[-1]
+    from pigeon_tpu_torch import _kernels
+    plan = dz.vanloan_plan(n, m)
+    require(tuple(_kernels.occupancy("vanloan.cu", "vanloan_plan", n, f)
+                  for f in range(3)) == plan,
+            f"vanloan: the kernel's block plan is not {plan}")
     Md = dense_stage_matrices(torch, P0, Cu0, cc0, rr)
     ms = cuda_ms(torch, lambda: dz.vanloan(*args), 20)
     plain = cuda_ms(torch, lambda: dz.vanloan_plain(*args), 5)
@@ -378,11 +402,12 @@ def check_vanloan(torch, args, kw, small=None):
                            + 4 * n * m + n))
     b_ms, b_by = bound(nbytes(P0, Cu0, cc0, rr, *out_k),
                        flops_stage * Bn * T)
-    from pigeon_tpu_torch import _kernels
     return dict(err=err, rel=rel, ms=ms, plain_ms=plain, library_ms=lib,
                 bound_ms=b_ms, bound_by=b_by,
                 blocks_per_sm=_kernels.occupancy(
                     "vanloan.cu", "vanloan_blocks_per_sm", n),
+                stages_per_chunk=plan[0], threads_per_block=plan[1],
+                smem_bytes=plan[2],
                 shapes=[list(P0.shape), list(Cu0.shape)])
 
 
@@ -406,16 +431,26 @@ def check_chol_inverse(torch, args, kw, small=None):
                  / scale).max())
     require(resid <= 1e-3, f"chol_inverse: |K K^-1 - I| = {resid}")
     require(rel <= 1e-3, f"chol_inverse kernel vs plain: relative {rel}")
-    # a ragged last block (B_RAGGED is no multiple of the 4 warps of a
-    # block) and the 12-stage horizon's K (n = 24), each against the plain
-    # version with the same bar
-    for Ks in (K[:B_RAGGED].contiguous(),) + (
-            () if small is None else (small[0][0],)):
+    # ragged batches (B_RAGGED instances, and one fewer, which leaves the
+    # last block of 2 warps half full) and the 12-stage horizon's K
+    # (n = 24), each against the plain version with the same bar; a
+    # ragged call bit-equal to the same instances of the full call
+    ragged = [K[:b].contiguous() for b in (B_RAGGED, B_RAGGED - 1)]
+    for Ks in ragged + ([] if small is None else [small[0][0]]):
         Xs = la.chol_inverse(Ks, polish)
         Ps = la.chol_inverse_plain(Ks, polish)
         r = float(((Xs - Ps).abs().amax(dim=(1, 2))
                    / Ps.abs().amax(dim=(1, 2))).max())
         require(r <= 1e-3, f"chol_inverse at {tuple(Ks.shape)}: relative {r}")
+        if any(Ks is t for t in ragged):
+            require(bit_equal(torch, Xs, Xk[:Ks.shape[0]]),
+                    f"chol_inverse: the call on {Ks.shape[0]} instances "
+                    f"differs from the full call")
+    from pigeon_tpu_torch import _kernels
+    plan = la.chol_inverse_plan(n)
+    require(tuple(_kernels.occupancy("chol_inverse.cu", "chol_inverse_plan",
+                                     f) for f in range(2)) == plan,
+            f"chol_inverse: the kernel's block plan is not {plan}")
     ms = cuda_ms(torch, lambda: la.chol_inverse(K, polish), 20)
     plain = cuda_ms(torch, lambda: la.chol_inverse_plain(K, polish), 3)
     lib = cuda_ms(torch, lambda: torch.linalg.inv(K), 10)
@@ -425,12 +460,12 @@ def check_chol_inverse(torch, args, kw, small=None):
     Bn = K.shape[0]
     flops = Bn * (n ** 3 + polish * 4 * n ** 3)
     b_ms, b_by = bound(nbytes(K, Xk), flops)
-    from pigeon_tpu_torch import _kernels
     return dict(err=float((Xk - Xp).abs().max()), rel=rel, resid=resid,
                 asym=sym, ms=ms, plain_ms=plain, library_ms=lib,
                 bound_ms=b_ms, bound_by=b_by,
                 blocks_per_sm=_kernels.occupancy(
                     "chol_inverse.cu", "chol_inverse_blocks_per_sm"),
+                instances_per_block=plan[0], smem_bytes=plan[1],
                 shapes=[list(K.shape)])
 
 

@@ -119,6 +119,31 @@ def _check_order(order: int):
 
 # (n, m) of the models the kernel is built for: tracking and lateral
 VANLOAN_SHAPES = ((6, 6), (4, 6))
+# consecutive (instance, stage) items of a chunk of the kernel, by n: a
+# block takes n threads for each, a whole number of warps
+VANLOAN_STAGES = {6: 32, 4: 64}
+# a block's shared memory is static, so within 48 KB
+VANLOAN_SMEM_MAX = 48 * 1024
+
+
+def vanloan_plan(n: int, m: int) -> tuple:
+    """(stages a chunk, threads a block, shared bytes a block) of the
+    kernel's (n, m) build -- (32, 192, 34,816) at (6, 6), (64, 256,
+    40,448) at (4, 6) -- or ValueError for an (n, m) it is not built
+    for.  A block's shared memory holds two chunks' input slabs (P0, Cu0,
+    cc0, rr), the next loading while it works on the current one, and a
+    chunk's output slabs (A, X, Y, z)."""
+    if (n, m) not in VANLOAN_SHAPES:
+        raise ValueError(f"the CUDA kernel is built for (n, m) in "
+                         f"{VANLOAN_SHAPES}, got {(n, m)}")
+    stages = VANLOAN_STAGES[n]
+    ins = n * n + n * m + n + 1
+    outs = n * n + 2 * n * m + n
+    need = 4 * stages * (2 * ins + outs)
+    if need > VANLOAN_SMEM_MAX:
+        raise ValueError(f"a vanloan block at (n, m) = ({n}, {m}) needs "
+                         f"{need} B of shared memory, over {VANLOAN_SMEM_MAX}")
+    return stages, stages * n, need
 
 
 def vanloan_plain(P0, Cu0, cc0, rr, squarings: int, order: int):
@@ -156,14 +181,17 @@ def vanloan(P0, Cu0, cc0, rr, squarings: int, order: int):
     """Structured Van Loan exponential per (instance, stage).
 
     P0 (B, T, n, n), Cu0 (B, T, n, m), cc0 (B, T, n, 1), rr (B, T).
-    CUDA tensors (float32, contiguous) launch `csrc/vanloan.cu`, one
-    thread per (instance, stage), built for (n, m) = (6, 6) and (4, 6);
-    CPU tensors run `vanloan_plain`.
+    CUDA tensors (float32, contiguous) launch `csrc/vanloan.cu`, built
+    for (n, m) = (6, 6) and (4, 6): resident blocks walk over chunks of
+    `vanloan_plan`'s consecutive (instance, stage) items, staged through
+    shared memory, one thread per row of a stage; CPU tensors run
+    `vanloan_plain`.
 
     Replaces the TPU kernel `pigeon_tpu/discretize.py:_vanloan_lane_kernel`.
-    On the card it moves ~0.8 KB per (instance, stage) (95 MB per step at
-    B=8192, T=15) and does ~12 kFLOP there: bound by neither at this size,
-    it is latency- and launch-bound."""
+    At n = 6 it moves 772 B per (instance, stage) (95 MB per step at
+    B=8192, T=15) and does ~10.9 kFLOP there at order 6 and 4 squarings
+    (1.34 GFLOP): bound by the bytes (0.028 ms on an H100), just above the
+    operations (0.020 ms)."""
     _check_order(order)
     if P0.dim() != 4:
         raise ValueError(f"P0 must be (B, T, n, n), got {tuple(P0.shape)}")
@@ -174,9 +202,7 @@ def vanloan(P0, Cu0, cc0, rr, squarings: int, order: int):
     if P0.device.type == "cpu":
         return vanloan_plain(P0, Cu0, cc0, rr, squarings, order)
     _kernels.check_cuda_f32(P0=P0, Cu0=Cu0, cc0=cc0, rr=rr)
-    if (n, m) not in VANLOAN_SHAPES:
-        raise ValueError(f"the CUDA kernel is built for (n, m) in "
-                         f"{VANLOAN_SHAPES}, got {(n, m)}")
+    vanloan_plan(n, m)
     A = torch.empty_like(P0)
     Xo = torch.empty_like(Cu0)
     Yo = torch.empty_like(Cu0)

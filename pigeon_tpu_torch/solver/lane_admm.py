@@ -5,7 +5,8 @@ tiny (n=30 variables, m=124 rows, no equality rows), so every instance is
 solved by its own warp:
 
 - `chol_inverse` (`csrc/chol_inverse.cu`): K^-1 per instance by column
-  Cholesky, forward substitution and one Newton-Schulz polish step.
+  Cholesky, forward substitution and one Newton-Schulz polish step, a
+  warp per instance with its K in shared memory.
 - `admm_iterations` (`csrc/admm_iterations.cu`): the OSQP iterations with
   the shrink-prox z-update for exact-penalty rows, in-kernel convergence
   checks and an early exit per group of `GROUP` consecutive instances;
@@ -111,14 +112,35 @@ def chol_inverse_plain(K, polish: int = 1):
     return X
 
 
+# The Cholesky-inverse kernel: a warp per instance, 2 a block, each with
+# K padded to 32 x 32 (rows 33 floats apart) and two 32 x 36-float tiles
+# for the rows and product operands the lanes exchange, in static shared
+# memory.
+CHOL_INSTANCES_PER_BLOCK = 2
+CHOL_WARP_FLOATS = 32 * 33 + 2 * 32 * 36
+
+
+def chol_inverse_plan(n: int) -> tuple:
+    """(instances, shared bytes) of a block of the Cholesky-inverse kernel
+    -- (2, 26,880) -- or ValueError for an n it does not take (n <= 32)."""
+    if not 1 <= n <= N_MAX:
+        raise ValueError(f"the CUDA kernel takes 1 <= n <= {N_MAX}, got {n}")
+    return (CHOL_INSTANCES_PER_BLOCK,
+            4 * CHOL_INSTANCES_PER_BLOCK * CHOL_WARP_FLOATS)
+
+
 def chol_inverse(K, polish: int = 1):
     """K^-1 for each instance of K (B, n, n), n <= 32.
 
     Replaces the TPU kernel
     `pigeon_tpu/solver/lane_admm.py:_chol_inv_kernel`.  One warp per
-    instance; ~7.4 KB and ~0.13 MFLOP per instance at n=30, so bound by
-    neither on the card -- its shuffle and shared-memory broadcasts set
-    the time."""
+    instance (`chol_inverse_plan`).  At n=30 it moves 7.2 KB and needs
+    ~0.13 MFLOP per instance (59 MB and 1.1 GFLOP at B=8192): bound by
+    the bytes on an H100 (0.018 ms).  The kernel skips the Cholesky's dead
+    updates and computes its three 32 x 32 x 32 products in 4 x 8 register
+    tiles, a lane reading 12 floats from shared memory for 32 FMAs; its
+    shared-memory and shuffle traffic and the Cholesky's chain of 32
+    pivots set the time."""
     if K.dim() != 3 or K.shape[1] != K.shape[2]:
         raise ValueError(f"K must be (B, n, n), got {tuple(K.shape)}")
     _kernels.check_same(K=(K, tuple(K.shape)))
@@ -126,8 +148,7 @@ def chol_inverse(K, polish: int = 1):
         return chol_inverse_plain(K, polish)
     _kernels.check_cuda_f32(K=K)
     B, n, _ = K.shape
-    if n > N_MAX:
-        raise ValueError(f"the CUDA kernel takes n <= {N_MAX}, got {n}")
+    chol_inverse_plan(n)
     out = torch.empty_like(K)
     _kernels.KERNELS["chol_inverse"].launch(K, out, B, n, polish)
     return out

@@ -43,6 +43,69 @@ def test_vanloan_plain_matches_tpu_kernel_fp32():
                                    atol=3e-6)
 
 
+@pytest.mark.parametrize("T, n, squarings, order", [
+    (30, 4, 4, 6),   # the decoupled fleet's lateral model (n = 4, T = 30)
+    (15, 6, 3, 5),   # an order and squarings the kernel takes at run time
+])
+def test_vanloan_plain_matches_tpu_kernel_other_shapes_fp32(T, n, squarings,
+                                                            order):
+    ins = [a.astype(np.float32) for a in _rand_inputs(130, T, n, 6, seed=5)]
+    ref = JZ._vanloan_lane_batched(*[jnp.asarray(a) for a in ins], squarings,
+                                   order, interpret=True)
+    out = TZ.vanloan(*[torch.as_tensor(a) for a in ins], squarings, order)
+    for o, r in zip(out, ref):
+        assert o.shape == r.shape
+        np.testing.assert_allclose(o.numpy(), np.asarray(r), rtol=3e-5,
+                                   atol=3e-6)
+
+
+@pytest.mark.parametrize("n, m, plan", [(6, 6, (32, 192, 34816)),
+                                        (4, 6, (64, 256, 40448))])
+def test_vanloan_plan_takes_the_path_shapes(n, m, plan):
+    """A chunk is `stages` consecutive stages; a block gives each n threads
+    (a whole number of warps) and holds two chunks' input slabs (P0, Cu0,
+    cc0, rr) and one chunk's output slabs (A, X, Y, z) in static shared
+    memory."""
+    assert TZ.vanloan_plan(n, m) == plan
+    stages, threads, smem = plan
+    assert threads == stages * n and threads % 32 == 0
+    ins = n * n + n * m + n + 1
+    outs = n * n + 2 * n * m + n
+    assert smem == 4 * stages * (2 * ins + outs) <= TZ.VANLOAN_SMEM_MAX
+
+
+@pytest.mark.parametrize("n, m", [(6, 6), (4, 6)])
+def test_vanloan_block_slabs_stay_16_byte_aligned(n, m):
+    """The kernel copies each slab with 16-byte copies and reads a stage's
+    rows as float4 or float2: every slab of every chunk, in device and in
+    shared memory, starts on 16 bytes, and every row on its vector."""
+    stages = TZ.vanloan_plan(n, m)[0]
+    # (floats a stage, floats a row) of P0, Cu0, cc0, rr twice, then A, X,
+    # Y, z
+    ins = ((n * n, n), (n * m, m), (n, n), (1, 1))
+    slabs = ins + ins + ((n * n, n), (n * m, m), (n * m, m), (n, n))
+    offsets = np.cumsum([0] + [stages * w for w, _ in slabs[:-1]])
+    assert np.all(offsets % 4 == 0)
+    for s0 in range(0, 130 * 15, stages):
+        assert all((s0 * w) % 4 == 0 for w, _ in slabs)
+    for off, (w, row) in zip(offsets, slabs):
+        vec = 4 if row % 4 == 0 else 2 if row % 2 == 0 else 1
+        assert all((off + st * w + k * row) % vec == 0
+                   for st in range(stages) for k in range(w // row))
+
+
+@pytest.mark.parametrize("n, m", [(5, 6), (6, 4), (8, 6), (6, 7)])
+def test_vanloan_plan_refuses_other_shapes(n, m):
+    with pytest.raises(ValueError, match="built for"):
+        TZ.vanloan_plan(n, m)
+
+
+def test_vanloan_plan_refuses_a_block_over_static_shared_memory(monkeypatch):
+    monkeypatch.setitem(TZ.VANLOAN_STAGES, 6, 128)   # 139,264 B
+    with pytest.raises(ValueError, match="shared memory"):
+        TZ.vanloan_plan(6, 6)
+
+
 def test_vanloan_zoh_ramp_zero_gives_zero_phiqv():
     P0, Cu0, cc0, _ = _rand_inputs(3, 4, 6, 6, seed=1)
     out = TZ.vanloan(t64(P0), t64(Cu0), t64(cc0), t64(np.zeros((3, 4))), 4, 6)

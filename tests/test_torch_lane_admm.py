@@ -25,12 +25,16 @@ BENCH = dict(max_iter=150, check_every=150, eps_abs=1e-3, eps_rel=1e-3,
              backend="lanes", scaling_iters=2, pallas_check_inner=10)
 
 
-def _slice_qp(B):
+def _slice_qp(B, hz=None):
     """QPs, warm starts and soft weights of one cold step of an oval fleet
-    (the port's pre-solve at float64)."""
+    (the port's pre-solve at float64); `hz` = (N_short, N_long) overrides
+    the horizon."""
     q0, t0, cols = oval_fleet(B)
     cfg = dataclasses.replace(TM.x1_coupled_config(soft=True),
                               solver=SolverOptions(**BENCH))
+    if hz is not None:
+        cfg = dataclasses.replace(cfg, hz=dataclasses.replace(
+            cfg.hz, N_short=hz[0], N_long=hz[1]))
     tube = TT.make_tube(**cols, pad_to=1024, device="cpu",
                         dtype=torch.float64)
     carry = TM.init_carry(cfg, B, dtype=torch.float64, device="cpu")
@@ -127,10 +131,9 @@ def test_admm_iterations_plain_matches_tpu_kernel(iter_inputs, check):
                                atol=1e-5 * max(1.0, np.abs(jst[2:]).max()))
 
 
-def test_chol_inverse_plain_matches_tpu_kernel():
-    """The KKT matrices of an 8-vehicle slice step (n=30; the kernel's
-    128-lane block is ragged)."""
-    cfg, qp, warm, w = _slice_qp(8)
+def _slice_kkt(B, hz=None):
+    """The KKT matrices (B, n, n) the slice's lane solve factors first."""
+    cfg, qp, warm, w = _slice_qp(B, hz)
     seen = {}
     orig = TL.chol_inverse
 
@@ -143,7 +146,10 @@ def test_chol_inverse_plain_matches_tpu_kernel():
         TL.solve_lanes_batched(qp, warm, cfg.solver, w_soft=w)
     finally:
         TL.chol_inverse = orig
-    K = seen["K"].numpy()
+    return seen["K"].numpy()
+
+
+def _chol_inverse_matches_tpu_kernel(K):
     B, n, _ = K.shape
     n_pad = 32
     K_l = np.zeros((n_pad, n_pad, 128), np.float32)
@@ -164,6 +170,36 @@ def test_chol_inverse_plain_matches_tpu_kernel():
     assert np.abs(np.einsum("bij,bjk->bik", K.astype(np.float64),
                             out.astype(np.float64)) - eye).max() < 1e-3
     assert np.all(np.abs(out - out.transpose(0, 2, 1)) <= 1e-5 * scale)
+
+
+def test_chol_inverse_plain_matches_tpu_kernel():
+    """The KKT matrices of an 8-vehicle slice step (n=30; the kernel's
+    128-lane block is ragged)."""
+    _chol_inverse_matches_tpu_kernel(_slice_kkt(8))
+
+
+def test_chol_inverse_plain_matches_tpu_kernel_short_horizon():
+    """The same on the 12-stage horizon (4, 8): n = 24, so the padding to
+    32 is 8 identity rows."""
+    K = _slice_kkt(8, (4, 8))
+    assert K.shape == (8, 24, 24)
+    _chol_inverse_matches_tpu_kernel(K)
+
+
+@pytest.mark.parametrize("n", [30, 24, 1, 32])
+def test_chol_inverse_plan_takes_the_path_shapes(n):
+    """2 instances a block, each with K padded to 32 x 32 (rows 33 floats
+    apart) and two 32 x 36-float tiles, static shared memory within 48
+    KB."""
+    plan = TL.chol_inverse_plan(n)
+    assert plan == (2, 4 * 2 * (32 * 33 + 2 * 32 * 36)) == (2, 26880)
+    assert plan[1] <= 48 * 1024
+
+
+@pytest.mark.parametrize("n", [0, 33, 64])
+def test_chol_inverse_plan_refuses_other_sizes(n):
+    with pytest.raises(ValueError, match="n <= 32"):
+        TL.chol_inverse_plan(n)
 
 
 def test_wrappers_reject_bad_arguments():
