@@ -15,7 +15,10 @@ Phases (any failure raises, so the script exits non-zero):
    a PyTorch library call where one computes the same function; also on a
    ragged batch and on the inputs of a 12-stage horizon (the kernels'
    run-time-n build).  The dense exponential is also held on the stack of
-   all 122,880 stage matrices of the coupled fleet.  The sparse path's
+   all 122,880 stage matrices of the coupled fleet, its exact builds
+   (d = 19, 17) bit-equal to its run-time build on every call, and the
+   run-time build swept over d (EXPM_SWEEP_D); it prints the chain's
+   latency floor and the wrapper's host time a call.  The sparse path's
    kernels (ruiz, banded_chol, admm_dense) whose float32 results are
    rounding-limited by the stiff equality rows are also held against the
    float64 plain version: the kernel no further from it than twice the
@@ -146,6 +149,12 @@ PORT_KERNEL_FUNCTIONS = {"vanloan_kernel", "chol_inverse_kernel",
                          "admm_kernel", "rollout_kernel",
                          "expm_dense_kernel", "ruiz_kernel",
                          "banded_chol_kernel", "admm_dense_kernel"}
+# The dense exponential's run-time build is swept over these d against
+# its plain version (the path's d, 19 and 17, take exact builds)
+EXPM_SWEEP_D = (1, 2, 7, 16, 18, 20, 32)
+# cycles from one fp32 FMA to the next that depends on it (Hopper), for
+# the dense exponential's latency floor
+FMA_LATENCY_CYCLES = 4
 # H100 SXM data-sheet peaks (dense): HBM bandwidth and non-tensor fp32
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_FLOPS = 67e12
@@ -161,9 +170,9 @@ def log(**kw):
     print(json.dumps(kw), flush=True)
 
 
-def nvidia_smi() -> str:
+def nvidia_smi(query: str = "name,power.limit") -> str:
     out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
+        ["nvidia-smi", f"--query-gpu={query}",
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True)
     return out.stdout.strip().splitlines()[0]
@@ -284,11 +293,12 @@ def capture_kernel_inputs(step):
     return seen
 
 
-def cuda_ms(torch, fn, reps: int) -> float:
+def cuda_ms(torch, fn, reps: int, sleep: bool = True) -> float:
     """Device time of one call of `fn`, over `reps` calls back to back: a
     sleep kernel holds the stream while the host queues them, so the
     wrapper's host time (some 20-50 us a call) does not stand in for a
-    kernel that takes less."""
+    kernel that takes less.  Without the sleep: the time a call when the
+    host queues them as they run, the larger of host and device time."""
     fn()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -297,8 +307,9 @@ def cuda_ms(torch, fn, reps: int) -> float:
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
-    # clock cycles at up to 2 GHz
-    torch.cuda._sleep(int(min(1.5 * reps * host_s, 2.0) * 2e9))
+    if sleep:
+        # clock cycles at up to 2 GHz
+        torch.cuda._sleep(int(min(1.5 * reps * host_s, 2.0) * 2e9))
     start.record()
     for _ in range(reps):
         fn()
@@ -628,17 +639,37 @@ def check_rollout(torch, args, kw, small=None):
                 shapes=[list(A.shape), list(E.shape)])
 
 
+def expm_launch(torch, M, sq, order, build):
+    """`csrc/expm_dense.cu`'s `build` (0: d at run time) on M, whatever
+    build `expm_build` would pick."""
+    from pigeon_tpu_torch import _kernels
+
+    d = M.shape[-1]
+    out = torch.empty_like(M)
+    _kernels.KERNELS["expm_dense"].launch(M, out, M.numel() // (d * d), d,
+                                          sq, order, build)
+    return out
+
+
 def expm_case(torch, M, sq, order, reps):
-    """Kernel against plain and against float64 on one stack, with times
-    and the bound."""
+    """Kernel against plain and against float64 on one stack, the exact
+    build (where `expm_build` picks one) bit-equal to the run-time build,
+    with times, the bound, and the chain's latency floor."""
     from pigeon_tpu_torch import _kernels
     from pigeon_tpu_torch import discretize as dz
 
+    d = M.shape[-1]
+    build = dz.expm_build(d)
     out_k = dz.expm_dense(M, sq, order)
     out_p = dz.expm_fixed(M, sq, order)
+    out_r = expm_launch(torch, M, sq, order, 0)
     exact = torch.linalg.matrix_exp(M.double())
     torch.cuda.synchronize()
     require(bool(torch.isfinite(out_k).all()), "expm_dense not finite")
+    # the build cannot change a result: every build runs the same sums
+    require(bit_equal(torch, out_r, out_k),
+            f"expm_dense: the run-time build differs from build {build} "
+            f"at {tuple(M.shape)}")
     scale = max(float(out_p.abs().max()), 1e-30)
     # both float32, only the summation order differs: a few ulps of the
     # largest entry, amplified by the squarings (the vanloan bar)
@@ -650,28 +681,45 @@ def expm_case(torch, M, sq, order, reps):
     rel64 = float((out_k.double() - exact).abs().max()) / scale
     require(rel64 <= 1e-4, f"expm_dense vs float64 at {tuple(M.shape)}: "
                            f"relative error {rel64}")
-    d = M.shape[-1]
     K = M.numel() // (d * d)
     b_ms, b_by = bound(nbytes(M, out_k),
                        2.0 * d ** 3 * (order - 1 + sq) * K)
+    call = lambda: dz.expm_dense(M, sq, order)
+    # the chain's floor: its products' d dependent FMAs each at the
+    # highest SM clock, plus a call that runs no product (load, one
+    # division, store: the launch and one device-memory round trip)
+    empty_ms = cuda_ms(torch, lambda: dz.expm_dense(M, 0, 1), reps[0])
+    chain_ms = ((order - 1 + sq) * d * FMA_LATENCY_CYCLES
+                / (float(nvidia_smi("clocks.max.sm").split()[0]) * 1e3))
+    occ = {f"build_{b}": dict(
+        blocks_per_sm=_kernels.occupancy("expm_dense.cu",
+                                         "expm_dense_occupancy", b, d, 0),
+        registers=_kernels.occupancy("expm_dense.cu",
+                                     "expm_dense_occupancy", b, d, 1))
+        for b in dict.fromkeys((build, 0))}
     return dict(
         err=float((out_k - out_p).abs().max()), rel=rel, rel_vs_f64=rel64,
-        ms=cuda_ms(torch, lambda: dz.expm_dense(M, sq, order), reps[0]),
+        ms=cuda_ms(torch, call, reps[0]),
+        runtime_build_ms=cuda_ms(
+            torch, lambda: expm_launch(torch, M, sq, order, 0), reps[0]),
+        host_ms=cuda_ms(torch, call, reps[0], sleep=False),
         plain_ms=cuda_ms(torch, lambda: dz.expm_fixed(M, sq, order),
                          reps[1]),
         library_ms=cuda_ms(torch, lambda: torch.linalg.matrix_exp(M),
                            reps[1]),
-        bound_ms=b_ms, bound_by=b_by,
-        blocks_per_sm=_kernels.occupancy("expm_dense.cu",
-                                         "expm_dense_blocks_per_sm"),
-        shapes=[list(M.shape)])
+        bound_ms=b_ms, bound_by=b_by, no_product_ms=empty_ms,
+        chain_fma_ms=chain_ms, latency_floor_ms=chain_ms + empty_ms,
+        build=build, **occ[f"build_{build}"],
+        builds=occ, shapes=[list(M.shape)])
 
 
 def check_expm_dense(torch, args, kw, extra):
     """`args`: the coupled `mpc_step`'s call (15 matrices of 19 x 19), the
     entry of the kernels line.  `extra`: the decoupled `mpc_step`'s call
     and the coupled fleet's structured-exponential inputs, from which the
-    stack of all its 122,880 dense stage matrices is built."""
+    stack of all its 122,880 dense stage matrices is built.  Every call
+    also runs the run-time build, which must give the exact build's
+    bits; the run-time build is also swept over d against plain."""
     from pigeon_tpu_torch import discretize as dz
 
     M, sq, order = args
@@ -680,12 +728,34 @@ def check_expm_dense(torch, args, kw, extra):
     r["decoupled_step"] = expm_case(torch, Md, sq_d, order_d, (50, 20))
     stack = dense_stage_matrices(torch, *extra["fleet_vanloan"][:4])
     r["fleet_stack"] = expm_case(torch, stack, sq, order, (10, 3))
+    require(r["build"] == 19 and r["decoupled_step"]["build"] == 17,
+            "expm_dense: the path shapes take the exact builds")
     # a ragged count, and other orders and squarings (run-time arguments)
     sub = stack[:B_RAGGED].contiguous()
     for s_, o_ in ((0, 1), (2, 3), (8, 8)):
         k, p_ = dz.expm_dense(sub, s_, o_), dz.expm_fixed(sub, s_, o_)
         e = float((k - p_).abs().max()) / max(float(p_.abs().max()), 1e-30)
         require(e <= 1e-4, f"expm_dense at squarings={s_}, order={o_}: {e}")
+        require(bit_equal(torch, expm_launch(torch, sub, s_, o_, 0), k),
+                f"expm_dense: the run-time build differs at squarings="
+                f"{s_}, order={o_}")
+    # the run-time build over d, on matrices of the path's norm
+    rng = np.random.default_rng(0)
+    r["d_sweep"] = {}
+    for d in EXPM_SWEEP_D:
+        require(dz.expm_build(d) == 0, f"d={d} takes the run-time build")
+        Ms = torch.as_tensor(rng.normal(size=(B_RAGGED, d, d))
+                             * (1.5 / np.sqrt(d)), dtype=torch.float32,
+                             device="cuda")
+        k, p_ = dz.expm_dense(Ms, sq, order), dz.expm_fixed(Ms, sq, order)
+        ex = torch.linalg.matrix_exp(Ms.double())
+        scale = max(float(p_.abs().max()), 1e-30)
+        e = float((k - p_).abs().max()) / scale
+        e64 = float((k.double() - ex).abs().max()) / scale
+        require(bool(torch.isfinite(k).all()) and e <= 1e-5 and e64 <= 1e-4,
+                f"expm_dense's run-time build at d={d}: relative error "
+                f"{e} against plain, {e64} against float64")
+        r["d_sweep"][d] = dict(rel=e, rel_vs_f64=e64)
     return r
 
 

@@ -76,7 +76,7 @@ KERNELS = {
     "rollout": Kernel("rollout_f32", "rollout.cu",
                       [_P, _P, _P, _L, _I, _I, _I]),
     "expm_dense": Kernel("expm_dense_f32", "expm_dense.cu",
-                         [_P, _P, _L, _I, _I, _I]),
+                         [_P, _P, _L, _I, _I, _I, _I]),
     "ruiz": Kernel("ruiz_f32", "ruiz.cu", [_P] * 13 + [_I] * 5),
     "banded_chol": Kernel("banded_chol_f32", "banded_chol.cu",
                           [_P] * 4 + [_L, _I, _I, _I]),

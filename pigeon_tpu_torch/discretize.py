@@ -56,21 +56,35 @@ def expm_fixed(M, squarings: int = 8, order: int = 8):
     return E
 
 
-# The dense kernel keeps a matrix in three 32 x 33 shared-memory tiles.
+# The dense kernel: a block a matrix, a thread an entry, so d <= 32; exact
+# builds for the stage matrices of the two formulations (n + 2 m + 1 = 19
+# coupled, 17 decoupled), the run-time build 0 for every other d.
 EXPM_D_MAX = 32
+EXPM_BUILDS = (19, 17)
+
+
+def expm_build(d: int) -> int:
+    """The build of `csrc/expm_dense.cu` for d x d matrices: d where an
+    exact build exists (`EXPM_BUILDS`), else 0, the run-time build.
+    ValueError for d outside 1..EXPM_D_MAX."""
+    if not 1 <= d <= EXPM_D_MAX:
+        raise ValueError(f"the CUDA kernel takes 1 <= d <= {EXPM_D_MAX}, "
+                         f"got {d}")
+    return d if d in EXPM_BUILDS else 0
 
 
 def expm_dense(M, squarings: int = 8, order: int = 8):
     """`expm_fixed` of a (..., d, d) stack, d <= 32.  CUDA tensors
     (float32, contiguous) launch `csrc/expm_dense.cu`, one thread block
-    per matrix holding the whole chain in shared memory; CPU tensors run
-    `expm_fixed`.
+    per matrix and one thread per entry, in the build `expm_build` picks;
+    CPU tensors run `expm_fixed`.
 
     Replaces the TPU kernels `pigeon_tpu/discretize.py:_expm_lane_kernel`
     and `_expm_chain_kernel` (the same chain, on lanes and on packed
     128 x 128 tiles).  Per matrix it moves 8 d^2 bytes and does
     2 d^3 (order - 1 + squarings) FLOP: bound by operations for a large
-    stack, by the launch for the 15 or 30 stage matrices of one vehicle."""
+    stack, by the chain of products for the 15 or 30 stage matrices of
+    one vehicle."""
     if M.dim() < 2 or M.shape[-1] != M.shape[-2]:
         raise ValueError(f"M must be (..., d, d), got {tuple(M.shape)}")
     if order < 1 or squarings < 0:
@@ -81,11 +95,9 @@ def expm_dense(M, squarings: int = 8, order: int = 8):
         return expm_fixed(M, squarings, order)
     _kernels.check_cuda_f32(M=M)
     d = M.shape[-1]
-    if d > EXPM_D_MAX:
-        raise ValueError(f"the CUDA kernel takes d <= {EXPM_D_MAX}, got {d}")
     out = torch.empty_like(M)
     _kernels.KERNELS["expm_dense"].launch(
-        M, out, M.numel() // (d * d), d, squarings, order)
+        M, out, M.numel() // (d * d), d, squarings, order, expm_build(d))
     return out
 
 

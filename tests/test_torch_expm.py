@@ -150,3 +150,50 @@ def test_expm_dense_rejects_bad_arguments():
         TZ.expm_dense(M, 4, 0)
     with pytest.raises(ValueError, match="shape"):
         TZ.vanloan_dense(M, M, M[..., :1], M[:, 0], 4, 6)
+
+
+@pytest.mark.parametrize("d", [1, 2, 7, 16, 17, 18, 19, 20, 32])
+def test_expm_build_picks_exact_build_for_path_shapes(d):
+    """The kernel's exact builds are the two stage-matrix sizes (19
+    coupled, 17 decoupled); every other d takes the run-time build 0."""
+    assert TZ.expm_build(d) == (d if d in (17, 19) else 0)
+
+
+@pytest.mark.parametrize("d", [0, 33, -1])
+def test_expm_build_rejects_d_outside_kernel(d):
+    with pytest.raises(ValueError, match="d <="):
+        TZ.expm_build(d)
+
+
+@pytest.mark.parametrize("squarings,order", [(4, 0), (4, -1), (-1, 6)])
+def test_expm_dense_rejects_order_and_squarings(squarings, order):
+    M = t64(np.zeros((2, 19, 19)))
+    with pytest.raises(ValueError, match="order >= 1 and squarings >= 0"):
+        TZ.expm_dense(M, squarings, order)
+
+
+@pytest.mark.parametrize("T,n", [(15, 6), (30, 4)],
+                         ids=["coupled", "decoupled"])
+def test_vanloan_dense_simulate_shapes_match_packed_chain_fp64(T, n):
+    """`vanloan_dense` at `mpc.simulate`'s shapes (15 stages of the 19 x 19
+    coupled stage matrix, 30 of the 17 x 17 decoupled one; order 6, 4
+    squarings) against the JAX package's packed chain on the same dense
+    stage matrices, at float64: rounding only."""
+    m = 6
+    P0, Cu0, cc0, rr = (t64(a[0]) for a in
+                        _stage_inputs(1, T, n, m, seed=T + n))
+    rr[: T // 3] = 0.0
+    out = TZ.vanloan_dense(P0, Cu0, cc0, rr, 4, 6)
+    dim = n + 2 * m + 1
+    M = np.zeros((T, dim, dim))
+    M[:, :n, :n] = P0.numpy()
+    M[:, :n, n:n + m] = Cu0.numpy()
+    M[:, :n, -1] = cc0.numpy()[..., 0]
+    M[:, n:n + m, n + m:n + 2 * m] = rr.numpy()[:, None, None] * np.eye(m)
+    E = np.asarray(JZ._expm_stage_packed_impl(jnp.asarray(M), 4, 6,
+                                              "highest"))
+    ref = (E[:, :n, :n], E[:, :n, n:n + m], E[:, :n, n + m:n + 2 * m],
+           E[:, :n, -1:])
+    for o, r in zip(out, ref):
+        assert o.shape == r.shape
+        np.testing.assert_allclose(o.numpy(), r, rtol=1e-12, atol=1e-13)
