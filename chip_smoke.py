@@ -52,15 +52,31 @@ Phases (any failure raises, so the script exits non-zero):
    closed-loop steps per formulation -- the unbatched route, dense
    linearization and `solve_qp` -- which launches expm_dense once per
    step and no other kernel; then torch.profiler over 5 more steps;
-8. reference checks: for each formulation (coupled, decoupled, sparse)
+8. path "montecarlo": `montecarlo.run_dynamic_obstacle`, the HJI safety
+   filter's Monte-Carlo study, at scripts/exp_safety_ab.py's
+   hammer_eps1.5 arm (the soft coupled QP with the HJI row and its
+   override, the lane solver in 12 segments of 50 iterations) with the
+   mid value grid (`assets/hji_cache_mid.npz`, read by
+   `hji_solve.load_cache`) for 8192 scenarios of its "avoidable" regime
+   over 200 steps; every step launches vanloan, chol_inverse (once more
+   per refactor) and admm_iterations (once per segment) and no other;
+   commands finite, the filter active and the override applied on some
+   steps; then `certify_avoidable` on the same scenarios, torch.profiler
+   over one more step, and the Cholesky inverse and ADMM kernels held
+   against their plain versions on the inputs of a step that refactors
+   with active HJI rows (`run_montecarlo`);
+9. reference checks: for each formulation (coupled, decoupled, sparse)
    a 64-vehicle fleet stepped on the card, each step also run on the CPU
    (plain versions) from the card's state at float64 and float32,
    commands compared (see `reference_check`; the sparse QP's bars are
-   fleet-wide, its float32 solve being rounding-determined); and the
-   card's `simulate` commands against the CPU
-   `simulate` at float64 and float32 (`simulate_reference_check`);
-9. B=1 latency: the coupled fleet path for one vehicle, 20 warm steps;
-10. one JSON line listing the kernels, the nvidia-smi line, and the last
+   fleet-wide, its float32 solve being rounding-determined); the card's
+   `simulate` commands against the CPU `simulate` at float64 and float32
+   (`simulate_reference_check`); the coupled and the sparse check once
+   more with active HJI rows (the mid grid, the other car 3-15 m ahead);
+   and the Monte-Carlo rollout's 8 scenarios of least start value, five
+   steps (`reference_montecarlo`);
+10. B=1 latency: the coupled fleet path for one vehicle, 20 warm steps;
+11. one JSON line listing the kernels, the nvidia-smi line, and the last
    line {"ok": true, "device": {...}}.
 
 It exits non-zero without a result when CUDA is unavailable or when run
@@ -131,6 +147,7 @@ PATH_KERNELS = {
     "decoupled": {"vanloan", "rollout", "chol_inverse", "admm_iterations"},
     "sparse": {"vanloan", "ruiz", "banded_chol", "admm_dense"},
     "simulate": {"expm_dense"},
+    "montecarlo": {"vanloan", "chol_inverse", "admm_iterations"},
 }
 # bench.py's lane-solver iteration budget per formulation
 MAX_ITER = {"coupled": 150, "decoupled": 300}
@@ -158,6 +175,30 @@ FMA_LATENCY_CYCLES = 4
 # H100 SXM data-sheet peaks (dense): HBM bandwidth and non-tensor fp32
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_FLOPS = 67e12
+# The Monte-Carlo path: scripts/exp_safety_ab.py's hammer_eps1.5 arm
+# (the soft coupled QP on the lane solver in 12 segments of 50
+# iterations, the HJI row and its override) on the finest value grid in
+# the repository, its "avoidable" scenarios at B = 8192
+MC_CACHE = "assets/hji_cache_mid.npz"
+B_MC = 8192
+MC_STEPS = 200          # run_dynamic_obstacle's default
+MC_CERT_STEPS = 500     # certify_avoidable's default
+MC_EPS = 1.5
+MC_SOLVER = dict(max_iter=600, check_every=50, eps_abs=1e-3, eps_rel=1e-3,
+                 backend="lanes", scaling_iters=2, pallas_check_inner=10)
+MC_SCENARIOS = dict(seed=7, oncoming_gap=(12.0, 40.0),
+                    oncoming_lateral=(-1.0, 1.0))
+# `reference_montecarlo`: the scenarios of least start value, stepped on
+# the card and on the CPU
+MC_REF_B = 8
+MC_REF_STEPS = 5
+# at most this share of a step's vehicles may have an HJI flag that
+# differs from the CPU float64 path's within float32 interpolation noise
+# of the threshold (`hji_flags`)
+FLAG_NEAR_MAX = 1 / 8
+# the other car in the active-row reference checks: this far ahead of
+# each vehicle (m), oncoming, offset laterally by up to 1 m, at 2-8 m/s
+ACTIVE_GAP = (3.0, 15.0)
 
 
 def require(ok, message):
@@ -208,13 +249,16 @@ def fleet_config(formulation: str, hz=None):
 
 
 def make_setup(torch, B: int, device, hz=None, formulation="coupled",
-               seed=0):
-    """The fleet on the in-repo oval (bench.py's placement, from `seed`)."""
+               seed=0, cache=None):
+    """The fleet on the in-repo oval (bench.py's placement, from `seed`).
+    Without `cache` the HJI cache is the inactive one and the other car
+    far away; with one, the other car comes head-on ACTIVE_GAP ahead of
+    each vehicle (drawn from the same generator), so the HJI row is
+    active where the cache's V <= eps."""
     from pigeon_tpu_torch import hji, mpc, trajectory
 
     cols = trajectory.oval_columns()
     tube = trajectory.make_tube(**cols, pad_to=1024, device=device)
-    cache = hji.inactive_cache(device=device)
     cfg = fleet_config(formulation, hz)
     rng = np.random.default_rng(seed)
     k0 = rng.integers(0, 900, B)
@@ -226,7 +270,22 @@ def make_setup(torch, B: int, device, hz=None, formulation="coupled",
                                    np.zeros(B)], axis=1), **f32)
     t0 = torch.as_tensor(cols["t"][k0], **f32)
     u0 = torch.zeros((B, 3), **f32)
-    oc = torch.tensor([1e4, 1e4, 0.0, 0.0], **f32).expand(B, 4).contiguous()
+    if cache is None:
+        cache = hji.inactive_cache(device=device)
+        oc = torch.tensor([1e4, 1e4, 0.0, 0.0], **f32).expand(B, 4)
+    else:
+        gap = rng.uniform(*ACTIVE_GAP, B)
+        lat = rng.uniform(-1.0, 1.0, B)
+        # ahead along the heading (from N), offset along the left normal,
+        # the heading turned by pi and a little more: exactly antiparallel
+        # headings sit on the +-pi wrap of the grid's dpsi axis, where the
+        # dtype's rounding picks the side
+        oc = torch.as_tensor(np.stack([
+            E - gap * np.sin(psi) - lat * np.cos(psi),
+            N + gap * np.cos(psi) - lat * np.sin(psi),
+            psi + np.pi + rng.uniform(-0.1, 0.1, B),
+            rng.uniform(2.0, 8.0, B)], axis=1), **f32)
+    oc = oc.contiguous()
     carry = mpc.init_carry(cfg, B, device=device)
     return dict(cfg=cfg, tube=tube, cache=cache, carry=carry, q=q0, u=u0,
                 oc=oc, t=t0)
@@ -256,8 +315,9 @@ def closed_loop_step(torch, st):
 # Kernel checks
 # ---------------------------------------------------------------------------
 
-def capture_kernel_inputs(step):
-    """Record the first call of each kernel wrapper during `step()`."""
+def capture_kernel_inputs(step, last=False):
+    """Record the first call (`last`: the last call) of each kernel
+    wrapper during `step()`."""
     from pigeon_tpu_torch import discretize as dz
     from pigeon_tpu_torch.qp import decoupled as qd
     from pigeon_tpu_torch.solver import banded as bd
@@ -279,7 +339,8 @@ def capture_kernel_inputs(step):
 
     def spy(name, fn):
         def inner(*args, **kw):
-            seen.setdefault(name, (args, kw))
+            if last or name not in seen:
+                seen[name] = (args, kw)
             return fn(*args, **kw)
         return inner
 
@@ -1212,15 +1273,29 @@ def run_fleet(torch, B: int, steps: int, kernels, formulation="coupled"):
     return recs, st
 
 
-def copy_state(torch, st, device, dtype, cfg=None):
+def cache_to(cache, device):
+    """An HJI cache on another device."""
+    from pigeon_tpu_torch.hji import HJICache
+
+    return HJICache(knots=tuple(k.to(device) for k in cache.knots),
+                    V=cache.V.to(device),
+                    gradV=None if cache.gradV is None
+                    else cache.gradV.to(device),
+                    dims=cache.dims, strides=cache.strides)
+
+
+def copy_state(torch, st, device, dtype, cfg=None, cache=None):
     """The same fleet state on another device / in another dtype (with
-    another configuration if `cfg` is given)."""
+    another configuration if `cfg` is given); `cache` is the HJI cache
+    there (None: the inactive cache)."""
     from pigeon_tpu_torch import hji, mpc, trajectory
 
     conv = lambda x: x.to(device=device, dtype=dtype) \
         if x.is_floating_point() else x.to(device)
     return dict(
-        cfg=cfg or st["cfg"], cache=hji.inactive_cache(device=device),
+        cfg=cfg or st["cfg"],
+        cache=cache if cache is not None else hji.inactive_cache(
+            device=device),
         tube=trajectory.make_tube(**trajectory.oval_columns(), pad_to=1024,
                                   device=device, dtype=dtype),
         carry=mpc.MPCCarry(*[conv(x) for x in st["carry"]]),
@@ -1266,10 +1341,14 @@ def profile_step(torch, st):
     return profile_call(torch, lambda: closed_loop_step(torch, st))
 
 
-def reference_verdict(torch, sparse, check, card, c32, u64):
+def reference_verdict(torch, sparse, check, card, c32, u64,
+                      active=False):
     """One step of `reference_check`'s rule: `card` and `c32` are the
     (commands, diagnostics) of the card and of the CPU float32 path, `u64`
-    the CPU float64 commands.  Returns the record and the rules broken."""
+    the CPU float64 commands.  `active` (HJI rows active in the QPs): the
+    share of vehicles outside the bare bar may also reach twice the CPU
+    float32 path's own share, where that is larger than
+    REF_OUTSIDE_MAX.  Returns the record and the rules broken."""
     (ug, dg_), (u32, d32) = card, c32
     bar = torch.tensor([2e-4, 2.0, 2.0], dtype=torch.float64)
     dg = (ug.cpu().double() - u64).abs()
@@ -1284,6 +1363,8 @@ def reference_verdict(torch, sparse, check, card, c32, u64):
                gap32_abs=gap.amax(dim=0).tolist(),
                max_excess=float((dg - allowed).max()),
                outside_bar=float((dg > bar).any(dim=-1).double().mean()),
+               outside_bar32=float((gap > bar).any(dim=-1).double()
+                                   .mean()),
                iters_diff=int((it_g - it_c).abs().max()),
                iters_mean=[float(it_g.mean()), float(it_c.mean())],
                converged=[float(conv_g.double().mean()),
@@ -1296,12 +1377,42 @@ def reference_verdict(torch, sparse, check, card, c32, u64):
                 and rec["iters_diff"] <= check)
     broken = [name for name, ok in (
         ("commands", rec["max_excess"] <= 0.0),
-        ("outside_bar", rec["outside_bar"] <= REF_OUTSIDE_MAX),
+        ("outside_bar", rec["outside_bar"] <= max(
+            REF_OUTSIDE_MAX, 2.0 * rec["outside_bar32"] if active else 0.0)),
         ("iterations", same)) if not ok]
     return rec, broken
 
 
-def reference_check(torch, formulation="coupled", device="cuda"):
+def hji_flags(torch, eps, dg, d32, d64):
+    """The card's HJI flags (diagnostics `dg`) against the CPU float64
+    path's (`d64`).  Both packages interpolate V in float32 whatever the
+    state's dtype, so a flag may differ where V lies at eps within that
+    rounding: where |V64 - eps| <= 2 |V32 - V64|, V32 the CPU float32
+    path's value.  Such vehicles, at most FLAG_NEAR_MAX of the batch,
+    are left out of the command rule; a flag that differs elsewhere fails.
+    Returns (the mask of the vehicles kept, a record)."""
+    fg, f64 = dg.hji_active.cpu(), d64.hji_active
+    V64, V32 = d64.V_hji.double(), d32.V_hji.double()
+    differ = fg != f64
+    near = (V64 - eps).abs() <= 2.0 * (V32 - V64).abs()
+    rec = dict(active_card=int(fg.sum()), active_cpu64=int(f64.sum()),
+               flags_near_eps=int((differ & near).sum()))
+    require(not bool((differ & ~near).any()),
+            f"HJI flags of the card and the CPU differ away from eps: {rec}")
+    require(rec["flags_near_eps"] <= FLAG_NEAR_MAX * fg.numel(),
+            f"too many HJI flags differ near eps: {rec}")
+    return ~differ, rec
+
+
+def take(pair, keep):
+    """(commands, diagnostics) of the vehicles in the CPU mask `keep`."""
+    u, d = pair
+    k = lambda x: x[keep.to(x.device)]
+    return k(u), type(d)(*[k(x) for x in d])
+
+
+def reference_check(torch, formulation="coupled", device="cuda",
+                    cache=None):
     """A B_REF-vehicle fleet stepped on the card; each step is also run on
     the CPU (plain versions) from the card's state, at float64 (the path
     the CPU tests hold against the JAX package) and at float32.
@@ -1332,31 +1443,59 @@ def reference_check(torch, formulation="coupled", device="cuda"):
     iterations (within one segment).  That rule is run on every fleet
     placement of REF_SEEDS, and on the first it must reject the
     REF_CONTROLS so marked: the card's step from the same state with a
-    solver option a port could get wrong."""
+    solver option a port could get wrong.
+
+    With `cache` (an HJI cache on `device`), the active-row check: the
+    other car comes head-on ACTIVE_GAP ahead of each vehicle
+    (`make_setup`), on the first placement only and without controls;
+    the CPU paths step with the same cache, and a vehicle whose HJI flag
+    differs from the CPU float64 path's is left out of the rule where
+    `hji_flags` allows it."""
     sparse = formulation == "sparse"
+    active = cache is not None
+    cpu_cache = cache_to(cache, "cpu") if active else None
     seeds = []
-    for seed in REF_SEEDS[formulation]:
+    for seed in REF_SEEDS[formulation][:1 if active else None]:
         gpu = make_setup(torch, B_REF, device, formulation=formulation,
-                         seed=seed)
+                         seed=seed, cache=cache)
+        if active and not sparse:
+            # bench.py's single 150-iteration segment leaves the active
+            # rows' QPs unconverged: the Monte-Carlo path's solver
+            gpu["cfg"] = dataclasses.replace(
+                gpu["cfg"], solver=montecarlo_config().solver)
         solver = gpu["cfg"].solver
-        check = solver.check_every if sparse else solver.pallas_check_inner
+        check = (solver.check_every if sparse or solver.max_iter
+                 > solver.check_every else solver.pallas_check_inner)
         controls = {
             name: dataclasses.replace(gpu["cfg"], solver=dataclasses.replace(
                 solver, **change))
             for name, (change, _) in REF_CONTROLS.items()
-            if sparse and seed == REF_SEEDS[formulation][0]}
+            if sparse and not active and seed == REF_SEEDS[formulation][0]}
         rejected = {name: [] for name in controls}
         steps = []
         for i in range(3):
-            c32 = copy_state(torch, gpu, "cpu", torch.float32)
-            c64 = copy_state(torch, gpu, "cpu", torch.float64)
+            c32 = copy_state(torch, gpu, "cpu", torch.float32,
+                             cache=cpu_cache)
+            c64 = copy_state(torch, gpu, "cpu", torch.float64,
+                             cache=cpu_cache)
             ctl = {name: copy_state(torch, gpu, device, torch.float32, cfg)
                    for name, cfg in controls.items()}
             card = closed_loop_step(torch, gpu)
             cpu32 = closed_loop_step(torch, c32)
-            u64 = closed_loop_step(torch, c64)[0]
+            u64, d64 = closed_loop_step(torch, c64)
+            flags = {}
+            if active:
+                keep, flags = hji_flags(torch, gpu["cfg"].hji_eps, card[1],
+                                        cpu32[1], d64)
+                require(i > 0 or flags["active_cpu64"] > 0,
+                        f"no active HJI row ({formulation}): {flags}")
+                card, cpu32, u64 = (take(card, keep), take(cpu32, keep),
+                                    u64[keep])
+            # the sparse rule as it stands; the soft QP's outside-the-bar
+            # share scales with the CPU float32 path's (`reference_verdict`)
             rec, broken = reference_verdict(torch, sparse, check, card,
-                                            cpu32, u64)
+                                            cpu32, u64, active and not sparse)
+            rec.update(flags)
             require(not broken, f"card vs CPU ({formulation}, seed {seed}, "
                                 f"step {i}): {broken} {rec}")
             for name, st in ctl.items():
@@ -1474,6 +1613,215 @@ def simulate_reference_check(torch, formulation: str, log):
                   == logs[torch.float32].diag.converged).all()),
             f"card simulate converged flags vs CPU float32: {rec}")
     return rec
+
+
+# ---------------------------------------------------------------------------
+# The Monte-Carlo safety study: montecarlo.run_dynamic_obstacle
+# ---------------------------------------------------------------------------
+
+def montecarlo_config():
+    """scripts/exp_safety_ab.py's hammer_eps1.5 arm: the soft coupled QP
+    with the HJI row (use_hji, the default) and its override, on the lane
+    solver with that script's options."""
+    from pigeon_tpu_torch import mpc
+    from pigeon_tpu_torch.config import SolverOptions
+
+    return mpc.x1_coupled_config(soft=True, use_hji_policy=True,
+                                 hji_eps=MC_EPS,
+                                 solver=SolverOptions(**MC_SOLVER))
+
+
+def run_montecarlo(torch, kernels, device="cuda"):
+    """`montecarlo.run_dynamic_obstacle` on the card: B_MC scenarios of
+    MC_SCENARIOS for MC_STEPS steps with the mid cache, read through
+    `hji_solve.load_cache`.  The launch counters are set to 0 just before
+    the run and read just after: every step must launch the kernels of
+    PATH_KERNELS["montecarlo"] (vanloan once, chol_inverse once and once
+    more per refactor, admm_iterations once per segment) and no other.
+    The run must keep every command finite, find the filter active on
+    some steps and apply the override there (the steering at its limit).
+    A recording controller keeps each step's launches and, for the
+    kernel checks, the inputs of the first step that refactors with an
+    active row (the last chol_inverse and admm_iterations calls of that
+    step).  Then `certify_avoidable` on the same scenarios, timed, and
+    torch.profiler over one more step.  Returns (record, context)."""
+    from pigeon_tpu_torch import hji, hji_solve
+    from pigeon_tpu_torch import montecarlo as mc
+    from pigeon_tpu_torch import trajectory
+
+    t0 = time.perf_counter()
+    cache = hji_solve.load_cache(MC_CACHE, device=device)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    tube = trajectory.make_tube(**trajectory.oval_columns(), pad_to=1024,
+                                device=device)
+    cfg = montecarlo_config()
+    scen = mc.sample_scenarios(tube, B_MC, **MC_SCENARIOS)
+    V0, _ = hji.interpolate(cache, hji.relative_state(scen.q0, scen.other0))
+
+    base = mc.BatchedController
+    per_step, rollouts, capture = [], [], {}
+
+    class Recording(base):
+        def step(self, state, other_car=None, t=0.0):
+            before = kernels.launches()
+            out = []
+            run = lambda: out.append(base.step(self, state, other_car, t))
+            if capture:
+                run()
+            else:
+                seen = capture_kernel_inputs(run, last=True)
+            grew = {k: v - before[k] for k, v in kernels.launches().items()}
+            per_step.append(grew)
+            if (not capture and grew["chol_inverse"] > 1
+                    and bool(out[0][1].hji_active.any())):
+                capture.update(seen, step=len(per_step) - 1)
+            return out[0]
+
+        def rollout(self, *a, **kw):
+            out = base.rollout(self, *a, **kw)
+            rollouts.append(out)
+            return out
+
+    mc.BatchedController = Recording
+    try:
+        kernels.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        summary, per = mc.run_dynamic_obstacle(cfg, tube, cache, scen,
+                                               n_steps=MC_STEPS,
+                                               per_scenario=True)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launched = kernels.launches()
+    finally:
+        mc.BatchedController = base
+
+    expect = PATH_KERNELS["montecarlo"]
+    require(all((v > 0) == (k in expect) for k, v in launched.items())
+            and all(all((g[k] > 0) == (k in expect) for k in g)
+                    for g in per_step)
+            and launched["vanloan"] == MC_STEPS,
+            f"montecarlo launches {launched}, expected exactly {expect} "
+            f"on each of {MC_STEPS} steps")
+    state, (q_log, u_log, oc_log, diag) = rollouts[0]
+    require(all(x.device == cache.V.device
+                for x in (u_log, diag.V_hji, state.carry.warm_x)),
+            "montecarlo: an output left the card")
+    require(summary.controls_finite, "montecarlo: a command is not finite")
+    require(summary.hji_active_frac > 0.0,
+            "montecarlo: the HJI filter was never active")
+    act = diag.hji_active
+    overridden = int(act.sum())
+    require(overridden > 0 and bool(
+        (u_log[..., 0][act].abs() == cfg.veh.delta_max).all()),
+        f"montecarlo: {overridden} active steps, the override not applied")
+    require("chol_inverse" in capture,
+            "montecarlo: no step refactored with an active HJI row")
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cert, best = mc.certify_avoidable(cfg.veh, scen, n_steps=MC_CERT_STEPS)
+    cert_frac = float(cert.float().mean())
+    cert_s = time.perf_counter() - t0
+    collided = per.collided
+    share = lambda m: (float(collided[m].float().mean()) if bool(m.any())
+                       else None)
+    fin = torch.isfinite(V0)
+    V0f = V0[fin].double().cpu().numpy()
+    segs = np.array([g["admm_iterations"] for g in per_step])
+    facs = np.array([g["chol_inverse"] for g in per_step])
+    rec = dict(
+        batch=B_MC, steps=MC_STEPS, cache=MC_CACHE,
+        cache_dims=list(cache.dims), cache_load_s=load_s,
+        cache_mb=dict(V=cache.V.numel() * 4 / 1e6,
+                      gradV=cache.gradV.numel() * 4 / 1e6),
+        hji_eps=MC_EPS, scenarios=MC_SCENARIOS,
+        V_start=dict(in_grid=float(fin.float().mean()),
+                     at_most_eps=float((V0 <= MC_EPS).float().mean()),
+                     p10_p50_p90=np.percentile(V0f, [10, 50, 90]).tolist()),
+        summary=summary._asdict(),
+        collision_frac_certified=share(cert),
+        collision_frac_uncertified=share(~cert),
+        certified_frac=cert_frac, certify_s=cert_s,
+        certify_steps=MC_CERT_STEPS,
+        overrides=overridden, override_share=overridden / act.numel(),
+        wall_s=wall, wall_ms_step=wall / MC_STEPS * 1e3,
+        segments_per_step=dict(mean=float(segs.mean()), max=int(segs.max())),
+        chol_inverse_per_step=dict(mean=float(facs.mean()),
+                                   max=int(facs.max()),
+                                   steps_refactoring=int((facs > 1).sum())),
+        iters_mean=float(diag.iterations.float().mean()),
+        capture_step=capture.pop("step"), launches=launched)
+    # one more step from where the rollout ended
+    ctrl = base(cfg, tube, cache)
+    oc, t_next = ctrl.advance_other(oc_log[-1]), scen.t0 + MC_STEPS * DT
+    prof = profile_call(torch, lambda: ctrl.step(state, oc, t_next))
+    return rec, dict(cfg=cfg, tube=tube, cache=cache, scen=scen, V0=V0,
+                     capture=capture, profile=prof)
+
+
+def reference_montecarlo(torch, ctx):
+    """The card's Monte-Carlo rollout against the CPU, by the rule of
+    `reference_check`: the MC_REF_B scenarios of least start value (the
+    rule fixed before any rollout), MC_REF_STEPS steps of the card's
+    controller; each step is also run on the CPU from the card's state
+    (the same cache copied there) at float64 and float32.  Per step:
+    `hji_flags` (a vehicle whose flag differs within float32
+    interpolation noise of eps is left out of the rest), then
+    `reference_verdict` with executed iterations within one segment
+    (twelve segments with adaptive-rho refactors move a float32 exit by
+    more than one inner check), and every command the override made on
+    both the card and the CPU float64 path equal to the latter's to 1e-5
+    relative."""
+    from pigeon_tpu_torch import montecarlo as mc
+    from pigeon_tpu_torch import trajectory
+    from pigeon_tpu_torch.parallel.mesh import BatchState
+
+    cfg, scen = ctx["cfg"], ctx["scen"]
+    idx = torch.argsort(ctx["V0"])[:MC_REF_B]
+    sub = mc.ScenarioSet(*[t[idx] for t in scen])
+    card = mc.BatchedController(cfg, ctx["tube"], ctx["cache"])
+    cpu_cache = cache_to(ctx["cache"], "cpu")
+    cpu = {dt: mc.BatchedController(
+        cfg, trajectory.make_tube(**trajectory.oval_columns(), pad_to=1024,
+                                  device="cpu", dtype=dt), cpu_cache)
+        for dt in (torch.float32, torch.float64)}
+    conv = lambda x, dt: (x.to(device="cpu", dtype=dt)
+                          if x.is_floating_point() else x.cpu())
+
+    def on_cpu(st, dt):
+        return BatchState(carry=type(st.carry)(*[conv(x, dt)
+                                                 for x in st.carry]),
+                          q=conv(st.q, dt), u=conv(st.u, dt))
+
+    state = card.init_state(sub.q0)
+    oc, t = sub.other0, sub.t0
+    steps = []
+    for i in range(MC_REF_STEPS):
+        outs = {dt: c.step(on_cpu(state, dt), conv(oc, dt), conv(t, dt))
+                for dt, c in cpu.items()}
+        state, dg = card.step(state, oc, t)
+        (s32, d32), (s64, d64) = (outs[torch.float32],
+                                  outs[torch.float64])
+        keep, flags = hji_flags(torch, cfg.hji_eps, dg, d32, d64)
+        both = keep & d64.hji_active
+        dev = (state.u.cpu().double() - s64.u)[both].abs()
+        over_rel = float((dev / s64.u[both].abs().clamp(min=1e-30))
+                         .max()) if bool(both.any()) else 0.0
+        require(bool((dev <= 1e-5 * s64.u[both].abs()).all()),
+                f"montecarlo step {i}: an overridden command differs from "
+                f"the CPU float64 one by {over_rel} relative")
+        rec, broken = reference_verdict(
+            torch, False, MC_SOLVER["check_every"],
+            take((state.u, dg), keep), take((s32.u, d32), keep),
+            s64.u[keep], active=True)
+        require(not broken, f"montecarlo card vs CPU, step {i}: {broken} "
+                            f"{rec}")
+        steps.append(dict(step=i, overridden_rel=over_rel, **flags, **rec))
+        oc, t = card.advance_other(oc), t + DT
+    return dict(batch=MC_REF_B, V_start=ctx["V0"][idx].tolist(),
+                steps=steps)
 
 
 def main() -> int:
@@ -1613,6 +1961,21 @@ def main() -> int:
         log(phase="profile", path="simulate", formulation=formulation,
             batch=1, **prof)
 
+    # ---- path: the Monte-Carlo safety study ------------------------------
+    mc_rec, mc_ctx = run_montecarlo(torch, kernels)
+    launches["montecarlo"] = mc_rec.pop("launches")
+    log(phase="montecarlo", **mc_rec)
+    log(phase="profile", path="montecarlo", batch=B_MC, **mc_ctx["profile"])
+    # the Cholesky inverse after a refactor, and the last ADMM segment, of
+    # a Monte-Carlo step with active HJI rows
+    for kname in ("chol_inverse", "admm_iterations"):
+        args, kw = mc_ctx["capture"][kname]
+        second[f"{kname}_montecarlo"] = KERNEL_META[kname][2](torch, args,
+                                                              kw)
+        log_check(kname, second[f"{kname}_montecarlo"], path="montecarlo",
+                  step=mc_rec["capture_step"])
+    del mc_ctx["capture"]
+
     main_launches = {k: sum(per[k] for per in launches.values())
                      for k in KERNEL_META}
     require(all(v > 0 for v in main_launches.values()), main_launches)
@@ -1624,6 +1987,17 @@ def main() -> int:
     for formulation, sim_log in sim_logs.items():
         log(phase="reference_simulate",
             **simulate_reference_check(torch, formulation, sim_log))
+    # active HJI rows on both coupled steps, and the Monte-Carlo rollout
+    for formulation in ("coupled", "sparse"):
+        t0 = time.perf_counter()
+        rec = reference_check(torch, formulation, cache=mc_ctx["cache"])
+        log(phase="reference_active", formulation=formulation, batch=B_REF,
+            cache=MC_CACHE, seconds=time.perf_counter() - t0, **rec)
+    t0 = time.perf_counter()
+    rec = reference_montecarlo(torch, mc_ctx)
+    log(phase="reference_montecarlo", seconds=time.perf_counter() - t0,
+        **rec)
+    del mc_ctx
 
     # ---- B=1 latency ------------------------------------------------------
     recs1, st1 = run_fleet(torch, 1, B1_STEPS, kernels)
@@ -1644,6 +2018,7 @@ def main() -> int:
                                      for ph, per in launches.items()})
         others = dict(fleet_decoupled=second.get(k),
                       fleet_sparse=second.get(f"{k}_sparse"),
+                      montecarlo=second.get(f"{k}_montecarlo"),
                       decoupled_step=r.get("decoupled_step"),
                       fleet_stack=r.get("fleet_stack"))
         keys = ("shapes", "err", "ms", "plain_ms", "bound_ms", "bound_by",

@@ -2,7 +2,8 @@
 
 Each function takes numpy arrays (the caller applies `np.asarray` to the
 JAX objects' fields) and builds the port's counterpart on a chosen device,
-so a tube, an HJI cache or a fleet's controller state can move from one
+so a tube, an HJI cache, a fleet's controller state, a Monte-Carlo
+scenario set or a batched closed-loop state can move from one
 implementation to the other without this package importing either JAX or
 `pigeon_tpu`.
 """
@@ -16,7 +17,9 @@ import torch
 
 from pigeon_tpu_torch import resolve_device
 from pigeon_tpu_torch.hji import HJICache
+from pigeon_tpu_torch.montecarlo import ScenarioSet
 from pigeon_tpu_torch.mpc import MPCCarry, SimLog, StepDiagnostics
+from pigeon_tpu_torch.parallel.mesh import BatchState
 from pigeon_tpu_torch.trajectory import (COLUMNS, LookupIndex,
                                          TrajectoryTube, tube_from_columns)
 
@@ -83,3 +86,21 @@ def simlog_from_numpy(arrays: Mapping, device=None,
     return SimLog(q=as_f(arrays["q"]), u=as_f(arrays["u"]),
                   diag=_fields_from_numpy(StepDiagnostics, arrays["diag"],
                                           device, dtype))
+
+
+def scenarios_from_numpy(arrays: Mapping, device=None,
+                         dtype=torch.float32) -> ScenarioSet:
+    """`arrays`: the `ScenarioSet` fields q0 (B, 6), other0 (B, 4), t0
+    (B,)."""
+    return _fields_from_numpy(ScenarioSet, arrays, resolve_device(device),
+                              dtype)
+
+
+def batch_state_from_numpy(arrays: Mapping, device=None,
+                           dtype=torch.float32) -> BatchState:
+    """`arrays`: `carry`, a mapping of the `MPCCarry` fields, and the
+    plant states `q` (B, 6) and commands `u` (B, 3)."""
+    device = resolve_device(device)
+    as_f = lambda v: torch.as_tensor(np.array(v), dtype=dtype, device=device)
+    return BatchState(carry=carry_from_numpy(arrays["carry"], device, dtype),
+                      q=as_f(arrays["q"]), u=as_f(arrays["u"]))

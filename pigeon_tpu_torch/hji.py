@@ -229,3 +229,42 @@ def reachability_constraint(veh: VehicleParams, cache: HJICache, x7,
     M = torch.where(active[..., None], M_act, torch.zeros_like(M_act))
     b = torch.where(active, b_act, torch.ones_like(b_act))
     return M, b, V, gradV
+
+
+# ---------------------------------------------------------------------------
+# Synthetic value function (the no-asset stand-in of the JAX package)
+# ---------------------------------------------------------------------------
+
+def _analytic_value(x7, margin: float = 3.0, horizon: float = 1.0):
+    """Smooth collision-proximity surrogate of one relative state (7,):
+    the soft minimum of the predicted separation (constant-velocity
+    extrapolation over `horizon`) minus a margin."""
+    dE, dN, dpsi, Ux, Uy, V, r = x7.unbind(-1)
+    rvx = V * torch.cos(dpsi) - Ux
+    rvy = V * torch.sin(dpsi) - Uy
+    taus = torch.linspace(0.0, horizon, 8, dtype=x7.dtype, device=x7.device)
+    d2 = (dE + rvx * taus) ** 2 + (dN + rvy * taus) ** 2
+    dmin = -torch.logsumexp(-torch.sqrt(d2 + 1e-6) * 2.0, dim=-1) / 2.0
+    return dmin - margin
+
+
+def synthetic_cache(n_per_dim: int = 5, device=None) -> HJICache:
+    """A coarse 7-D grid of `_analytic_value` and its gradient, computed
+    in float64 on the host (`torch.func.grad` under `vmap`), then stored
+    as `make_cache` stores any grid."""
+    knots = [
+        np.linspace(-20.0, 20.0, n_per_dim),    # dE
+        np.linspace(-20.0, 20.0, n_per_dim),    # dN
+        np.linspace(-np.pi, np.pi, n_per_dim),  # dpsi
+        np.linspace(1.0, 20.0, n_per_dim),      # Ux
+        np.linspace(-3.0, 3.0, n_per_dim),      # Uy
+        np.linspace(0.0, 20.0, n_per_dim),      # V
+        np.linspace(-1.5, 1.5, n_per_dim),      # r
+    ]
+    grids = np.meshgrid(*knots, indexing="ij")
+    pts = torch.as_tensor(np.stack([g.ravel() for g in grids], axis=-1),
+                          dtype=torch.float64)
+    V = torch.func.vmap(_analytic_value)(pts).numpy()
+    G = torch.func.vmap(torch.func.grad(_analytic_value))(pts).numpy()
+    return make_cache(knots, V.reshape([n_per_dim] * 7),
+                      G.reshape([n_per_dim] * 7 + [7]), device=device)

@@ -7,7 +7,7 @@ Counterpart of `pigeon_tpu/mpc.py` for the soft condensed formulations,
 coupled and decoupled, and the sparse (hard-constraint) coupled
 formulation: path projection, node seeding, HJI constraint, exact
 linearization and QP assembly, the ADMM solve, control extraction,
-clamping and NaN fallback.  Every tensor carries a leading
+clamping, NaN fallback and the HJI override.  Every tensor carries a leading
 batch dimension where the JAX package used `vmap`, and each `lax.scan`
 over stages is a Python loop.
 
@@ -97,8 +97,6 @@ def _check_supported(cfg: MPCConfig):
     if cfg.lin_substeps != 1:
         unsupported.append("lin_substeps (the rk4 linearization's substeps) "
                            "is not ported")
-    if cfg.use_hji_policy:
-        unsupported.append("the HJI override (use_hji_policy) is not ported")
     if cfg.formulation == "coupled" and cfg.coupled.use_walls:
         unsupported.append("wall rows (use_walls) are not ported")
     if unsupported:
@@ -390,6 +388,8 @@ class _PreAux(NamedTuple):
     s0: torch.Tensor
     e0: torch.Tensor
     V_hji: torch.Tensor
+    gradV: torch.Tensor    # (B, 7) the value gradient at x_rel
+    x_rel: torch.Tensor    # (B, 7) the HJI relative state
     us: torch.Tensor
     q0_node: torch.Tensor
     G: "torch.Tensor | None" = None   # soft: the rollout map
@@ -412,15 +412,17 @@ def _pre_solve(cfg: MPCConfig, tube, cache, carry: MPCCarry, q0, u0,
     ts, dt = compute_time_steps(hz, t)
     s0, e0, _ = trj.path_coordinates(tube, q0[:, :2])
     Bn = q0.shape[0]
+    x_rel = hji_mod.relative_state(q0, other_car)
+    # (V, gradV) where no HJI row is built
+    no_hji = (torch.full((Bn,), torch.inf, dtype=q0.dtype,
+                         device=q0.device), torch.zeros_like(x_rel))
 
     if cfg.formulation == "decoupled":
         qs, us, ps = _nodes_decoupled(cfg, tube, q0, u0, ts, dt, s0, e0)
-        V_hji = torch.full((Bn,), torch.inf, dtype=q0.dtype,
-                           device=q0.device)
         data = qp_decoupled.DecoupledStageData(dt=dt, qs=qs, us=us, ps=ps)
         sqp = qp_decoupled.build_qp_soft(veh, cfg.decoupled, hz, data,
                                          unbatched=unbatched)
-        return _pack_pre(carry, sqp, ts, s0, e0, V_hji, us, qs)
+        return _pack_pre(carry, sqp, ts, s0, e0, *no_hji, x_rel, us, qs)
 
     cold = _nodes_coupled_cold(cfg, tube, q0, u0, ts, dt, s0, e0)
     if cfg.warm_nodes:
@@ -431,9 +433,8 @@ def _pre_solve(cfg: MPCConfig, tube, cache, carry: MPCCarry, q0, u0,
         qs, us, ps = cold
 
     u_lin = torch.stack([u0[:, 0], u0[:, 1] + u0[:, 2]], dim=-1)
-    x_rel = hji_mod.relative_state(q0, other_car)
     if cfg.coupled.use_hji:
-        M, b, V_hji, _ = hji_mod.reachability_constraint(
+        M, b, V_hji, gradV = hji_mod.reachability_constraint(
             veh, cache, x_rel, cfg.hji_eps, u_lin)
         if cfg.hji_row_normalize:
             # unit-normalize in the normalized-u metric and clamp the bound
@@ -452,21 +453,21 @@ def _pre_solve(cfg: MPCConfig, tube, cache, carry: MPCCarry, q0, u0,
     else:
         M = torch.zeros_like(q0[:, :2])
         b = torch.ones_like(q0[:, 0])
-        V_hji = torch.full((Bn,), torch.inf, dtype=q0.dtype,
-                           device=q0.device)
+        V_hji, gradV = no_hji
 
     data = CoupledStageData(dt=dt, qs=qs, us=us, ps=ps, hji_M=M, hji_b=b)
     if _sparse(cfg):
         qp = qp_coupled.build_qp(veh, cfg.coupled, hz, data,
                                  lin_method=cfg.lin_method,
                                  unbatched=unbatched)
-        return _pack_pre(carry, qp, ts, s0, e0, V_hji, us, qs)
+        return _pack_pre(carry, qp, ts, s0, e0, V_hji, gradV, x_rel, us, qs)
     sqp = qp_condensed.build_qp_soft(veh, cfg.coupled, hz, data,
                                      unbatched=unbatched)
-    return _pack_pre(carry, sqp, ts, s0, e0, V_hji, us, qs)
+    return _pack_pre(carry, sqp, ts, s0, e0, V_hji, gradV, x_rel, us, qs)
 
 
-def _pack_pre(carry: MPCCarry, sqp, ts, s0, e0, V_hji, us, qs):
+def _pack_pre(carry: MPCCarry, sqp, ts, s0, e0, V_hji, gradV, x_rel, us,
+              qs):
     """The solver's inputs from an assembled QP (a soft QP, or the sparse
     QP as QPData): (QPData, warm start masked by `carry.solved`,
     _PreAux)."""
@@ -478,7 +479,8 @@ def _pack_pre(carry: MPCCarry, sqp, ts, s0, e0, V_hji, us, qs):
         y=torch.where(solved[:, None], carry.warm_y, 0.0),
         z=torch.where(solved[:, None], carry.warm_z, 0.0),
         rho_scale=torch.where(solved, carry.warm_rho, 1.0))
-    aux = _PreAux(ts=ts, s0=s0, e0=e0, V_hji=V_hji, us=us, q0_node=qs[:, 0])
+    aux = _PreAux(ts=ts, s0=s0, e0=e0, V_hji=V_hji, gradV=gradV,
+                  x_rel=x_rel, us=us, q0_node=qs[:, 0])
     if soft:
         aux = aux._replace(G=sqp.G, g=sqp.g, w=sqp.w)
     return qp, warm_start, aux
@@ -486,7 +488,8 @@ def _pack_pre(carry: MPCCarry, sqp, ts, s0, e0, V_hji, us, qs):
 
 def _post_solve(cfg: MPCConfig, carry: MPCCarry, q0, sol: QPSolution,
                 aux: _PreAux):
-    """Control extraction, clamping, NaN fallback and carry update."""
+    """Control extraction, clamping, NaN fallback, the HJI override and
+    the carry update."""
     veh, hz = cfg.veh, cfg.hz
     if _sparse(cfg):
         u2 = qp_coupled.extract_control(veh, hz, sol.x)
@@ -509,13 +512,23 @@ def _post_solve(cfg: MPCConfig, carry: MPCCarry, q0, sol: QPSolution,
                            torch.zeros_like(u3), carry.current_control)
     u3_out = torch.where(finite[:, None], u3, fallback)
     hji_active = aux.V_hji <= cfg.hji_eps
+    overridden = torch.zeros_like(hji_active)
+    if cfg.formulation == "coupled" and cfg.use_hji_policy:
+        # the "hammer": where V <= eps the published command is the HJI
+        # optimal control, and the carry is marked unsolved so that the
+        # next step seeds cold nodes and a cold solver start
+        u2_opt = hji_mod.optimal_control(veh, aux.x_rel, aux.gradV)
+        Fxf_o, Fxr_o = dyn.longitudinal_split(veh, u2_opt[:, 1])
+        u3_opt = torch.stack([u2_opt[:, 0], Fxf_o, Fxr_o], dim=-1)
+        u3_out = torch.where(hji_active[:, None], u3_opt, u3_out)
+        overridden = hji_active
 
     f1, f2 = finite[:, None], finite[:, None, None]
     new_carry = MPCCarry(
         prev_ts=aux.ts,
         q_prev=torch.where(f2, q_sol, carry.q_prev),
         u_prev=torch.where(f2, u_sol, carry.u_prev),
-        solved=finite,
+        solved=finite & ~overridden,
         warm_x=torch.where(f1, sol.x, 0.0),
         warm_y=torch.where(f1, sol.y, 0.0),
         warm_z=torch.where(f1, sol.z, 0.0),

@@ -5,7 +5,12 @@ options, one cold step then one warm step.
 
 Commands agree within the solver-tolerance bar of tests/test_soft.py
 (2e-4 rad on delta, 2.0 N on the forces); `converged` is equal; iteration
-counts differ by at most one check period; the carries agree."""
+counts differ by at most one check period; the carries agree.
+
+The HJI override ("hammer", `use_hji_policy`): the same two steps with an
+active HJI row (the synthetic cache, the other car a few metres ahead,
+head-on), on the fleet route and on the unbatched `mpc_step` and
+`simulate`."""
 
 import dataclasses
 
@@ -129,11 +134,11 @@ def test_carry_matches(steps, k):
 
 @pytest.mark.parametrize("change", [
     dict(lin_substeps=2), dict(coupled=TCP(use_walls=True)),
-    dict(lin_method="rk4"), dict(use_hji_policy=True),
+    dict(lin_method="rk4"),
     dict(soft=False, condensed=True),
     dict(formulation="decoupled", soft=False),
     dict(formulation="lateral")],
-    ids=["lin_substeps", "walls", "lin_method", "hji_policy", "hard",
+    ids=["lin_substeps", "walls", "lin_method", "hard",
          "decoupled_hard", "unknown_formulation"])
 def test_unported_options_raise(change):
     cfg = dataclasses.replace(TM.x1_coupled_config(soft=True), **change)
@@ -144,3 +149,139 @@ def test_unported_options_raise(change):
 def test_sim_substeps_is_supported():
     cfg = dataclasses.replace(TM.x1_coupled_config(soft=True), sim_substeps=2)
     assert TM.init_carry(cfg, 2, device="cpu").q_prev.shape == (2, 16, 6)
+
+
+# ---------------------------------------------------------------------------
+# The HJI override
+# ---------------------------------------------------------------------------
+
+def _hammer_case():
+    """The short-horizon fleet of tests/test_soft.py on the straight path;
+    vehicles 0 and 1 with the other car 4 m ahead, head-on (inside the
+    synthetic grid, V < 0), vehicle 2 with it 30 m ahead (outside the
+    grid, V = inf, never overridden)."""
+    q0 = np.stack([[0.2 * i, 0.3 * i, 0.01, 5.0, 0.05, 0.0]
+                   for i in range(3)])
+    oc = np.array([[0.0, 4.0, np.pi, 8.0], [0.7, 4.3, np.pi, 6.0],
+                   [0.4, 30.6, np.pi, 8.0]])
+    return q0, oc
+
+
+@pytest.fixture(scope="module")
+def hammer_steps():
+    q0, oc = _hammer_case()
+    B = q0.shape[0]
+    u0, t0 = np.zeros((B, 3)), np.zeros(B)
+    jtube = JT.straight_trajectory(60.0, 5.0, pad_to=32)
+    jcache = JH.synthetic_cache(5)
+    jcfg = dataclasses.replace(
+        JM.x1_coupled_config(hz=JHP(N_short=2, N_long=3), soft=True),
+        solver=JSO(**BENCH), use_hji_policy=True)
+    carry = JM.init_carry(jcfg, dtype=jnp.float64)
+    jc = jax.tree.map(lambda x: jnp.broadcast_to(x, (B,) + x.shape), carry)
+    J = lambda a: jnp.asarray(a)
+    jstep = jax.jit(lambda c, q, u, t: JM.mpc_step_batched(
+        jcfg, jtube, jcache, c, q, u, J(oc), t))
+    jc1, ju1, jd1 = jstep(jc, J(q0), J(u0), J(t0))
+    jc2, ju2, jd2 = jstep(jc1, J(q0), ju1, J(t0) + 0.01)
+
+    tcfg = dataclasses.replace(
+        TM.x1_coupled_config(hz=THP(N_short=2, N_long=3), soft=True),
+        solver=TSO(**BENCH), use_hji_policy=True)
+    ttube = convert.tube_from_numpy(tube_arrays(jtube), device="cpu",
+                                    dtype=F64)
+    tcache = convert.cache_from_numpy(cache_arrays(jcache), device="cpu")
+    tc = TM.init_carry(tcfg, B, dtype=F64, device="cpu")
+    tc1, tu1, td1 = TM.mpc_step_batched(tcfg, ttube, tcache, tc, t64(q0),
+                                        t64(u0), t64(oc), t64(t0))
+    tc2, tu2, td2 = TM.mpc_step_batched(tcfg, ttube, tcache, tc1, t64(q0),
+                                        tu1, t64(oc), t64(t0) + 0.01)
+    return dict(jax=[(jc1, ju1, jd1), (jc2, ju2, jd2)],
+                port=[(tc1, tu1, td1), (tc2, tu2, td2)])
+
+
+@pytest.mark.parametrize("k", [0, 1], ids=["cold", "warm"])
+def test_override_commands_match(hammer_steps, k):
+    ju = np.asarray(hammer_steps["jax"][k][1])
+    tu = hammer_steps["port"][k][1].numpy()
+    assert np.all(np.isfinite(tu))
+    d = np.abs(ju - tu)
+    assert d[:, 0].max() < 2e-4, d
+    assert d[:, 1:].max() < 2.0, d
+    # the overridden vehicles steer at the limit
+    np.testing.assert_allclose(np.abs(tu[:2, 0]),
+                               TM.x1_params().delta_max, rtol=1e-12)
+
+
+@pytest.mark.parametrize("k", [0, 1], ids=["cold", "warm"])
+def test_override_flags_match(hammer_steps, k):
+    (jc, _, jd), (tc, _, td) = hammer_steps["jax"][k], hammer_steps["port"][k]
+    active = td.hji_active.numpy()
+    np.testing.assert_array_equal(active, np.asarray(jd.hji_active))
+    np.testing.assert_array_equal(active, [True, True, False])
+    # an applied override leaves the carry unsolved (cold next step); the
+    # vehicle it did not touch stays warm
+    np.testing.assert_array_equal(tc.solved.numpy(), np.asarray(jc.solved))
+    np.testing.assert_array_equal(tc.solved.numpy(), ~active)
+    np.testing.assert_allclose(td.V_hji.numpy(), np.asarray(jd.V_hji),
+                               rtol=1e-6)
+
+
+def test_hammer_unbatched(x1):
+    """tests/test_modes.py's hammer case on the port's unbatched
+    `mpc_step` (the sparse coupled QP, as it comes): with the override the
+    command's steering is the HJI optimal control's, at the steering
+    limit; without it the QP's command is not at the limit."""
+    jtube = JT.straight_trajectory(60.0, 8.0, pad_to=32)
+    ttube = convert.tube_from_numpy(tube_arrays(jtube), device="cpu",
+                                    dtype=F64)
+    jcache = JH.synthetic_cache(5)
+    tcache = convert.cache_from_numpy(cache_arrays(jcache), device="cpu")
+    q0 = np.array([0.0, 0.0, 0.0, 8.0, 0.0, 0.0])
+    oc = np.array([0.0, 4.0, np.pi, 8.0])
+
+    def run(policy):
+        cfg = TM.x1_coupled_config(use_hji_policy=policy)
+        carry = TM.init_carry(cfg, None, dtype=F64, device="cpu")
+        return TM.mpc_step(cfg, ttube, tcache, carry, t64(q0),
+                           torch.zeros(3, dtype=F64), t64(oc), 0.0)
+
+    _, u_plain, _ = run(False)
+    c_hammer, u_hammer, d_hammer = run(True)
+    assert bool(d_hammer.hji_active) and not bool(c_hammer.solved)
+    x_rel = JH.relative_state(jnp.asarray(q0), jnp.asarray(oc))
+    _, g = JH.interpolate(jcache, x_rel)
+    u_opt = np.asarray(JH.optimal_control(x1, x_rel, g.astype(jnp.float64)))
+    np.testing.assert_allclose(float(u_hammer[0]), u_opt[0], atol=1e-9)
+    assert abs(float(u_hammer[0])) == pytest.approx(x1.delta_max)
+    assert abs(float(u_plain[0])) < x1.delta_max - 1e-3
+
+
+def test_hammer_simulate():
+    """`simulate` with the override on, five steps against a parked car 6
+    m ahead, head-on: the JAX package's commands (the bar of
+    tests/test_soft.py), states and filter flags."""
+    jtube = JT.straight_trajectory(60.0, 5.0, pad_to=32)
+    ttube = convert.tube_from_numpy(tube_arrays(jtube), device="cpu",
+                                    dtype=F64)
+    jcache = JH.synthetic_cache(5)
+    tcache = convert.cache_from_numpy(cache_arrays(jcache), device="cpu")
+    q0 = np.array([0.1, 0.2, 0.01, 5.0, 0.0, 0.0])
+    oc = np.array([0.3, 6.0, np.pi, 0.0])
+    jcfg = JM.x1_coupled_config(hz=JHP(N_short=2, N_long=3), soft=True,
+                                use_hji_policy=True)
+    tcfg = TM.x1_coupled_config(hz=THP(N_short=2, N_long=3), soft=True,
+                                use_hji_policy=True)
+    jlog = jax.jit(lambda q: JM.simulate(jcfg, jtube, jcache, q,
+                                         other_car=jnp.asarray(oc),
+                                         n_steps=5))(jnp.asarray(q0))
+    tlog = TM.simulate(tcfg, ttube, tcache, t64(q0), other_car=oc,
+                       n_steps=5, device="cpu")
+    active = tlog.diag.hji_active.numpy()
+    np.testing.assert_array_equal(active, np.asarray(jlog.diag.hji_active))
+    assert active[1:].all()
+    d = np.abs(tlog.u.numpy() - np.asarray(jlog.u))
+    assert d[:, 0].max() < 2e-4, d
+    assert d[:, 1:].max() < 2.0, d
+    np.testing.assert_allclose(tlog.q.numpy(), np.asarray(jlog.q),
+                               rtol=1e-9, atol=1e-7)

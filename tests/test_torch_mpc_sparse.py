@@ -243,7 +243,6 @@ def test_carry_round_trip_full_horizon():
 def test_unported_sparse_options_raise():
     cfg = TM.x1_coupled_config(hz=THP(N_short=2, N_long=3))
     for change in (dict(condensed=True), dict(lin_method="rk4"),
-                   dict(use_hji_policy=True),
                    dict(formulation="decoupled")):
         with pytest.raises(NotImplementedError):
             TM.init_carry(dataclasses.replace(cfg, **change), 2,
