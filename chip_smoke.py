@@ -31,7 +31,15 @@ Phases (any failure raises, so the script exits non-zero):
    the shared memory of a block (for the structured exponential and the
    Cholesky inverse the Python plan must match the kernel's own); the two
    ADMM kernels and the Ruiz kernel launch as thread block clusters.  The
-   ADMM kernels' bounds count A's nonzeros, not m n;
+   ADMM kernels' bounds count A's nonzeros, not m n.  The dense ADMM
+   kernel's dense-P mode and the Ruiz kernel are held the same way on the
+   inputs of the hard condensed fleet (a cold and a warm segment, a
+   ragged batch, horizon (4, 8)), with the split of its segment's time
+   measured from variants of the call (`dense_p_split`); the dense ADMM
+   kernel again at tile 1 on the calls of the unbatched condensed route
+   (B=1, no check, identity scalings: the cold step's first segment and
+   the second step's last, `check_admm_dense_tile1`); and its diagonal
+   mode on the sparse fleet's as before;
 4. path "fleet": the coupled soft MPC for a fleet of 8192 vehicles on an
    oval (x1_coupled_config(soft=True), N_short=5, N_long=10, the lane
    solver with bench.py's options), one cold step and 10 warm closed-loop
@@ -48,10 +56,20 @@ Phases (any failure raises, so the script exits non-zero):
    on the "pallas" solver with the banded factor, one cold and 10 warm
    steps; every step launches vanloan and ruiz once, and banded_chol and
    admm_dense 8 times (SPARSE_STEP_LAUNCHES);
+   path "fleet_condensed": the hard condensed coupled MPC
+   (x1_coupled_config(condensed=True), QPs of n=103, m=200, a dense P)
+   for 2048 vehicles on the sparse fleet's solver options, whose banded
+   factor falls through to the dense Cholesky for a dense P; one cold and
+   10 warm steps, each launching vanloan and ruiz once and admm_dense
+   (dense-P mode) once per solver segment;
 7. path "simulate": `mpc.simulate` for one vehicle on the card, 30
-   closed-loop steps per formulation -- the unbatched route, dense
+   closed-loop steps per soft formulation -- the unbatched route, dense
    linearization and `solve_qp` -- which launches expm_dense once per
-   step and no other kernel; then torch.profiler over 5 more steps;
+   step and no other kernel; then torch.profiler over 5 more steps; and
+   path "simulate_condensed": 10 steps of the hard condensed QP on
+   backend "pallas", whose `solve_qp` runs each solver segment on the
+   dense ADMM kernel at tile 1 (expm_dense once per step, admm_dense
+   once per segment), profiled over 2 more;
 8. path "montecarlo": `montecarlo.run_dynamic_obstacle`, the HJI safety
    filter's Monte-Carlo study, at scripts/exp_safety_ab.py's
    hammer_eps1.5 arm (the soft coupled QP with the HJI row and its
@@ -65,14 +83,19 @@ Phases (any failure raises, so the script exits non-zero):
    over one more step, and the Cholesky inverse and ADMM kernels held
    against their plain versions on the inputs of a step that refactors
    with active HJI rows (`run_montecarlo`);
-9. reference checks: for each formulation (coupled, decoupled, sparse)
-   a 64-vehicle fleet stepped on the card, each step also run on the CPU
-   (plain versions) from the card's state at float64 and float32,
-   commands compared (see `reference_check`; the sparse QP's bars are
-   fleet-wide, its float32 solve being rounding-determined); the card's
-   `simulate` commands against the CPU `simulate` at float64 and float32
-   (`simulate_reference_check`); the coupled and the sparse check once
-   more with active HJI rows (the mid grid, the other car 3-15 m ahead);
+9. reference checks: for each formulation (coupled, decoupled, sparse,
+   condensed) a 64-vehicle fleet stepped on the card, each step also run
+   on the CPU (plain versions) from the card's state at float64 and
+   float32, commands compared by each formulation's rule (REF_RULES,
+   `reference_check`; the hard QPs' bars are fleet-wide, their float32
+   solves being rounding-determined, and the condensed one's also
+   covers the float64 path's own exit noise), on three placements for
+   the hard QPs, which also record the card's QPs solved on the CPU; the
+   card's `simulate` commands against the CPU `simulate` at float64 and
+   float32 (`simulate_reference_check`, both unbatched formulations and
+   the condensed one); the coupled, the sparse and the condensed check
+   once more with active HJI rows (the mid grid, the other car 3-15 m
+   ahead);
    and the Monte-Carlo rollout's 8 scenarios of least start value, five
    steps (`reference_montecarlo`);
 10. B=1 latency: the coupled fleet path for one vehicle, 20 warm steps;
@@ -96,9 +119,15 @@ import numpy as np
 
 B_FLEET = 8192
 B_SPARSE = 2048
-WARM_STEPS = {"coupled": 10, "decoupled": 20, "sparse": 10}
+WARM_STEPS = {"coupled": 10, "decoupled": 20, "sparse": 10,
+              "condensed": 10}
 B1_STEPS = 20
 SIM_STEPS = 30
+# the condensed QP's single-vehicle path: as many steps as its reference
+# check compares, and a shorter profile (the profiler's own cost a step
+# is most of these phases' time)
+SIM_STEPS_CONDENSED = 10
+SIM_PROFILE_STEPS_CONDENSED = 2
 SIM_REF_STEPS = 10   # steps of `simulate` also run on the CPU
 SIM_PROFILE_STEPS = 5
 B_REF = 64
@@ -121,14 +150,43 @@ B8_EXITS_DIFFER_MAX = 0.1
 # many bars from the float64 one
 REF_OUTSIDE_MAX = 0.1
 REF_CAP_BARS = 128.0
-# Fleet placements (make_setup's seed) the reference check runs on, and
-# the sparse rule's controls on the first placement: wrong solver options,
-# each run on the card from the same state as the step it is compared
-# with, and whether the rule must reject it on at least one step.  One
-# segment fewer is only recorded: the vehicles the 400-iteration budget
-# leaves unconverged stay unconverged at 350, so nothing the rule reads
-# moves.
-REF_SEEDS = {"coupled": (0,), "decoupled": (0,), "sparse": (0, 1, 2)}
+# The CPU float64 path is also stepped from states moved by this relative
+# amount (float32's rounding of them): at eps 1e-3 the solver's exit, and a
+# weakly determined force, move with such a move by as much as float32
+# moves them (`reference_check`'s exit-noise witness)
+EXIT_NOISE = 1e-7
+# The reference rule of each formulation (`reference_check`):
+# - seeds: the fleet placements (make_setup's seed) it runs on; the
+#   controls below run on the first, and only where `fleet_wide`;
+# - fleet_wide: each command's allowance takes the step's largest CPU gap
+#   over the fleet in place of the vehicle's own, and the iteration rule
+#   compares fleet shares (the hard QPs, whose float32 solve is
+#   rounding-determined);
+# - exit_draws: states moved by EXIT_NOISE, each stepped on the CPU in
+#   float64; the fleet-wide gap is then the largest of the float32 gap and
+#   these float64 gaps (the hard condensed QP);
+# - outside_from_cpu: where the share of vehicles outside the bare bar may
+#   also reach twice the largest share of the CPU witnesses (the float32
+#   path and the moved float64 states): "active" with an active HJI row,
+#   "always" on every step.
+REF_RULES = {
+    "coupled": dict(seeds=(0,), fleet_wide=False, exit_draws=0,
+                    outside_from_cpu="active"),
+    "decoupled": dict(seeds=(0,), fleet_wide=False, exit_draws=0,
+                      outside_from_cpu="never"),
+    "sparse": dict(seeds=(0, 1, 2), fleet_wide=True, exit_draws=0,
+                   outside_from_cpu="never"),
+    "condensed": dict(seeds=(0, 1, 2), fleet_wide=True, exit_draws=3,
+                      outside_from_cpu="always"),
+}
+# The fleet-wide rules' controls: wrong solver options, each run on the
+# card from the same state as the step it is compared with, and whether
+# the rule must reject it on at least one step.  A control whose commands
+# equal the card's bit for bit on every step is the same computation and
+# is only recorded (the condensed fleet converges within 200 iterations on
+# the steps checked, so max_iter 200 gives the bits of 400).  One segment
+# fewer is only recorded: the vehicles the 400-iteration budget leaves
+# unconverged stay unconverged at 350, so nothing the rule reads moves.
 REF_CONTROLS = {"rho_eq_scale_1": (dict(rho_eq_scale=1.0), True),
                 "eps_1e-2": (dict(eps_abs=1e-2, eps_rel=1e-2), True),
                 "max_iter_200": (dict(max_iter=200), True),
@@ -146,7 +204,9 @@ PATH_KERNELS = {
     "coupled": {"vanloan", "chol_inverse", "admm_iterations"},
     "decoupled": {"vanloan", "rollout", "chol_inverse", "admm_iterations"},
     "sparse": {"vanloan", "ruiz", "banded_chol", "admm_dense"},
+    "condensed": {"vanloan", "ruiz", "admm_dense"},
     "simulate": {"expm_dense"},
+    "simulate_condensed": {"expm_dense", "admm_dense"},
     "montecarlo": {"vanloan", "chol_inverse", "admm_iterations"},
 }
 # bench.py's lane-solver iteration budget per formulation
@@ -160,6 +220,11 @@ SPARSE_SOLVER = dict(max_iter=400, check_every=50, eps_abs=1e-3,
                      scaling_iters=4, pallas_tile=4,
                      pallas_precision="highest", pallas_check_inner=10,
                      bf16_bulk_iters=0)
+# The hard condensed QP's fleet takes SPARSE_SOLVER as it is: its dense P
+# has no banded form, so "banded" falls through to the dense Cholesky, as
+# a user who sets condensed=True gets.  Its single-vehicle route
+# (`simulate`) takes the default SolverOptions on backend "pallas".
+SIM_CONDENSED_SOLVER = dict(backend="pallas")
 # the port's kernel functions (csrc/), whose device time the profiles
 # report one by one
 PORT_KERNEL_FUNCTIONS = {"vanloan_kernel", "chol_inverse_kernel",
@@ -207,8 +272,12 @@ def require(ok, message):
         raise RuntimeError(f"chip_smoke check failed: {message}")
 
 
+_T0 = time.perf_counter()
+
+
 def log(**kw):
-    print(json.dumps(kw), flush=True)
+    """One JSON line, with the seconds since the script started."""
+    print(json.dumps(dict(kw, t_s=time.perf_counter() - _T0)), flush=True)
 
 
 def nvidia_smi(query: str = "name,power.limit") -> str:
@@ -226,13 +295,15 @@ def nvidia_smi(query: str = "name,power.limit") -> str:
 def fleet_config(formulation: str, hz=None):
     """x1_coupled_config or x1_decoupled_config, soft, on the lane solver
     with bench.py's options, or ("sparse") x1_coupled_config() as it comes
-    on the pallas solver with SPARSE_SOLVER; `hz` = (N_short, N_long)
-    overrides the horizon."""
+    on the pallas solver with SPARSE_SOLVER, or ("condensed")
+    x1_coupled_config(condensed=True) with the same options; `hz` =
+    (N_short, N_long) overrides the horizon."""
     from pigeon_tpu_torch import mpc
     from pigeon_tpu_torch.config import SolverOptions
 
-    if formulation == "sparse":
-        cfg = mpc.x1_coupled_config(solver=SolverOptions(**SPARSE_SOLVER))
+    if formulation in ("sparse", "condensed"):
+        cfg = mpc.x1_coupled_config(condensed=formulation == "condensed",
+                                    solver=SolverOptions(**SPARSE_SOLVER))
     else:
         make = {"coupled": mpc.x1_coupled_config,
                 "decoupled": mpc.x1_decoupled_config}[formulation]
@@ -240,7 +311,7 @@ def fleet_config(formulation: str, hz=None):
     if hz is not None:
         cfg = dataclasses.replace(cfg, hz=dataclasses.replace(
             cfg.hz, N_short=hz[0], N_long=hz[1]))
-    if formulation == "sparse":
+    if formulation in ("sparse", "condensed"):
         return cfg
     n_it = MAX_ITER[formulation]
     return dataclasses.replace(cfg, solver=SolverOptions(
@@ -1009,22 +1080,34 @@ def check_banded_chol(torch, args, kw, extra):
 def dense_admm(torch, ops, kw, n_iters, check, plain=False, dtype=None):
     """One call of the dense ADMM kernel (or its plain version, in
     `dtype` if given) on the captured operands `ops` = (Kinv, A, q, l, u,
-    rho, x, z, y) with the captured options `kw`."""
+    rho, x, z, y) with the captured options `kw` (a dense P where
+    `kw["dense_P"]`)."""
     from pigeon_tpu_torch.solver import pallas_admm as pa
 
-    D, E, c, Pu, qu = kw["scalings"]
     sigma, alpha = kw["sigma"], kw["alpha"]
-    eps = dict(eps_abs=kw["eps_abs"], eps_rel=kw["eps_rel"])
+    dense_P = kw.get("dense_P", False)
+    # the wrapper's defaults where the caller gave none (the unbatched
+    # route passes no scalings, tolerances or check)
+    eps = dict(eps_abs=kw.get("eps_abs", 1e-3), eps_rel=kw.get("eps_rel",
+                                                                1e-3))
     if not plain:
         # the pipeline's pattern and packed A where `kw` has them; without
         # a pattern the wrapper derives the batch's
         return pa.admm_iterations(*ops, n_iters, sigma, alpha,
-                                  tile=kw["tile"], scalings=kw["scalings"],
-                                  check=check, pattern=kw.get("pattern"),
+                                  tile=kw["tile"],
+                                  scalings=kw.get("scalings"),
+                                  check=check, dense_P=dense_P,
+                                  pattern=kw.get("pattern"),
                                   A_packed=kw.get("A_packed"), **eps)
+    q, l = ops[2], ops[3]
+    # identity scalings and no P term, as the wrapper takes them
+    D, E, c, Pu, qu = kw.get("scalings") or (
+        torch.ones_like(q), torch.ones_like(l), torch.ones_like(q[:, 0]),
+        torch.zeros_like(q), q)
     cast = (lambda t: t) if dtype is None else (lambda t: t.to(dtype))
+    PuD = D[:, :, None] * Pu if dense_P else Pu * D
     return pa.admm_iterations_plain(
-        *[cast(t) for t in ops], cast(E), cast(Pu * D), cast(qu),
+        *[cast(t) for t in ops], cast(E), cast(PuD), cast(qu),
         cast(1.0 / (D * c[:, None])), n_iters, sigma, alpha, kw["tile"],
         check, **eps)
 
@@ -1128,11 +1211,64 @@ def held_segment(torch, ops, kw, n_iters, check, what, some_early=True):
     return k, p, rec
 
 
+def dense_p_split(torch, ops, kw, n_iters, check):
+    """Where the dense-P mode's time goes on the main-path call, from
+    device times of variants of it on one wave of it (the first instances,
+    as many as the card holds at once, so that a variant that fits more
+    blocks on an SM does not run fewer waves; same operands unless
+    named):
+    - full: the call as the path makes it (`check`-iteration checks);
+    - diagonal_P: the diagonal build, P's diagonal in place of P;
+    - fixed: no check, one statistics pass at the end;
+    - thin_A: fixed, A replaced by one entry a row (row width 1, column
+      width 2), so A x and A'w cost next to nothing;
+    - load: no iteration, the call's loads and one statistics pass.
+    Differences: P x at the checks (full - diagonal_P), the checks'
+    statistics (full - fixed), the A products (fixed - thin_A), the rest
+    of the iterations (thin_A - load)."""
+    from pigeon_tpu_torch.solver import pallas_admm as pa
+
+    tile = kw["tile"]
+    pattern = kw.get("pattern") or pa.pattern_from(ops[1])
+    wave = pa.max_active_clusters(pattern, tile, True) * tile
+    cut = lambda t: t[:wave].contiguous()
+    ops = [cut(t) for t in ops]
+    D, E, c, Pu, qu = (cut(t) for t in kw["scalings"])
+    kw = dict(kw, scalings=(D, E, c, Pu, qu), pattern=pattern,
+              A_packed=cut(kw["A_packed"]))
+    diag = dict(kw, dense_P=False, scalings=(
+        D, E, c, torch.diagonal(Pu, dim1=1, dim2=2).contiguous(), qu))
+    B, m, n = ops[1].shape
+    thin = torch.zeros_like(ops[1])
+    rows = torch.arange(m, device=thin.device)
+    thin[:, rows, rows % n] = 1.0
+    thin_pattern = pa.pattern_from(thin)
+    thin_ops = list(ops[:1]) + [thin] + list(ops[2:])
+    thin_kw = dict(kw, pattern=thin_pattern,
+                   A_packed=pa.pack(thin, thin_pattern))
+    t = lambda o, k, it, ch: cuda_ms(
+        torch, lambda: dense_admm(torch, o, k, it, ch), 10)
+    ms = dict(full=t(ops, kw, n_iters, check),
+              diagonal_P=t(ops, diag, n_iters, check),
+              fixed=t(ops, kw, n_iters, 0),
+              thin_A=t(thin_ops, thin_kw, n_iters, 0),
+              load=t(ops, kw, 0, 0))
+    return dict(wave=wave, ms=ms,
+                thin_widths=[thin_pattern.row_width, thin_pattern.col_width],
+                thin_max_active_clusters=pa.max_active_clusters(
+                    thin_pattern, tile, True),
+                P_x=ms["full"] - ms["diagonal_P"],
+                statistics=ms["full"] - ms["fixed"],
+                A_products=ms["fixed"] - ms["thin_A"],
+                rest_of_iterations=ms["thin_A"] - ms["load"])
+
+
 def check_admm_dense(torch, args, kw, extra):
-    """`args`: the sparse fleet's first segment of its cold step (Kinv, A,
-    q, l, u, rho, x, z, y, n_iters, sigma, alpha); `extra["warm"]`: the
-    first segment of a warm step, `extra["small"]`: the 12-stage
-    horizon's call.
+    """`args`: a hard fleet's first segment of its cold step (Kinv, A, q,
+    l, u, rho, x, z, y, n_iters, sigma, alpha), the sparse fleet's
+    (diagonal P) or the condensed fleet's (`kw["dense_P"]`);
+    `extra["warm"]`: the first segment of a warm step, `extra["small"]`:
+    the 12-stage horizon's call.
 
     On the cold step no tile converges within the segment, so the early
     exit per tile is held on the warm step's segment too, where most
@@ -1187,9 +1323,12 @@ def check_admm_dense(torch, args, kw, extra):
     plain = cuda_ms(torch, lambda: dense_admm(torch, ops, kw, n_iters, check,
                                               plain=True), 2)
     n, m = ops[0].shape[-1], ops[1].shape[1]
+    dense_P = kw.get("dense_P", False)
     executed = ok_[3][:, 6].double()
+    # a check's statistics: with a dense P, P x is 2 n^2 more
     flops = admm_flops(torch, (ops[1] != 0).sum(dim=(1, 2)), executed, check,
-                       n, 10 * m + 5 * n, 10 * m + 12 * n)
+                       n, 10 * m + 5 * n,
+                       10 * m + 12 * n + (2 * n * n if dense_P else 0))
     # the kernel's inputs as the pipeline passes them: A packed, not dense
     pat = pattern.tensors(ops[1].device)
     b_ms, b_by = bound(nbytes(ops[0], kw["A_packed"], *ops[2:],
@@ -1197,8 +1336,11 @@ def check_admm_dense(torch, args, kw, extra):
                               *[pat[k] for k in ("row_code", "col_slot",
                                                  "col_row")]),
                        flops)
+    split = (dense_p_split(torch, ops, kw, n_iters, check) if dense_P
+             else None)
     return dict(err=float((ok_[0] - op_[0]).abs().max()),
                 rel=fixed["vs_plain"]["x"], fixed_errs=fixed,
+                dense_p_split=split,
                 cold_exits=cold_exits, warm_exits=warm_exits,
                 ragged_errs=ragged, ragged_exits=ragged_exits,
                 small_horizon_errs=small_errs,
@@ -1211,8 +1353,61 @@ def check_admm_dense(torch, args, kw, extra):
                              union_nonzeros=union.nnz,
                              a_nonzeros_mean=float((ops[1] != 0).sum(
                                  dim=(1, 2)).double().mean())),
-                max_active_clusters=pa.max_active_clusters(pattern,
-                                                           kw["tile"]),
+                max_active_clusters=pa.max_active_clusters(
+                    pattern, kw["tile"], dense_P),
+                smem_bytes=pa.plan_smem(n, m, pattern.row_width,
+                                        pattern.col_width, dense_P),
+                dense_P=dense_P,
+                shapes=[list(ops[0].shape), list(ops[1].shape)])
+
+
+def check_admm_dense_tile1(torch, captures):
+    """The unbatched route's calls of the dense ADMM kernel (`mpc.simulate`
+    on the condensed QP, backend "pallas": `solve_qp`'s segment of
+    `check_every` iterations at B = 1, tile 1, no check, identity
+    scalings, A packed once per solve): the first segment of the cold
+    step and the last of the second step, each kernel against the float32
+    and the float64 plain version (`held_fixed`) at the path's iteration
+    count.  Times the first call."""
+    from pigeon_tpu_torch.solver import pallas_admm as pa
+
+    recs = []
+    for args, kw in captures:
+        ops, (n_iters, sigma, alpha) = args[:9], args[9:12]
+        require(kw.get("tile") == 1 and not kw.get("check")
+                and kw.get("scalings") is None and ops[0].shape[0] == 1
+                and kw.get("A_packed") is not None,
+                f"the unbatched route's call: {sorted(kw)}")
+        kw = dict(kw, sigma=sigma, alpha=alpha)
+        fixed = held_fixed(torch, ops, kw, n_iters,
+                           f"(tile 1, {n_iters} fixed)")
+        k = dense_admm(torch, ops, kw, n_iters, 0)
+        p = dense_admm(torch, ops, kw, n_iters, 0, plain=True)
+        torch.cuda.synchronize()
+        recs.append(dict(fixed_errs=fixed, n_iters=n_iters,
+                         err=float((k[0] - p[0]).abs().max())))
+    (args, kw), first = captures[0], recs[0]
+    ops, n_iters = args[:9], args[9]
+    kw = dict(kw, sigma=args[10], alpha=args[11])
+    ms = cuda_ms(torch, lambda: dense_admm(torch, ops, kw, n_iters, 0), 20)
+    plain = cuda_ms(torch, lambda: dense_admm(torch, ops, kw, n_iters, 0,
+                                              plain=True), 5)
+    n, m = ops[0].shape[-1], ops[1].shape[1]
+    pattern = kw["pattern"]
+    flops = admm_flops(torch, (ops[1] != 0).sum(dim=(1, 2)),
+                       torch.full((1,), float(n_iters), device=ops[1].device),
+                       0, n,
+                       10 * m + 5 * n, 10 * m + 12 * n)
+    pat = pattern.tensors(ops[1].device)
+    b_ms, b_by = bound(nbytes(ops[0], kw["A_packed"], *ops[2:], *ops[6:],
+                              torch.empty(8),
+                              *[pat[k] for k in ("row_code", "col_slot",
+                                                 "col_row")]),
+                       flops)
+    return dict(err=max(r["err"] for r in recs),
+                rel=first["fixed_errs"]["vs_plain"]["x"], calls=recs,
+                ms=ms, plain_ms=plain, library_ms=None, bound_ms=b_ms,
+                bound_by=b_by, tile=1,
                 smem_bytes=pa.plan_smem(n, m, pattern.row_width,
                                         pattern.col_width),
                 shapes=[list(ops[0].shape), list(ops[1].shape)])
@@ -1341,35 +1536,44 @@ def profile_step(torch, st):
     return profile_call(torch, lambda: closed_loop_step(torch, st))
 
 
-def reference_verdict(torch, sparse, check, card, c32, u64,
-                      active=False):
+def reference_verdict(torch, fleet_wide, check, card, c32, u64, exit64=(),
+                      outside_from_cpu=False):
     """One step of `reference_check`'s rule: `card` and `c32` are the
     (commands, diagnostics) of the card and of the CPU float32 path, `u64`
-    the CPU float64 commands.  `active` (HJI rows active in the QPs): the
-    share of vehicles outside the bare bar may also reach twice the CPU
-    float32 path's own share, where that is larger than
-    REF_OUTSIDE_MAX.  Returns the record and the rules broken."""
+    the CPU float64 commands, `exit64` the CPU float64 commands from the
+    states moved by EXIT_NOISE.  `fleet_wide` and `outside_from_cpu` as
+    in REF_RULES.  Returns the record and the rules broken."""
     (ug, dg_), (u32, d32) = card, c32
     bar = torch.tensor([2e-4, 2.0, 2.0], dtype=torch.float64)
     dg = (ug.cpu().double() - u64).abs()
     gap = (u32.double() - u64).abs()
-    scale = gap.amax(dim=0) if sparse else gap
+    scale = gap.amax(dim=0) if fleet_wide else gap
+    outside_of = lambda d: float((d > bar).any(dim=-1).double().mean())
+    extra, witness_outside = {}, [outside_of(gap)]
+    if len(exit64):
+        exit_gaps = [(u - u64).abs() for u in exit64]
+        exit_gap = torch.stack([e.amax(dim=0) for e in exit_gaps]).amax(0)
+        scale = torch.maximum(scale, exit_gap)
+        witness_outside += [outside_of(e) for e in exit_gaps]
+        extra = dict(exit_gap_bars=[float((e / bar).max())
+                                    for e in exit_gaps],
+                     exit_gap_abs=exit_gap.tolist(),
+                     exit_outside_bar=witness_outside[1:])
     allowed = torch.minimum(bar + 2.0 * scale, REF_CAP_BARS * bar)
     it_g = dg_.iterations.cpu().double()
     it_c = d32.iterations.double()
     conv_g, conv_c = dg_.converged.cpu(), d32.converged
     rec = dict(err_bars=float((dg / bar).max()),
+               err_abs=dg.amax(dim=0).tolist(),
                gap32_bars=float((gap / bar).max()),
                gap32_abs=gap.amax(dim=0).tolist(),
                max_excess=float((dg - allowed).max()),
-               outside_bar=float((dg > bar).any(dim=-1).double().mean()),
-               outside_bar32=float((gap > bar).any(dim=-1).double()
-                                   .mean()),
+               outside_bar=outside_of(dg), outside_bar32=witness_outside[0],
                iters_diff=int((it_g - it_c).abs().max()),
                iters_mean=[float(it_g.mean()), float(it_c.mean())],
                converged=[float(conv_g.double().mean()),
-                          float(conv_c.double().mean())])
-    if sparse:
+                          float(conv_c.double().mean())], **extra)
+    if fleet_wide:
         same = (abs(int(conv_g.sum()) - int(conv_c.sum())) <= 2
                 and abs(float(it_g.mean() - it_c.mean())) <= check)
     else:
@@ -1378,9 +1582,43 @@ def reference_verdict(torch, sparse, check, card, c32, u64,
     broken = [name for name, ok in (
         ("commands", rec["max_excess"] <= 0.0),
         ("outside_bar", rec["outside_bar"] <= max(
-            REF_OUTSIDE_MAX, 2.0 * rec["outside_bar32"] if active else 0.0)),
+            REF_OUTSIDE_MAX,
+            2.0 * max(witness_outside) if outside_from_cpu else 0.0)),
         ("iterations", same)) if not ok]
     return rec, broken
+
+
+def cpu_solve_step(torch, st):
+    """`closed_loop_step` on the card with only the QP solve moved to the
+    CPU's plain float32 pipeline: the card's own QP data, solved by the
+    plain versions of the kernels."""
+    from pigeon_tpu_torch import mpc
+    from pigeon_tpu_torch.solver import admm
+
+    def solve(qp, warm, opts, **kw):
+        cpu = lambda t: t if t is None else t.cpu()
+        sol = admm.solve_qp_batched(
+            type(qp)(*map(cpu, qp)), type(warm)(*map(cpu, warm)), opts,
+            **{k: cpu(v) if isinstance(v, torch.Tensor) else v
+               for k, v in kw.items()})
+        return type(sol)(*[t.to(qp.q.device) for t in sol])
+
+    original = mpc.solve_qp_batched
+    mpc.solve_qp_batched = solve
+    try:
+        return closed_loop_step(torch, st)
+    finally:
+        mpc.solve_qp_batched = original
+
+
+def moved_state(torch, st, gen, cache=None):
+    """The fleet state on the CPU in float64, moved by EXIT_NOISE
+    (relative, uniform, from `gen`)."""
+    c = copy_state(torch, st, "cpu", torch.float64, cache=cache)
+    c["q"] = c["q"] * (1.0 + EXIT_NOISE * (
+        2.0 * torch.rand(c["q"].shape, generator=gen, dtype=torch.float64)
+        - 1.0))
+    return c
 
 
 def hji_flags(torch, eps, dg, d32, d64):
@@ -1430,20 +1668,22 @@ def reference_check(torch, formulation="coupled", device="cuda",
       tests/test_torch_mpc.py and tests/test_torch_mpc_decoupled.py hold
       the port to against the JAX package).
 
-    The sparse QP's stiff equality rows (rho_eq = 1e3 rho) make its
+    The hard QPs' stiff equality rows (rho_eq = 1e3 rho) make their
     float32 solve rounding-determined: the card and the CPU float32 path
     are two independent roundings, each its own distance from float64, so
     a vehicle's CPU gap does not bound that vehicle's card error, and
     exits at the tolerance's edge move by segments
     (tests/test_torch_mpc_sparse.py finds the same between the JAX
-    package's float32 pipeline and the port's).  For "sparse" the first
-    rule takes the largest CPU gap of the step over the fleet, per
-    command, in place of the vehicle's own; and the third compares the
-    fleet's converged share (within 2 vehicles) and mean executed
-    iterations (within one segment).  That rule is run on every fleet
-    placement of REF_SEEDS, and on the first it must reject the
-    REF_CONTROLS so marked: the card's step from the same state with a
-    solver option a port could get wrong.
+    package's float32 pipeline and the port's).  REF_RULES says how each
+    formulation's rule departs from the above: the fleet-wide gap and
+    iteration shares, the float64 exit-noise witnesses, the share outside
+    the bar scaled by the CPU witnesses', and the placements.  On the
+    first placement a fleet-wide rule must reject the REF_CONTROLS so
+    marked.  Two records test the rule itself and gate nothing: whether
+    the per-vehicle rule would hold too (`per_vehicle_rule_broken`), and
+    the card's own QPs solved on the CPU in float32 (`cpu_solve_step`):
+    their gap to float64 (`card_qp_gap_bars`) against the card's, and the
+    card's distance from them (`card_vs_card_qp_bars`).
 
     With `cache` (an HJI cache on `device`), the active-row check: the
     other car comes head-on ACTIVE_GAP ahead of each vehicle
@@ -1451,39 +1691,52 @@ def reference_check(torch, formulation="coupled", device="cuda",
     the CPU paths step with the same cache, and a vehicle whose HJI flag
     differs from the CPU float64 path's is left out of the rule where
     `hji_flags` allows it."""
-    sparse = formulation == "sparse"
+    rule = REF_RULES[formulation]
+    fleet_wide = rule["fleet_wide"]
     active = cache is not None
+    outside = (rule["outside_from_cpu"] == "always"
+               or (active and rule["outside_from_cpu"] == "active"))
     cpu_cache = cache_to(cache, "cpu") if active else None
+    bar = torch.tensor([2e-4, 2.0, 2.0], dtype=torch.float64)
     seeds = []
-    for seed in REF_SEEDS[formulation][:1 if active else None]:
+    for seed in rule["seeds"][:1 if active else None]:
         gpu = make_setup(torch, B_REF, device, formulation=formulation,
                          seed=seed, cache=cache)
-        if active and not sparse:
+        if active and not fleet_wide:
             # bench.py's single 150-iteration segment leaves the active
             # rows' QPs unconverged: the Monte-Carlo path's solver
             gpu["cfg"] = dataclasses.replace(
                 gpu["cfg"], solver=montecarlo_config().solver)
         solver = gpu["cfg"].solver
-        check = (solver.check_every if sparse or solver.max_iter
+        check = (solver.check_every if fleet_wide or solver.max_iter
                  > solver.check_every else solver.pallas_check_inner)
         controls = {
             name: dataclasses.replace(gpu["cfg"], solver=dataclasses.replace(
                 solver, **change))
             for name, (change, _) in REF_CONTROLS.items()
-            if sparse and not active and seed == REF_SEEDS[formulation][0]}
+            if fleet_wide and not active and seed == rule["seeds"][0]}
         rejected = {name: [] for name in controls}
+        same_bits = dict.fromkeys(controls, True)
+        gen = torch.Generator().manual_seed(seed)
         steps = []
         for i in range(3):
             c32 = copy_state(torch, gpu, "cpu", torch.float32,
                              cache=cpu_cache)
             c64 = copy_state(torch, gpu, "cpu", torch.float64,
                              cache=cpu_cache)
+            moved = [moved_state(torch, gpu, gen, cpu_cache)
+                     for _ in range(rule["exit_draws"])]
             ctl = {name: copy_state(torch, gpu, device, torch.float32, cfg)
                    for name, cfg in controls.items()}
+            on_cpu = (copy_state(torch, gpu, device, torch.float32,
+                                 cache=cache) if fleet_wide else None)
             card = closed_loop_step(torch, gpu)
             cpu32 = closed_loop_step(torch, c32)
             u64, d64 = closed_loop_step(torch, c64)
-            flags = {}
+            exit64 = [closed_loop_step(torch, st)[0] for st in moved]
+            u_cq = (None if on_cpu is None
+                    else cpu_solve_step(torch, on_cpu)[0].cpu().double())
+            flags, ug = {}, card[0]
             if active:
                 keep, flags = hji_flags(torch, gpu["cfg"].hji_eps, card[1],
                                         cpu32[1], d64)
@@ -1491,17 +1744,28 @@ def reference_check(torch, formulation="coupled", device="cuda",
                         f"no active HJI row ({formulation}): {flags}")
                 card, cpu32, u64 = (take(card, keep), take(cpu32, keep),
                                     u64[keep])
-            # the sparse rule as it stands; the soft QP's outside-the-bar
-            # share scales with the CPU float32 path's (`reference_verdict`)
-            rec, broken = reference_verdict(torch, sparse, check, card,
-                                            cpu32, u64, active and not sparse)
+                exit64 = [u[keep] for u in exit64]
+                u_cq = None if u_cq is None else u_cq[keep]
+            rec, broken = reference_verdict(torch, fleet_wide, check, card,
+                                            cpu32, u64, exit64, outside)
             rec.update(flags)
+            if fleet_wide:
+                rec["per_vehicle_rule_broken"] = reference_verdict(
+                    torch, False, check, card, cpu32, u64)[1]
+            if u_cq is not None:
+                rec.update(
+                    card_qp_gap_bars=float(((u_cq - u64).abs() / bar).max()),
+                    card_qp_gap_abs=(u_cq - u64).abs().amax(dim=0).tolist(),
+                    card_vs_card_qp_bars=float(
+                        ((card[0].cpu().double() - u_cq).abs() / bar).max()))
             require(not broken, f"card vs CPU ({formulation}, seed {seed}, "
                                 f"step {i}): {broken} {rec}")
             for name, st in ctl.items():
+                u_c, d_c = closed_loop_step(torch, st)
+                same_bits[name] &= bool(torch.equal(u_c, ug))
                 crec, cbroken = reference_verdict(
-                    torch, sparse, check, closed_loop_step(torch, st),
-                    cpu32, u64)
+                    torch, fleet_wide, check, (u_c, d_c), cpu32, u64, exit64,
+                    outside)
                 rec[f"control_{name}"] = dict(
                     broken=cbroken, err_bars=crec["err_bars"],
                     max_excess=crec["max_excess"],
@@ -1511,10 +1775,11 @@ def reference_check(torch, formulation="coupled", device="cuda",
                     rejected[name].append(i)
             steps.append(dict(step=i, **rec))
         for name, at in rejected.items():
-            require(at or not REF_CONTROLS[name][1],
-                    f"the sparse reference rule took control {name}")
-        seeds.append(dict(seed=seed, steps=steps, controls_rejected=rejected))
-    return dict(seeds=seeds)
+            require(at or not REF_CONTROLS[name][1] or same_bits[name],
+                    f"the {formulation} reference rule took control {name}")
+        seeds.append(dict(seed=seed, steps=steps, controls_rejected=rejected,
+                          controls_same_bits=same_bits))
+    return dict(rule=rule, seeds=seeds)
 
 
 # ---------------------------------------------------------------------------
@@ -1523,27 +1788,35 @@ def reference_check(torch, formulation="coupled", device="cuda",
 
 def simulate_setup(torch, formulation: str, device, dtype):
     """`mpc.simulate`'s arguments for one vehicle near the oval's start,
-    with the formulation's default solver options."""
+    with the formulation's default solver options (the soft ones), or
+    ("condensed") the hard condensed QP on SIM_CONDENSED_SOLVER."""
     from pigeon_tpu_torch import hji, mpc, trajectory
+    from pigeon_tpu_torch.config import SolverOptions
 
     cols = trajectory.oval_columns()
-    make = {"coupled": mpc.x1_coupled_config,
-            "decoupled": mpc.x1_decoupled_config}[formulation]
+    if formulation == "condensed":
+        cfg = mpc.x1_coupled_config(
+            condensed=True, solver=SolverOptions(**SIM_CONDENSED_SOLVER))
+    else:
+        cfg = {"coupled": mpc.x1_coupled_config,
+               "decoupled": mpc.x1_decoupled_config}[formulation](soft=True)
     q0 = torch.tensor([cols["E"][0] + 0.3, cols["N"][0] + 0.5,
                        cols["psi"][0] + 0.03, 6.0, 0.0, 0.0], dtype=dtype,
                       device=device)
-    return (make(soft=True),
+    return (cfg,
             trajectory.make_tube(**cols, pad_to=1024, device=device,
                                  dtype=dtype),
             hji.inactive_cache(device=device), q0)
 
 
-def run_simulate(torch, kernels, formulation: str):
-    """SIM_STEPS closed-loop steps of one vehicle on the card through
+def run_simulate(torch, kernels, formulation: str, steps: int = SIM_STEPS,
+                 profile_steps: int = SIM_PROFILE_STEPS):
+    """`steps` closed-loop steps of one vehicle on the card through
     `mpc.simulate`.  The route must launch expm_dense once per step and no
-    other kernel.  Returns the record, the log, and torch.profiler's
-    per-step reading of SIM_PROFILE_STEPS more steps from the same
-    start."""
+    other kernel but, for "condensed", admm_dense once per solver segment
+    (the log's iterations over `check_every`).  Returns the record, the
+    log, and torch.profiler's per-step reading of `profile_steps` more
+    steps from the same start."""
     from pigeon_tpu_torch import mpc
 
     cfg, tube, cache, q0 = simulate_setup(torch, formulation, "cuda",
@@ -1552,31 +1825,36 @@ def run_simulate(torch, kernels, formulation: str):
     torch.cuda.synchronize()
     kernels.reset_launches()
     t0 = time.perf_counter()
-    log = mpc.simulate(cfg, tube, cache, q0, n_steps=SIM_STEPS)
+    log = mpc.simulate(cfg, tube, cache, q0, n_steps=steps)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launched = kernels.launches()
-    require(all(v == (SIM_STEPS if k in PATH_KERNELS["simulate"] else 0)
-                for k, v in launched.items()),
-            f"simulate ({formulation}): launches {launched}")
+    expect = dict.fromkeys(launched, 0)
+    expect["expm_dense"] = steps
+    if formulation == "condensed":
+        expect["admm_dense"] = (int(log.diag.iterations.sum())
+                                // cfg.solver.check_every)
+    require(launched == expect,
+            f"simulate ({formulation}): launches {launched}, expected "
+            f"{expect}")
     require(log.q.device.type == "cuda" and log.u.device.type == "cuda",
             "simulate: the log left the card")
-    require(log.q.shape == (SIM_STEPS, 6) and log.u.shape == (SIM_STEPS, 3)
+    require(log.q.shape == (steps, 6) and log.u.shape == (steps, 3)
             and bool(torch.isfinite(log.q).all())
             and bool(torch.isfinite(log.u).all()),
             f"simulate ({formulation}): log not finite or misshapen")
     conv = log.diag.converged
     require(bool(conv[-1]), f"simulate ({formulation}): last step did not "
                             f"converge")
-    rec = dict(formulation=formulation, steps=SIM_STEPS,
-               step_ms=wall / SIM_STEPS * 1e3,
+    rec = dict(formulation=formulation, steps=steps,
+               step_ms=wall / steps * 1e3,
                converged_share=float(conv.float().mean()),
                iters_mean=float(log.diag.iterations.float().mean()),
                e_last=float(log.diag.e[-1]), launches=launched)
     prof = profile_call(
         torch, lambda: mpc.simulate(cfg, tube, cache, q0,
-                                    n_steps=SIM_PROFILE_STEPS),
-        SIM_PROFILE_STEPS)
+                                    n_steps=profile_steps),
+        profile_steps)
     return rec, log, prof
 
 
@@ -1815,7 +2093,7 @@ def reference_montecarlo(torch, ctx):
         rec, broken = reference_verdict(
             torch, False, MC_SOLVER["check_every"],
             take((state.u, dg), keep), take((s32.u, d32), keep),
-            s64.u[keep], active=True)
+            s64.u[keep], outside_from_cpu=True)
         require(not broken, f"montecarlo card vs CPU, step {i}: {broken} "
                             f"{rec}")
         steps.append(dict(step=i, overridden_rel=over_rel, **flags, **rec))
@@ -1852,23 +2130,40 @@ def main() -> int:
         st = make_setup(torch, B, "cuda", hz=hz, formulation=formulation)
         return capture_kernel_inputs(lambda: closed_loop_step(torch, st))
 
-    def capture_step(formulation):
+    def capture_step(formulation, n_steps=1, last=False):
         from pigeon_tpu_torch import mpc
         cfg, tube, cache, q0 = simulate_setup(torch, formulation, "cuda",
                                               torch.float32)
         return capture_kernel_inputs(lambda: mpc.simulate(
-            cfg, tube, cache, q0, n_steps=1))
+            cfg, tube, cache, q0, n_steps=n_steps), last)
 
     cap = capture_fleet("coupled")
     cap_dec = capture_fleet("decoupled")
     small = capture_fleet("coupled", B_SMALL, HZ_SMALL)
     cap_sp = capture_fleet("sparse", B_SPARSE)
     small_sp = capture_fleet("sparse", B_SMALL, HZ_SMALL)
-    # the sparse fleet's second (warm) step, for B8's early exit
-    st_sp = make_setup(torch, B_SPARSE, "cuda", formulation="sparse")
-    closed_loop_step(torch, st_sp)
-    warm_sp = capture_kernel_inputs(lambda: closed_loop_step(torch, st_sp))
-    del st_sp
+
+    def capture_warm(formulation):
+        """The fleet's second (warm) step, for B8's early exit."""
+        st = make_setup(torch, B_SPARSE, "cuda", formulation=formulation)
+        closed_loop_step(torch, st)
+        return capture_kernel_inputs(lambda: closed_loop_step(torch, st))
+
+    warm_sp = capture_warm("sparse")
+    cap_cd = capture_fleet("condensed", B_SPARSE)
+    small_cd = capture_fleet("condensed", B_SMALL, HZ_SMALL)
+    warm_cd = capture_warm("condensed")
+    # the unbatched condensed route's calls: the cold step's first
+    # segment, the second step's last
+    sim_cd = [capture_step("condensed")["admm_dense"],
+              capture_step("condensed", 2, last=True)["admm_dense"]]
+    require(cap_cd["admm_dense"][0][1].shape == (B_SPARSE, 200, 103)
+            and cap_cd["admm_dense"][1]["dense_P"]
+            and cap_cd["admm_dense"][1]["scalings"][3].shape
+            == (B_SPARSE, 103, 103)
+            and "banded_chol" not in cap_cd
+            and small_cd["admm_dense"][0][1].shape[1:] == (162, 84),
+            "the condensed fleet's QP sizes and its dense P")
     require(cap_sp["admm_dense"][0][1].shape == (B_SPARSE, 290, 193)
             and cap_sp["banded_chol"][0][0].shape == (B_SPARSE, 16, 13, 13)
             and small_sp["admm_dense"][0][1].shape == (B_SMALL, 234, 156)
@@ -1920,7 +2215,24 @@ def main() -> int:
             # the structured exponential at the sparse fleet's shapes
             second["vanloan_sparse"] = fn(torch, *cap_sp["vanloan"])
             log_check(kname, second["vanloan_sparse"], path="fleet_sparse")
+    # the dense ADMM kernel's dense-P mode and the Ruiz kernel (its
+    # diagonal input the row maxima of |P|) at the condensed fleet's
+    # shapes
+    second["admm_dense_condensed"] = check_admm_dense(
+        torch, *cap_cd["admm_dense"],
+        dict(small=small_cd["admm_dense"], warm=warm_cd["admm_dense"]))
+    log_check("admm_dense", second["admm_dense_condensed"],
+              path="fleet_condensed")
+    second["ruiz_condensed"] = check_ruiz(torch, *cap_cd["ruiz"],
+                                          small_cd["ruiz"])
+    log_check("ruiz", second["ruiz_condensed"], path="fleet_condensed")
+    # and at tile 1, B = 1, as the unbatched condensed route launches it
+    second["admm_dense_simulate_condensed"] = check_admm_dense_tile1(
+        torch, sim_cd)
+    log_check("admm_dense", second["admm_dense_simulate_condensed"],
+              path="simulate_condensed")
     del cap, cap_dec, small, extra, cap_sp, small_sp, warm_sp
+    del cap_cd, small_cd, warm_cd, sim_cd
 
     # ---- path: the coupled fleet ------------------------------------------
     launches = {}
@@ -1941,6 +2253,16 @@ def main() -> int:
         if formulation == "sparse":
             require(all(r["launches"] == SPARSE_STEP_LAUNCHES for r in recs),
                     f"sparse step launches {[r['launches'] for r in recs]}")
+        if formulation == "condensed":
+            # vanloan and ruiz once, admm_dense once per segment of the
+            # budget: fewer only on a step where every vehicle converged
+            n_seg = SPARSE_SOLVER["max_iter"] // SPARSE_SOLVER["check_every"]
+            segs = [r["launches"].get("admm_dense", 0) for r in recs]
+            require(all(r["launches"].get("vanloan") == 1
+                        and r["launches"].get("ruiz") == 1
+                        and 1 <= k <= n_seg and (k == n_seg or r["conv"] == 1)
+                        for r, k in zip(recs, segs)),
+                    f"condensed step launches {[r['launches'] for r in recs]}")
         log(phase="profile", path=phase, batch=B, **profile_step(torch, st))
 
     fleet_phase("coupled", "fleet")
@@ -1948,6 +2270,8 @@ def main() -> int:
     fleet_phase("decoupled", "fleet_decoupled")
     # ---- path: the sparse coupled fleet -----------------------------------
     fleet_phase("sparse", "fleet_sparse", B_SPARSE)
+    # ---- path: the hard condensed coupled fleet ---------------------------
+    fleet_phase("condensed", "fleet_condensed", B_SPARSE)
 
     # ---- path: the unbatched closed loop ----------------------------------
     sim_logs = {}
@@ -1960,6 +2284,15 @@ def main() -> int:
         log(phase="simulate", **rec)
         log(phase="profile", path="simulate", formulation=formulation,
             batch=1, **prof)
+    # the hard condensed QP's unbatched route: the dense ADMM kernel at
+    # tile 1, once per solver segment
+    rec, sim_logs["condensed"], prof = run_simulate(
+        torch, kernels, "condensed", SIM_STEPS_CONDENSED,
+        SIM_PROFILE_STEPS_CONDENSED)
+    launches["simulate_condensed"] = rec["launches"]
+    log(phase="simulate", **rec)
+    log(phase="profile", path="simulate", formulation="condensed", batch=1,
+        **prof)
 
     # ---- path: the Monte-Carlo safety study ------------------------------
     mc_rec, mc_ctx = run_montecarlo(torch, kernels)
@@ -1981,14 +2314,14 @@ def main() -> int:
     require(all(v > 0 for v in main_launches.values()), main_launches)
 
     # ---- reference checks -------------------------------------------------
-    for formulation in ("coupled", "decoupled", "sparse"):
+    for formulation in ("coupled", "decoupled", "sparse", "condensed"):
         log(phase="reference", formulation=formulation, batch=B_REF,
             **reference_check(torch, formulation))
     for formulation, sim_log in sim_logs.items():
         log(phase="reference_simulate",
             **simulate_reference_check(torch, formulation, sim_log))
-    # active HJI rows on both coupled steps, and the Monte-Carlo rollout
-    for formulation in ("coupled", "sparse"):
+    # active HJI rows on the coupled steps, and the Monte-Carlo rollout
+    for formulation in ("coupled", "sparse", "condensed"):
         t0 = time.perf_counter()
         rec = reference_check(torch, formulation, cache=mc_ctx["cache"])
         log(phase="reference_active", formulation=formulation, batch=B_REF,
@@ -2018,6 +2351,9 @@ def main() -> int:
                                      for ph, per in launches.items()})
         others = dict(fleet_decoupled=second.get(k),
                       fleet_sparse=second.get(f"{k}_sparse"),
+                      fleet_condensed=second.get(f"{k}_condensed"),
+                      simulate_condensed=second.get(
+                          f"{k}_simulate_condensed"),
                       montecarlo=second.get(f"{k}_montecarlo"),
                       decoupled_step=r.get("decoupled_step"),
                       fleet_stack=r.get("fleet_stack"))

@@ -82,7 +82,7 @@ KERNELS = {
                           [_P] * 4 + [_L, _I, _I, _I]),
     "admm_dense": Kernel(
         "admm_dense_f32", "admm_dense.cu",
-        [_P] * 17 + [_I] * 7 + [_F, _F, _I, _F, _F]),
+        [_P] * 17 + [_I] * 8 + [_F, _F, _I, _F, _F]),
 }
 
 

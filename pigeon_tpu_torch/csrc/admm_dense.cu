@@ -1,11 +1,13 @@
-// OSQP ADMM iterations of the sparse MPC QP with a dense explicit K^-1
-// ("highest" precision, diagonal P): one thread block per instance, its
-// K^-1 and the nonzeros of its A resident in shared memory for the whole
-// call, and the early-exit tile of `tile` instances one thread block
-// cluster.
+// OSQP ADMM iterations of the hard MPC QPs with a dense explicit K^-1
+// ("highest" precision, a diagonal or a dense P): one thread block per
+// instance, its K^-1 and the nonzeros of its A resident in shared memory
+// for the whole call, and the early-exit tile of `tile` instances one
+// thread block cluster.
 //
 // Replaces the TPU kernel pigeon_tpu/solver/pallas_admm.py:_kernel in its
-// "highest" mode.  Per iteration (instance-local, scaled problem):
+// "highest" mode, with a diagonal P (the sparse QP) or a dense one
+// (`dense_P`, the condensed QP).  Per iteration (instance-local, scaled
+// problem):
 //   w  = rho z - y,  rhs = sigma x - q + A'w,  xt = rhs' K^-1,  zt = A xt
 //   x <- alpha xt + (1 - alpha) x
 //   zm = alpha zt + (1 - alpha) z,  z <- clip(zm + y (1/rho), l, u)
@@ -20,6 +22,17 @@
 // executed count (stats column 6) is exact.  check == 0 (or >= n_iters)
 // runs a fixed n_iters.
 //
+// P enters only the statistics, as P_u x_u = x_bar' (D P_u): with a
+// diagonal P the wrapper passes the vector P_u D and the product is
+// elementwise; with a dense P (`dense_P`) it passes the (n x n) matrix
+// PuD = D[:, None] P_u, which the block holds in shared memory beside K^-1
+// (42,436 B at the condensed QP's n = 103; loaded once per call with
+// cp.async, as K^-1 is, where reading it from L2 at every check would
+// move it again at each of a segment's checks), and each check forms
+// x_bar' PuD with a thread per column, rows ascending, in the K^-1
+// product's fixed order.  The diagonal build's shared memory and
+// arithmetic are unchanged by the dense mode.
+//
 // Residency.  Each block loads its instance's K^-1 (n x n; 148,996 B at
 // n = 193) with cp.async once per call, and A as its nonzeros: a row-ELL
 // of values (m x W, W = 11 at m = 290) packed by the wrapper with one
@@ -27,8 +40,10 @@
 // row-ELL slot, and a column-ELL of row-ELL slots, Wc = 15), plus the
 // vectors.  ~196 KB at n = 193, m = 290 (`smem_bytes`, mirrored by
 // pallas_admm.smem_bytes); a shape over the 227 KB a block may use is
-// refused (n > 211 at this m).  Each instance's matrices are read from
-// device memory once per call, not once per iteration.
+// refused (n > 211 at this m).  The condensed QP (n = 103, m = 200, W =
+// 39, Wc = 79) takes 146,712 B, 189,148 B with its dense P.  Each
+// instance's matrices are read from device memory once per call, not once
+// per iteration.
 //
 // Products, each in the summation order of the first (streaming) design,
 // so skipping A's zeros leaves every sum's rounding unchanged:
@@ -94,11 +109,11 @@ struct Args {
   float* __restrict__ z;              // (B, m) in/out
   float* __restrict__ y;              // (B, m) in/out
   const float* __restrict__ E;        // (B, m)
-  const float* __restrict__ PuD;      // (B, n)
+  const float* __restrict__ PuD;      // (B, n), or (B, n, n) if dense_P
   const float* __restrict__ qu;       // (B, n)
   const float* __restrict__ invDc;    // (B, n)
   float* __restrict__ stats;          // (B, 8)
-  int B, n, m, W, Wc, tile, n_iters, check;
+  int B, n, m, W, Wc, tile, n_iters, check, dense_P;
   float sigma, alpha, eps_abs, eps_rel;
 };
 
@@ -107,23 +122,26 @@ __host__ __device__ inline int round4(int v) { return (v + 3) & ~3; }
 // Shared memory of one block, in this order: floats v1 (n rounded up to 4,
 // 16-byte aligned for float4 reads); the row-ELL as (value, code) pairs
 // (m W float2); floats x, v2, q, PuD, qu,
-// invDc (n each), z, y, w, ax, rho, l, u, E (m each), st (8), K^-1 (n n); int
-// flags (2); shorts cslot, crow (n Wc each).
-__host__ __device__ inline size_t smem_bytes(int n, int m, int W, int Wc) {
-  const size_t floats = 6 * (size_t)n + 8 * (size_t)m + 8 + (size_t)n * n;
+// invDc (n each), z, y, w, ax, rho, l, u, E (m each), st (8), K^-1 (n n),
+// and with a dense P the matrix PuD (n n); int flags (2); shorts cslot,
+// crow (n Wc each).
+__host__ __device__ inline size_t smem_bytes(int n, int m, int W, int Wc,
+                                             int dense_P) {
+  const size_t floats = 6 * (size_t)n + 8 * (size_t)m + 8 + (size_t)n * n
+                        + (dense_P ? (size_t)n * n : 0);
   return 4 * (size_t)round4(n) + 8 * (size_t)m * W
          + 4 * floats + 8 + 4 * (size_t)n * Wc;
 }
 
 struct Smem {
   float *v1, *x, *v2, *q, *PuD, *qu, *invDc;
-  float *z, *y, *w, *ax, *rho, *l, *u, *E, *st, *K;
+  float *z, *y, *w, *ax, *rho, *l, *u, *E, *st, *K, *P;
   float2* vc;
   int* flags;
   short *cslot, *crow;
 };
 
-__device__ Smem carve(float* sh, int n, int m, int W, int Wc) {
+__device__ Smem carve(float* sh, int n, int m, int W, int Wc, int dense_P) {
   Smem s;
   s.v1 = sh;
   s.vc = reinterpret_cast<float2*>(s.v1 + round4(n));
@@ -143,7 +161,8 @@ __device__ Smem carve(float* sh, int n, int m, int W, int Wc) {
   s.E = s.u + m;
   s.st = s.E + m;
   s.K = s.st + 8;
-  s.flags = reinterpret_cast<int*>(s.K + n * n);
+  s.P = s.K + n * n;                      // the dense PuD, if dense_P
+  s.flags = reinterpret_cast<int*>(s.P + (dense_P ? n * n : 0));
   s.cslot = reinterpret_cast<short*>(s.flags + 2);
   s.crow = s.cslot + n * Wc;
   return s;
@@ -267,12 +286,23 @@ __device__ void iterate(const Args& a, const Smem& s) {
 }
 
 // Unscaled statistics of the block's instance into s.st (warp 0); returns
-// whether it has converged (uniform across the block).
+// whether it has converged (uniform across the block).  With a dense P,
+// P_u x_u = x_bar' PuD goes to v2 (free between iterations), a thread per
+// column k, rows ascending.
+template <bool DENSE_P>
 __device__ bool calc_stats(const Args& a, const Smem& s) {
   const int n = a.n, m = a.m;
   mat_vec(a, s, s.x, s.ax);                         // A x
-  for (int j = threadIdx.x; j < n; j += THREADS)    // A'y
+  for (int j = threadIdx.x; j < n; j += THREADS) {  // A'y (and P x)
     s.v1[j] = col_dot(a, s, j, s.y);
+    if constexpr (DENSE_P) {
+      const float* Pk = s.P + j;
+      float acc = 0.0f;
+#pragma unroll 4
+      for (int i = 0; i < n; ++i) acc = acc + s.x[i] * Pk[i * n];
+      s.v2[j] = acc;
+    }
+  }
   __syncthreads();
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   bool conv = true;
@@ -288,7 +318,9 @@ __device__ bool calc_stats(const Args& a, const Smem& s) {
     }
     float s1 = 0.0f, s4 = 0.0f, s5 = 0.0f, aqu = 0.0f;
     for (int j = lane; j < n; j += 32) {
-      const float Px_u = s.PuD[j] * s.x[j];
+      float Px_u;
+      if constexpr (DENSE_P) Px_u = s.v2[j];
+      else Px_u = s.PuD[j] * s.x[j];
       const float qu = s.qu[j];
       const float Aty_u = s.v1[j] * s.invDc[j];
       s1 = nmax(s1, fabsf(Px_u + qu + Aty_u));
@@ -310,10 +342,16 @@ __device__ bool calc_stats(const Args& a, const Smem& s) {
   return __syncthreads_and(conv) != 0;
 }
 
+template <bool DENSE_P>
 __device__ void load(const Args& a, const Smem& s, long long b) {
   const int n = a.n, m = a.m, W = a.W, Wc = a.Wc;
   const float* Kb = a.Kinv + b * n * n;
   for (int e = threadIdx.x; e < n * n; e += THREADS) cp_async4(s.K + e, Kb + e);
+  if constexpr (DENSE_P) {
+    const float* Pb = a.PuD + b * n * n;
+    for (int e = threadIdx.x; e < n * n; e += THREADS)
+      cp_async4(s.P + e, Pb + e);
+  }
   const float* Vb = a.Aval + b * m * W;
   for (int e = threadIdx.x; e < m * W; e += THREADS)
     cp_async4(&s.vc[e].x, Vb + e);
@@ -327,7 +365,7 @@ __device__ void load(const Args& a, const Smem& s, long long b) {
   for (int j = threadIdx.x; j < n; j += THREADS) {
     s.x[j] = a.x[b * n + j];
     s.q[j] = a.q[b * n + j];
-    s.PuD[j] = a.PuD[b * n + j];
+    if constexpr (!DENSE_P) s.PuD[j] = a.PuD[b * n + j];
     s.qu[j] = a.qu[b * n + j];
     s.invDc[j] = a.invDc[b * n + j];
   }
@@ -345,13 +383,16 @@ __device__ void load(const Args& a, const Smem& s, long long b) {
   __syncthreads();
 }
 
+// DENSE_P: P is the dense (n x n) PuD; false, the diagonal build
+template <bool DENSE_P>
 __global__ void __launch_bounds__(THREADS, 1)
 admm_dense_kernel(Args a) {
   extern __shared__ float4 sh4[];
-  const Smem s = carve(reinterpret_cast<float*>(sh4), a.n, a.m, a.W, a.Wc);
+  const Smem s = carve(reinterpret_cast<float*>(sh4), a.n, a.m, a.W, a.Wc,
+                       a.dense_P);
   const long long b = blockIdx.x;
   const bool active = b < a.B;               // uniform across the block
-  if (active) load(a, s, b);
+  if (active) load<DENSE_P>(a, s, b);
 
   int executed;
   if (0 < a.check && a.check < a.n_iters) {
@@ -364,7 +405,7 @@ admm_dense_kernel(Args a) {
       bool conv = true;                      // blocks past B
       if (active) {
         for (int t = 0; t < k_len; ++t) iterate(a, s);
-        conv = calc_stats(a, s);
+        conv = calc_stats<DENSE_P>(a, s);
       }
       if (a.tile > 1) {
         cg::cluster_group cluster = cg::this_cluster();
@@ -385,7 +426,7 @@ admm_dense_kernel(Args a) {
   } else {
     if (active) {
       for (int t = 0; t < a.n_iters; ++t) iterate(a, s);
-      calc_stats(a, s);
+      calc_stats<DENSE_P>(a, s);
     }
     executed = a.n_iters;
   }
@@ -416,13 +457,20 @@ cudaLaunchConfig_t launch_config(int B, int tile, size_t shmem,
   return cfg;
 }
 
-cudaError_t prepare(int n, int m, int W, int Wc, int tile, size_t* shmem) {
+using KernelFn = void (*)(Args);
+
+KernelFn kernel_of(int dense_P) {
+  return dense_P ? admm_dense_kernel<true> : admm_dense_kernel<false>;
+}
+
+cudaError_t prepare(int n, int m, int W, int Wc, int tile, int dense_P,
+                    size_t* shmem) {
   if (n < 1 || m < 1 || W < 1 || Wc < 1 || tile < 1 || tile > TILE_MAX
-      || (long long)m * W > 32767)
+      || (long long)m * W > 32767 || (dense_P != 0 && dense_P != 1))
     return cudaErrorInvalidValue;
-  *shmem = smem_bytes(n, m, W, Wc);
+  *shmem = smem_bytes(n, m, W, Wc, dense_P);
   if (*shmem > (size_t)SMEM_MAX) return cudaErrorInvalidValue;
-  return cudaFuncSetAttribute(admm_dense_kernel,
+  return cudaFuncSetAttribute(kernel_of(dense_P),
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
                               (int)*shmem);
 }
@@ -430,25 +478,26 @@ cudaError_t prepare(int n, int m, int W, int Wc, int tile, size_t* shmem) {
 }  // namespace
 
 // x, z and y are updated in place (the wrapper passes fresh copies).
+// PuD is (B, n), or (B, n, n) when dense_P is 1.
 extern "C" int admm_dense_f32(
     const float* Kinv, const float* Aval, const int* rcode,
     const short* cslot, const short* crow,
     const float* q, const float* l, const float* u, const float* rho,
     float* x, float* z, float* y, const float* E, const float* PuD,
     const float* qu, const float* invDc, float* stats, int B, int n, int m,
-    int W, int Wc, int tile, int n_iters, float sigma, float alpha,
-    int check, float eps_abs, float eps_rel, void* stream) {
+    int W, int Wc, int tile, int n_iters, int dense_P, float sigma,
+    float alpha, int check, float eps_abs, float eps_rel, void* stream) {
   size_t shmem = 0;
-  cudaError_t err = prepare(n, m, W, Wc, tile, &shmem);
+  cudaError_t err = prepare(n, m, W, Wc, tile, dense_P, &shmem);
   if (err != cudaSuccess || n_iters < 0 || check < 0)
     return (int)(err != cudaSuccess ? err : cudaErrorInvalidValue);
   if (B <= 0) return 0;
   Args a{Kinv, Aval, rcode, cslot, crow, q, l, u, rho, x, z, y, E,
          PuD, qu, invDc, stats, B, n, m, W, Wc, tile, n_iters, check,
-         sigma, alpha, eps_abs, eps_rel};
+         dense_P, sigma, alpha, eps_abs, eps_rel};
   cudaLaunchAttribute attr[1];
   const cudaLaunchConfig_t cfg = launch_config(B, tile, shmem, attr, stream);
-  err = cudaLaunchKernelEx(&cfg, admm_dense_kernel, a);
+  err = cudaLaunchKernelEx(&cfg, kernel_of(dense_P), a);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
@@ -456,12 +505,12 @@ extern "C" int admm_dense_f32(
 // How many clusters of `tile` blocks of this kernel the card holds at once
 // (cudaOccupancyMaxActiveClusters), into *out.
 extern "C" int admm_dense_max_clusters(int n, int m, int W, int Wc, int tile,
-                                       int* out) {
+                                       int dense_P, int* out) {
   size_t shmem = 0;
-  cudaError_t err = prepare(n, m, W, Wc, tile, &shmem);
+  cudaError_t err = prepare(n, m, W, Wc, tile, dense_P, &shmem);
   if (err != cudaSuccess) return (int)err;
   cudaLaunchAttribute attr[1];
   cudaLaunchConfig_t cfg = launch_config(tile, tile, shmem, attr, nullptr);
   cfg.numAttrs = 1;
-  return (int)cudaOccupancyMaxActiveClusters(out, admm_dense_kernel, &cfg);
+  return (int)cudaOccupancyMaxActiveClusters(out, kernel_of(dense_P), &cfg);
 }

@@ -4,8 +4,8 @@ batched control step `mpc_step_batched`, the single-vehicle `mpc_step`
 and the closed-loop `simulate`.
 
 Counterpart of `pigeon_tpu/mpc.py` for the soft condensed formulations,
-coupled and decoupled, and the sparse (hard-constraint) coupled
-formulation: path projection, node seeding, HJI constraint, exact
+coupled and decoupled, and the two hard-constraint coupled formulations,
+sparse and condensed: path projection, node seeding, HJI constraint, exact
 linearization and QP assembly, the ADMM solve, control extraction,
 clamping, NaN fallback and the HJI override.  Every tensor carries a leading
 batch dimension where the JAX package used `vmap`, and each `lax.scan`
@@ -15,9 +15,10 @@ Two routes, as in the JAX package.  `mpc_step_batched` (a fleet)
 linearizes through the structured Van Loan kernel and solves with
 `solve_qp_batched`; on the "lanes" backend with one segment
 (max_iter == check_every) the step makes no host sync, on the "pallas"
-backend (the sparse QP) one per solver segment but the last.  `mpc_step`
+backend (the hard QPs) one per solver segment but the last.  `mpc_step`
 (one vehicle) linearizes through the dense stage matrix on the dense
-expm kernel and solves with the single-instance `solve_qp`.
+expm kernel and solves with the single-instance `solve_qp` (on the
+"pallas" backend one dense ADMM kernel launch per segment).
 """
 
 from __future__ import annotations
@@ -48,8 +49,9 @@ from pigeon_tpu_torch.solver.admm import (QPData, QPSolution, QPWarmStart,
 class MPCConfig:
     """Static controller configuration, the same fields as
     `pigeon_tpu.mpc.MPCConfig`.  The port runs the soft condensed
-    formulations, coupled and decoupled, and the sparse coupled one
-    (`soft=False, condensed=False`, the JAX package's default);
+    formulations, coupled and decoupled, the sparse coupled one
+    (`soft=False, condensed=False`, the JAX package's default) and the
+    hard condensed coupled one (`soft=False, condensed=True`);
     `_check_supported` rejects the options it has not ported."""
 
     veh: VehicleParams
@@ -90,8 +92,6 @@ def _check_supported(cfg: MPCConfig):
         unsupported.append(f"unknown formulation {cfg.formulation!r}")
     if not cfg.soft and cfg.formulation == "decoupled":
         unsupported.append("the sparse decoupled QP is not ported")
-    if not cfg.soft and cfg.condensed:
-        unsupported.append("the hard condensed QP is not ported")
     if cfg.lin_method != "expm":
         unsupported.append("only lin_method='expm' is ported")
     if cfg.lin_substeps != 1:
@@ -153,39 +153,49 @@ class StepDiagnostics(NamedTuple):
     solution_finite: torch.Tensor
 
 
+def _hard(cfg: MPCConfig) -> bool:
+    """A hard-constraint coupled QP, sparse or condensed."""
+    return cfg.formulation == "coupled" and not cfg.soft
+
+
 def _sparse(cfg: MPCConfig) -> bool:
     """The sparse (hard-constraint) coupled QP."""
-    return cfg.formulation == "coupled" and not cfg.soft
+    return _hard(cfg) and not cfg.condensed
 
 
 def _layout(cfg: MPCConfig):
     if _sparse(cfg):
         return qp_coupled.get_layout(cfg.hz, cfg.coupled.use_walls)
+    if _hard(cfg):
+        return qp_condensed.get_layout(cfg.hz, cfg.coupled.use_walls)
     if cfg.formulation == "coupled":
         return qp_condensed.get_soft_layout(cfg.hz, cfg.coupled.use_walls)
     return qp_decoupled.get_soft_layout(cfg.hz)
 
 
 def _banded_plan_for(cfg: MPCConfig):
-    """The stage plan of the banded factor, for the sparse coupled QP."""
-    if cfg.solver.factor_method == "banded" and _sparse(cfg):
+    """The stage plan of the banded factor, for the sparse coupled QP (the
+    condensed QP's dense P has no banded form: its factor falls through
+    to "chol")."""
+    if (cfg.solver.factor_method in ("banded", "banded_cr")
+            and _sparse(cfg)):
         from pigeon_tpu_torch.solver.banded import coupled_stage_plan
         return coupled_stage_plan(cfg.hz, cfg.coupled.use_walls)
     return None
 
 
 def _a_pattern_for(cfg: MPCConfig):
-    """The sparse coupled QP's static nonzero pattern of A, for the
-    "pallas" pipeline's dense ADMM kernel."""
-    if cfg.solver.backend == "pallas" and _sparse(cfg):
+    """A hard QP's static nonzero pattern of A, for the "pallas"
+    pipeline's dense ADMM kernel."""
+    if cfg.solver.backend == "pallas" and _hard(cfg):
         from pigeon_tpu_torch.solver.pallas_admm import layout_pattern
         return layout_pattern(_layout(cfg).lay)
     return None
 
 
 def _eq_rows_for(cfg: MPCConfig):
-    """The statically known equality rows of the sparse coupled QP."""
-    return _layout(cfg).eq_rows if _sparse(cfg) else None
+    """The statically known equality rows of a hard coupled QP."""
+    return _layout(cfg).eq_rows if _hard(cfg) else None
 
 
 def init_carry(cfg: MPCConfig, batch: "int | None", dtype=torch.float32,
@@ -392,7 +402,7 @@ class _PreAux(NamedTuple):
     x_rel: torch.Tensor    # (B, 7) the HJI relative state
     us: torch.Tensor
     q0_node: torch.Tensor
-    G: "torch.Tensor | None" = None   # soft: the rollout map
+    G: "torch.Tensor | None" = None   # condensed: the rollout map
     g: "torch.Tensor | None" = None
     w: "torch.Tensor | None" = None   # soft: per-row penalty weights
 
@@ -405,7 +415,8 @@ def _pre_solve(cfg: MPCConfig, tube, cache, carry: MPCCarry, q0, u0,
     its warm-only branch when every carry is warm), so no host sync.
     Decoupled: always the trim-seeded nodes, no HJI row.  The coupled
     QP is the soft condensed one or, with `cfg.soft` False, the sparse
-    one (`qp/coupled.py`).  `unbatched`
+    one (`qp/coupled.py`) or with `cfg.condensed` the hard condensed one
+    (`qp/condensed.py`).  `unbatched`
     (set by `mpc_step`) takes the single-vehicle route of the assembly:
     dense linearization, sequential rollout."""
     veh, hz = cfg.veh, cfg.hz
@@ -422,7 +433,8 @@ def _pre_solve(cfg: MPCConfig, tube, cache, carry: MPCCarry, q0, u0,
         data = qp_decoupled.DecoupledStageData(dt=dt, qs=qs, us=us, ps=ps)
         sqp = qp_decoupled.build_qp_soft(veh, cfg.decoupled, hz, data,
                                          unbatched=unbatched)
-        return _pack_pre(carry, sqp, ts, s0, e0, *no_hji, x_rel, us, qs)
+        return _pack_pre(carry, QPData(*sqp[:5]), ts, s0, e0, *no_hji,
+                         x_rel, us, qs, G=sqp.G, g=sqp.g, w=sqp.w)
 
     cold = _nodes_coupled_cold(cfg, tube, q0, u0, ts, dt, s0, e0)
     if cfg.warm_nodes:
@@ -456,23 +468,29 @@ def _pre_solve(cfg: MPCConfig, tube, cache, carry: MPCCarry, q0, u0,
         V_hji, gradV = no_hji
 
     data = CoupledStageData(dt=dt, qs=qs, us=us, ps=ps, hji_M=M, hji_b=b)
+    G = g = w = None
     if _sparse(cfg):
         qp = qp_coupled.build_qp(veh, cfg.coupled, hz, data,
                                  lin_method=cfg.lin_method,
                                  unbatched=unbatched)
-        return _pack_pre(carry, qp, ts, s0, e0, V_hji, gradV, x_rel, us, qs)
-    sqp = qp_condensed.build_qp_soft(veh, cfg.coupled, hz, data,
-                                     unbatched=unbatched)
-    return _pack_pre(carry, sqp, ts, s0, e0, V_hji, gradV, x_rel, us, qs)
+    elif _hard(cfg):
+        cqp = qp_condensed.build_qp(veh, cfg.coupled, hz, data,
+                                    lin_method=cfg.lin_method,
+                                    unbatched=unbatched)
+        qp, G, g = QPData(*cqp[:5]), cqp.G, cqp.g
+    else:
+        sqp = qp_condensed.build_qp_soft(veh, cfg.coupled, hz, data,
+                                         unbatched=unbatched)
+        qp, G, g, w = QPData(*sqp[:5]), sqp.G, sqp.g, sqp.w
+    return _pack_pre(carry, qp, ts, s0, e0, V_hji, gradV, x_rel, us, qs,
+                     G, g, w)
 
 
-def _pack_pre(carry: MPCCarry, sqp, ts, s0, e0, V_hji, gradV, x_rel, us,
-              qs):
-    """The solver's inputs from an assembled QP (a soft QP, or the sparse
-    QP as QPData): (QPData, warm start masked by `carry.solved`,
-    _PreAux)."""
-    soft = not isinstance(sqp, QPData)
-    qp = QPData(sqp.P, sqp.q, sqp.A, sqp.l, sqp.u) if soft else sqp
+def _pack_pre(carry: MPCCarry, qp: QPData, ts, s0, e0, V_hji, gradV, x_rel,
+              us, qs, G=None, g=None, w=None):
+    """The solver's inputs from an assembled QP, with the rollout map (G,
+    g) of a condensed QP and the penalty weights `w` of a soft one:
+    (QPData, warm start masked by `carry.solved`, _PreAux)."""
     solved = carry.solved
     warm_start = QPWarmStart(
         x=torch.where(solved[:, None], carry.warm_x, 0.0),
@@ -480,9 +498,7 @@ def _pack_pre(carry: MPCCarry, sqp, ts, s0, e0, V_hji, gradV, x_rel, us,
         z=torch.where(solved[:, None], carry.warm_z, 0.0),
         rho_scale=torch.where(solved, carry.warm_rho, 1.0))
     aux = _PreAux(ts=ts, s0=s0, e0=e0, V_hji=V_hji, gradV=gradV,
-                  x_rel=x_rel, us=us, q0_node=qs[:, 0])
-    if soft:
-        aux = aux._replace(G=sqp.G, g=sqp.g, w=sqp.w)
+                  x_rel=x_rel, us=us, q0_node=qs[:, 0], G=G, g=g, w=w)
     return qp, warm_start, aux
 
 
@@ -494,6 +510,10 @@ def _post_solve(cfg: MPCConfig, carry: MPCCarry, q0, sol: QPSolution,
     if _sparse(cfg):
         u2 = qp_coupled.extract_control(veh, hz, sol.x)
         q_sol, u_sol = qp_coupled.extract_trajectory(hz, sol.x, veh)
+    elif _hard(cfg):
+        u2 = qp_condensed.extract_control(veh, hz, sol.x)
+        q_sol, u_sol = qp_condensed.extract_trajectory(hz, sol.x, veh, aux.G,
+                                                       aux.g)
     elif cfg.formulation == "coupled":
         u2 = qp_condensed.extract_control_soft(veh, hz, sol.x)
         q_sol, u_sol = qp_condensed.extract_trajectory_soft(
@@ -554,9 +574,10 @@ def mpc_step_batched(cfg: MPCConfig, tube: trj.TrajectoryTube,
     The solver is `cfg.solver.backend`'s, as in the JAX package.  The
     default, "xla", is the plain PyTorch ADMM on whatever device the
     tensors lie.  The soft QPs' solver kernels (`chol_inverse`,
-    `admm_iterations`) run under backend="lanes"; the sparse QP's
-    (`ruiz`, `admm_dense`) under backend="pallas", with the
-    `banded_chol` factor under factor_method="banded" (also with "xla").
+    `admm_iterations`) run under backend="lanes"; the hard QPs' (`ruiz`,
+    `admm_dense`) under backend="pallas", with the sparse QP's
+    `banded_chol` factor under factor_method="banded" (also with "xla";
+    the condensed QP's dense P falls through to "chol").
     A caller sets them with `dataclasses.replace(cfg,
     solver=SolverOptions(backend=..., ...))`.  The linearization and
     rollout kernels run under any backend."""
@@ -581,8 +602,9 @@ def mpc_step(cfg: MPCConfig, tube: trj.TrajectoryTube,
     B=1: the horizon is linearized through the dense Van Loan stage
     matrix on `discretize.expm_dense`, the decoupled rollout is the
     sequential loop, and the QP is solved by the single-instance
-    `solve_qp`, whatever `cfg.solver.backend` says (the sparse QP's
-    banded factor runs its plain stage scan there)."""
+    `solve_qp`: on backend "pallas" its segments run on the dense ADMM
+    kernel at tile 1, on any other backend in plain PyTorch (the sparse
+    QP's banded factor runs its plain stage scan there)."""
     _check_supported(cfg)
     like = dict(dtype=carry.warm_x.dtype, device=carry.warm_x.device)
     lift = lambda v: torch.as_tensor(v, **like)[None]
@@ -594,7 +616,8 @@ def mpc_step(cfg: MPCConfig, tube: trj.TrajectoryTube,
                    QPWarmStart(*[x[0] for x in warm]), cfg.solver,
                    banded_plan=_banded_plan_for(cfg),
                    eq_rows=_eq_rows_for(cfg),
-                   w_soft=None if aux.w is None else aux.w[0])
+                   w_soft=None if aux.w is None else aux.w[0],
+                   a_pattern=_a_pattern_for(cfg))
     new_carry, u3, diag = _post_solve(
         cfg, carry_b, q0_b, QPSolution(*[x[None] for x in sol]), aux)
     return (MPCCarry(*[x[0] for x in new_carry]), u3[0],

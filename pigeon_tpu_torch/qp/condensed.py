@@ -1,15 +1,23 @@
-"""Soft condensed coupled tracking QP, batched over instances.
+"""Condensed coupled tracking QPs, batched over instances.
 
-Counterpart of the soft part of `pigeon_tpu/qp/condensed.py`
-(condensed.py:322-395, 563-788).  States are eliminated through the
-horizon dynamics (q_{t+1} = G_t u + g_t), the q0/u0 pins are substituted,
-every slack variable becomes an exact L1 penalty handled by the solver's
-shrink prox, and the slew variables fold into the dense Hessian.  For the
-live coupled horizon (N_short=5, N_long=10): n = 30 variables, m = 124
-rows, no equality rows.
+Counterpart of `pigeon_tpu/qp/condensed.py`.  States are eliminated
+through the horizon dynamics, q_{t+1} = G_t [q0; u] + g_t, so the state
+tracking cost becomes a dense quadratic block.  Two formulations:
 
-Row order: ux (T, hard dense) | fx (N-1, hard) | hji (S-1, soft) |
-delta (T, hard) | envelope (4T, soft) | rate (T, hard).
+- the hard condensed QP (condensed.py:50-307, 310, 791;
+  `x1_coupled_config(condensed=True)`): the sparse QP's variables but the
+  states, q0 and u0 pinned by equality rows, the slacks kept as
+  variables, a dense P = Gsel' W Gsel; for the live horizon
+  (N_short=5, N_long=10) n = 103, m = 200, the 38 equality rows first.
+  Row order: diff(delta) (T), diff(Fx) (T), q0 pin (6), u0 pin (2) |
+  sig >= 0 (2T), sHJI >= 0 (S), Ux t=0 (1), Ux t>=1 (T, dense over
+  [q0; u]), Fx (N), HJI (S), delta (T), envelope (4T, dense), rate (T).
+- the soft condensed QP (condensed.py:322-395, 563-788): the q0/u0 pins
+  substituted, every slack an exact L1 penalty handled by the solver's
+  shrink prox, the slew variables folded into the dense Hessian; n = 30,
+  m = 124, no equality rows.  Row order: ux (T, hard dense) | fx (N-1,
+  hard) | hji (S-1, soft) | delta (T, hard) | envelope (4T, soft) |
+  rate (T, hard).
 """
 
 from __future__ import annotations
@@ -26,7 +34,263 @@ from pigeon_tpu_torch import dynamics as dyn
 from pigeon_tpu_torch.config import (CoupledControlParams, HorizonParams,
                                      VehicleParams)
 from pigeon_tpu_torch.qp.coupled import CoupledStageData, u_normalization
-from pigeon_tpu_torch.qp.structure import INF
+from pigeon_tpu_torch.qp.structure import INF, QPLayout
+
+
+# ---------------------------------------------------------------------------
+# The hard condensed QP
+# ---------------------------------------------------------------------------
+
+class CondensedLayout:
+    """Static plan: variable indices, the row allocation (equalities
+    first) and the [q0; u] column map of the dense condensed rows."""
+
+    def __init__(self, hz: HorizonParams, use_walls: bool = False):
+        if use_walls:
+            raise NotImplementedError(
+                "the port's hard condensed QP has no wall rows yet")
+        S = hz.N_short
+        N, T = hz.N, hz.N_short + hz.N_long
+        lay = QPLayout()
+        eq_rows = []
+        self.q0 = lay.add_vars((6,))
+        self.u = lay.add_vars((N, 2))
+        self.sig = lay.add_vars((T, 2))
+        self.sHJI = lay.add_vars((S,))
+        self.dd = lay.add_vars((T,))
+        self.dF = lay.add_vars((T,))
+        # [q0; u] column order of the dense rollout rows (contiguous: q0
+        # then u)
+        self.gcols = np.concatenate([self.q0, self.u.ravel()])
+        nG = self.gcols.size                        # 6 + 2N
+
+        # rows in allocation order; `build_qp` supplies each entry's values
+        # in the same order.  Equality rows first.
+        r = lay.add_rows(T)                         # diff(delta) == dd
+        eq_rows.append(r)
+        lay.entry(r, self.u[1:, 0]); lay.entry(r, self.u[:-1, 0])
+        lay.entry(r, self.dd)
+        r = lay.add_rows(T)                         # diff(Fx) == dF
+        eq_rows.append(r)
+        lay.entry(r, self.u[1:, 1]); lay.entry(r, self.u[:-1, 1])
+        lay.entry(r, self.dF)
+        r = lay.add_rows(6)                         # q0 == q_curr
+        eq_rows.append(r)
+        lay.entry(r, self.q0)
+        r = lay.add_rows(2)                         # u0 == u_curr
+        eq_rows.append(r)
+        lay.entry(r, self.u[0])
+        # ---- inequality rows ------------------------------------------
+        r = lay.add_rows(2 * T)                     # sig >= 0
+        lay.entry(r, self.sig.ravel())
+        r = lay.add_rows(S)                         # sHJI >= 0
+        lay.entry(r, self.sHJI)
+        r = lay.add_rows(1)                         # Ux bound t=0 (on q0)
+        lay.entry(r, self.q0[1])
+        r = lay.add_rows(T).reshape(T, 1)           # Ux bounds t>=1: dense
+        lay.entry(np.broadcast_to(r, (T, nG)), self.gcols[None, :])
+        r = lay.add_rows(N)                         # Fx bounds
+        lay.entry(r, self.u[:, 1])
+        r = lay.add_rows(S)                         # HJI half-planes
+        lay.entry(r[:, None], self.u[:S])
+        lay.entry(r, self.sHJI)
+        r = lay.add_rows(T)                         # delta bounds t>=1
+        lay.entry(r, self.u[1:, 0])
+        r = lay.add_rows(4 * T).reshape(T, 4)       # envelope: dense rows
+        lay.entry(np.broadcast_to(r[:, :, None], (T, 4, nG)),
+                  self.gcols[None, None, :])
+        lay.entry(r, self.sig[:, [0, 0, 1, 1]])     # -slacks
+        r = lay.add_rows(T)                         # ddelta rate bounds
+        lay.entry(r, self.dd)
+        lay.finalize()
+        self.lay = lay
+        self.n, self.m = lay.n, lay.m
+        self.eq_rows = np.concatenate(eq_rows)
+        assert np.array_equal(self.eq_rows, np.arange(self.eq_rows.size))
+
+
+@functools.lru_cache(maxsize=None)
+def get_layout(hz: HorizonParams, use_walls: bool = False
+               ) -> CondensedLayout:
+    return CondensedLayout(hz, use_walls)
+
+
+class CondensedQP(NamedTuple):
+    """Dense-P QPs and the rollout map for state recovery, batched."""
+
+    P: torch.Tensor        # (B, n, n) dense Hessian (1/2 x'Px convention)
+    q: torch.Tensor        # (B, n)
+    A: torch.Tensor        # (B, m, n)
+    l: torch.Tensor        # (B, m)
+    u: torch.Tensor        # (B, m)
+    G: torch.Tensor        # (B, T, 6, 6+2N) state rollout map over [q0; u]
+    g: torch.Tensor        # (B, T, 6) rollout offsets
+
+
+def build_qp(veh: VehicleParams, ctl: CoupledControlParams,
+             hz: HorizonParams, data: CoupledStageData,
+             lin_method: str = "expm", unbatched: bool = False
+             ) -> CondensedQP:
+    """Linearize along the horizon, roll the LTV models into the dense
+    [q0; u] map and assemble the hard condensed QPs of a batch (the
+    "expm" path of `pigeon_tpu.qp.condensed.build_qp`).  The rollout is
+    the JAX package's static unroll, a loop over the T stages.
+    `unbatched` takes the dense linearization of the JAX package's
+    single-vehicle step."""
+    if lin_method != "expm":
+        raise NotImplementedError(
+            f"lin_method={lin_method!r} is not ported (only 'expm')")
+    S, N = hz.N_short, hz.N
+    T = S + hz.N_long
+    L = get_layout(hz, ctl.use_walls)
+    dt, qs, us, ps = data.dt, data.qs, data.us, data.ps
+    Bn = qs.shape[0]
+    like = dict(dtype=qs.dtype, device=qs.device)
+    unorm = torch.as_tensor(u_normalization(veh), **like)
+
+    def f(q, ur):
+        return dyn.vehicle_ode(veh, "tracking", q, ur[..., :2], ur[..., 2:])
+
+    ur = torch.cat([us, ps], dim=-1)
+    A_all, B0_all, Bf_all, c_all = dz.linearize_horizon_fused(
+        f, qs, ur, dt, S, 2, squarings=4, order=6, dense=unbatched)
+    B0n = B0_all * unorm
+    Bfn = Bf_all * unorm
+
+    # ---- rollout map: q_{t+1} = G[t] [q0; u] + g[t] -------------------
+    Gp = torch.cat([torch.eye(6, **like).expand(Bn, 6, 6),
+                    torch.zeros((Bn, 6, 2 * N), **like)], dim=-1)
+    gp = torch.zeros((Bn, 6), **like)
+    G_list, g_list = [], []
+    for t in range(T):
+        Gn = A_all[:, t] @ Gp
+        c0 = 6 + 2 * t
+        Gn[:, :, c0:c0 + 2] += B0n[:, t]
+        Gn[:, :, c0 + 2:c0 + 4] += Bfn[:, t]
+        gn = _mv(A_all[:, t], gp) + c_all[:, t]
+        G_list.append(Gn)
+        g_list.append(gn)
+        Gp, gp = Gn, gn
+    G = torch.stack(G_list, dim=1)                   # (B, T, 6, nG)
+    g = torch.stack(g_list, dim=1)                   # (B, T, 6)
+
+    # per-stage envelope and bounds at the t+1 node states
+    Ux_t = qs[:, 1:, 1]
+    Fxf_t, Fxr_t = dyn.longitudinal_split(veh, us[:, 1:, 1])
+    lim = dyn.stable_limits(veh, Ux_t, Fxf_t, Fxr_t)
+    d_min = torch.clamp(lim.delta_min, min=-veh.delta_max) / unorm[0]
+    d_max = torch.clamp(lim.delta_max, max=veh.delta_max) / unorm[0]
+    Fx_hi = torch.clamp(veh.Px_max / Ux_t, max=veh.Fx_max) / unorm[1]
+    dd_lim = ctl.delta_dot_max * dt / unorm[0]
+
+    q_curr = qs[:, 0]
+    u_curr = us[:, 0] / unorm
+
+    H_veh = lim.H_veh.to(qs.dtype).expand(Bn, T, 4, 2)
+    Henv = torch.einsum("btij,btjk->btik", H_veh, G[:, :, 2:4, :])
+    Henv_off = torch.einsum("btij,btj->bti", H_veh, g[:, :, 2:4])
+
+    ones = lambda *shape: torch.ones((Bn,) + shape, **like)
+    neg1 = lambda *shape: -ones(*shape)
+    values = [
+        ones(T), neg1(T), neg1(T),                   # delta diff
+        ones(T), neg1(T), neg1(T),                   # Fx diff
+        ones(6),                                     # q0 pin
+        ones(2),                                     # u0 pin
+        ones(2 * T),                                 # sig >= 0
+        ones(S),                                     # sHJI >= 0
+        ones(1),                                     # Ux t=0
+        G[:, :, 1, :],                               # Ux t>=1 (dense)
+        ones(N),                                     # Fx bounds
+        (data.hji_M * unorm)[:, None, :].expand(Bn, S, 2), ones(S),  # HJI
+        ones(T),                                     # delta bounds
+        Henv, neg1(T, 4),                            # envelope (dense)
+        ones(T),                                     # dd bounds
+    ]
+    A = L.lay.assemble_A(values)
+
+    full = lambda k, v: torch.full((Bn, k), v, **like)
+    zeros = lambda k: full(k, 0.0)
+    lo = torch.cat([
+        zeros(T), zeros(T),                          # diffs
+        q_curr, u_curr,                              # pins
+        zeros(2 * T),                                # sig
+        zeros(S),                                    # sHJI
+        full(1, ctl.V_min),                          # Ux t=0
+        ctl.V_min - g[:, :, 1],                      # Ux t>=1
+        full(N, veh.Fx_min / float(u_normalization(veh)[1])),
+        (-data.hji_b)[:, None].expand(Bn, S),        # HJI
+        d_min,
+        full(4 * T, -INF),                           # envelope
+        -dd_lim,
+    ], dim=-1)
+    hi = torch.cat([
+        zeros(T), zeros(T),
+        q_curr, u_curr,
+        full(2 * T, INF), full(S, INF),
+        full(1, ctl.V_max),
+        ctl.V_max - g[:, :, 1],
+        torch.cat([full(1, INF), Fx_hi], dim=-1),    # Fx: t=0 unbounded
+        full(S, INF),
+        d_max,
+        (lim.G_veh.to(qs.dtype) - Henv_off).reshape(Bn, -1),
+        dd_lim,
+    ], dim=-1)
+
+    # ---- objective --------------------------------------------------------
+    # state tracking cost folded through the rollout: a dense block over
+    # [q0; u] (Parametron's x'Qx convention -> 1/2 x'Px needs P = 2Q)
+    Wst = 2.0 * dt[..., None] * torch.stack(
+        [torch.full_like(dt, ctl.Q_ds), torch.full_like(dt, ctl.Q_dpsi),
+         torch.full_like(dt, ctl.Q_e)], dim=-1)                # (B, T, 3)
+    sel = torch.tensor([0, 4, 5], device=qs.device)
+    Gsel = G[:, :, sel, :]                                     # (B, T, 3, nG)
+    gsel = g[:, :, sel]                                        # (B, T, 3)
+    Pblock = torch.einsum("btkn,btk,btkm->bnm", Gsel, Wst, Gsel)
+    qblock = torch.einsum("btkn,btk,btk->bn", Gsel, Wst, gsel)
+
+    gc = torch.as_tensor(L.gcols, device=qs.device)
+    bidx = torch.arange(Bn, device=qs.device)[:, None, None]
+    P = torch.zeros((Bn, L.n, L.n), **like).index_put_(
+        (bidx, gc[None, :, None], gc[None, None, :]), Pblock,
+        accumulate=True)
+    diag = torch.zeros((Bn, L.n), **like)
+    diag[:, L.u[1:, 0]] = 2.0 * ctl.R_delta * dt
+    diag[:, L.u[1:, 1]] = 2.0 * ctl.R_Fx * dt
+    diag[:, L.dd] = 2.0 * ctl.R_ddelta / dt
+    diag[:, L.dF] = 2.0 * ctl.R_dFx / dt
+    P = P + torch.diag_embed(diag)
+    qlin = torch.zeros((Bn, L.n), **like)
+    qlin[:, gc] += qblock
+    qlin[:, L.sig[:, 0]] += ctl.W_beta * dt
+    qlin[:, L.sig[:, 1]] += ctl.W_r * dt
+    qlin[:, L.sHJI] += torch.where(
+        torch.arange(S, device=qs.device) < ctl.N_HJI,
+        torch.full((S,), ctl.W_HJI, **like), torch.zeros((S,), **like))
+    return CondensedQP(P=P, q=qlin, A=A, l=lo, u=hi, G=G, g=g)
+
+
+def extract_control(veh: VehicleParams, hz: HorizonParams, x,
+                    use_walls: bool = False):
+    """Next physical control (delta, Fx) per instance, x (B, n)
+    (reference `get_next_control`)."""
+    L = get_layout(hz, use_walls)
+    unorm = torch.as_tensor(u_normalization(veh), dtype=x.dtype,
+                            device=x.device)
+    return x[:, L.u[1]] * unorm
+
+
+def extract_trajectory(hz: HorizonParams, x, veh: VehicleParams, G, g,
+                       use_walls: bool = False):
+    """Full (q, u) solutions (B, N, 6), (B, N, 2) for warm-start
+    resampling: the states through the rollout map
+    q_{t+1} = G_t [q0; u] + g_t."""
+    L = get_layout(hz, use_walls)
+    unorm = torch.as_tensor(u_normalization(veh), dtype=x.dtype,
+                            device=x.device)
+    q_tail = torch.einsum("btij,bj->bti", G, x[:, L.gcols]) + g
+    q_sol = torch.cat([x[:, L.q0][:, None], q_tail], dim=1)
+    return q_sol, x[:, L.u] * unorm
 
 
 class SoftCondensedLayout:

@@ -140,25 +140,26 @@ def _factor_inv(Pb, Ab, rho_vec, sigma: float, opts: SolverOptions,
 
     "chol": Cholesky and the triangular inverse.  "ns": Newton-Schulz
     X <- X (2I - K X) from X0 = K / ||K||_inf^2, `opts.ns_iters` steps,
-    symmetrized.  "banded": the block-tridiagonal stage factor of
-    `solver/banded.py` for a diagonal P and a `banded_plan`, its stage
-    recursion on the `banded_chol` kernel unless `unbatched` (the
-    single-instance route, where the JAX package runs its XLA scan)."""
+    symmetrized.  "banded" and "banded_cr": the block-tridiagonal stage
+    factor of `solver/banded.py` for a diagonal P and a `banded_plan`,
+    "banded" its stage recursion (on the `banded_chol` kernel unless
+    `unbatched`, the single-instance route, where the JAX package runs
+    its XLA scan), "banded_cr" block cyclic reduction; without a plan, or
+    with a dense P, both fall through to "chol", as in the JAX
+    package."""
     method = opts.factor_method
-    if method == "banded":
-        if banded_plan is None or Pb.dim() != Ab.dim() - 1:
-            raise NotImplementedError(
-                "factor_method='banded' without a banded_plan or with a "
-                "dense P (the JAX package falls back to 'chol' there) is "
-                "not ported")
-        from pigeon_tpu_torch.solver.banded import factor_inv_banded
-        slots, n_, bw, nb = banded_plan
-        return factor_inv_banded(Pb, Ab, rho_vec, sigma, slots, n_, bw, nb,
-                                 tp_axis=opts.tp_axis, kernel=not unbatched)
-    if method not in ("chol", "ns"):
+    if method not in ("chol", "ns", "banded", "banded_cr"):
         raise NotImplementedError(
             f"factor_method={method!r} is not ported (only 'chol', 'ns', "
-            f"'banded')")
+            f"'banded', 'banded_cr')")
+    if (method in ("banded", "banded_cr") and banded_plan is not None
+            and Pb.dim() == Ab.dim() - 1):
+        from pigeon_tpu_torch.solver.banded import factor_inv_banded
+        slots, n_, bw, nb = banded_plan
+        return factor_inv_banded(
+            Pb, Ab, rho_vec, sigma, slots, n_, bw, nb, tp_axis=opts.tp_axis,
+            method="cr" if method == "banded_cr" else "scan",
+            kernel=not unbatched)
     n = Pb.shape[-1]
     eye = torch.eye(n, dtype=Ab.dtype, device=Ab.device)
     K = (Ab.transpose(-1, -2) * rho_vec[..., None, :]) @ Ab
@@ -195,18 +196,16 @@ def _mtv(M, v):
 
 def _solve_masked(qp: QPData, warm: "QPWarmStart | None",
                   opts: SolverOptions, w_soft=None, banded_plan=None,
-                  unbatched: bool = False) -> QPSolution:
+                  unbatched: bool = False, a_pattern=None) -> QPSolution:
     """The batched solve: every leaf of `qp` and `warm` has a leading
     batch dimension, `w_soft` is None or (B, m).  `unbatched` marks the
-    single-instance route (`solve_qp`)."""
+    single-instance route (`solve_qp`); there backend "pallas" (hard rows
+    only) runs each segment on the dense ADMM kernel (`a_pattern` as in
+    `solve_qp_batched`)."""
     dtype, dev = qp.q.dtype, qp.q.device
     B = qp.q.shape[0]
     if warm is None:
         warm = cold_start(qp)
-    if opts.backend == "pallas" and w_soft is None:
-        raise NotImplementedError(
-            "solve_qp with backend 'pallas' (one instance through the dense "
-            "ADMM kernel) is not ported; solve_qp_batched runs it")
 
     if opts.scaling_iters > 0:
         qps, D, E, c = ruiz(qp, opts.scaling_iters)
@@ -248,7 +247,13 @@ def _solve_masked(qp: QPData, warm: "QPWarmStart | None",
                                                                amax_q)
         return r_prim, r_dual, eps_prim, eps_dual, m_prim, m_dual
 
+    kernel_iterate = (
+        _kernel_segment(Ab, qb, lb, ub, opts, a_pattern)
+        if unbatched and opts.backend == "pallas" and wb is None else None)
+
     def iterate(Kinv, rho_vec, x, z, y):
+        if kernel_iterate is not None:
+            return kernel_iterate(Kinv, rho_vec, x, z, y)
         cap = None if wb is None else wb / rho_vec
         for _ in range(opts.check_every):
             rhs = sigma * x - qb + _mtv(Ab, rho_vec * z - y)
@@ -317,9 +322,46 @@ def _solve_masked(qp: QPData, warm: "QPWarmStart | None",
         dual_res=r_dual, converged=converged, rho_scale=rho_scale)
 
 
+def _kernel_segment(Ab, qb, lb, ub, opts: SolverOptions, a_pattern=None):
+    """One segment of `opts.check_every` iterations on the dense ADMM
+    kernel at tile 1 without its statistics or early exit (the JAX
+    package's unbatched "pallas" route, admm.py:286-294, which runs mode
+    "highest" whatever `opts.pallas_precision` says): the kernel computes
+    in float32, the iterates return in the QP's dtype, and the caller
+    computes the residuals.  On the card A is packed into
+    `a_pattern`'s ELL form once (the pattern of A itself when None)."""
+    from pigeon_tpu_torch.solver.pallas_admm import admm_iterations
+
+    dtype = qb.dtype
+    f32 = lambda t: t.to(torch.float32).contiguous()
+    ops = [f32(t) for t in (Ab, qb, lb, ub)]
+    ell = _ell_form(ops[0], a_pattern)
+
+    def run(Kinv, rho_vec, x, z, y):
+        out = admm_iterations(f32(Kinv), *ops, f32(rho_vec), f32(x), f32(z),
+                              f32(y), opts.check_every, float(opts.sigma),
+                              float(opts.alpha), tile=1, **ell)
+        return tuple(t.to(dtype) for t in out[:3])
+
+    return run
+
+
+def _ell_form(A, a_pattern=None) -> dict:
+    """The dense ADMM kernel's A on the card: `a_pattern` (the pattern of
+    the batch A when None, one host read) and A packed into it once, as
+    keyword arguments of `pallas_admm.admm_iterations`; nothing for a CPU
+    tensor, whose plain version reads A dense."""
+    from pigeon_tpu_torch.solver.pallas_admm import pack, pattern_from
+
+    if A.device.type == "cpu":
+        return {}
+    pattern = a_pattern if a_pattern is not None else pattern_from(A)
+    return dict(pattern=pattern, A_packed=pack(A, pattern))
+
+
 def solve_qp(qp: QPData, warm: "QPWarmStart | None" = None,
              opts: SolverOptions = SolverOptions(), banded_plan=None,
-             eq_rows=None, w_soft=None) -> QPSolution:
+             eq_rows=None, w_soft=None, a_pattern=None) -> QPSolution:
     """Solve one QP: P (n,) or (n, n), q (n,), A (m, n), l, u (m,).
 
     banded_plan: the static stage plan (`solver/banded.py`) that
@@ -330,12 +372,15 @@ def solve_qp(qp: QPData, warm: "QPWarmStart | None" = None,
     finite-weight row's z-update is the shrinkage prox of
     W dist(., [l, u]) in place of the box projection.  As in the JAX
     package, a soft solve runs this iteration body whatever `opts.backend`
-    says."""
+    says.  A hard solve on backend "pallas" runs each segment on the
+    dense ADMM kernel at tile 1 (`_kernel_segment`; `a_pattern` A's
+    static nonzero pattern for it) and the rest of the solver here."""
     lift = lambda t: None if t is None else t[None]
     if warm is not None:
         warm = QPWarmStart(*[lift(t) for t in warm])
     sol = _solve_masked(QPData(*[t[None] for t in qp]), warm, opts,
-                        lift(w_soft), banded_plan, unbatched=True)
+                        lift(w_soft), banded_plan, unbatched=True,
+                        a_pattern=a_pattern)
     return QPSolution(*[t[0] for t in sol])
 
 
@@ -347,7 +392,7 @@ def solve_qp_batched(qp: QPData, warm: QPWarmStart,
     backend "xla": `solve_qp` per instance, as a masked batch; "lanes":
     the lane solver on its CUDA kernels (`solver/lane_admm.py`); "pallas":
     the natively batched pipeline (`_solve_qp_pallas_batched`) for hard
-    QPs with a diagonal P.  w_soft: (m,) or (B, m), for "xla" and
+    QPs, with a diagonal or a dense P.  w_soft: (m,) or (B, m), for "xla" and
     "lanes".  eq_rows: the statically known equality rows, which only the
     mixed-precision kernel modes (not ported) would use.  a_pattern: A's
     static nonzero pattern (`pallas_admm.EllPattern`) for "pallas"'s dense
@@ -444,15 +489,15 @@ def _solve_qp_pallas_batched(qp: QPData, warm: QPWarmStart,
     each with the in-kernel early exit per tile of `opts.pallas_tile`
     instances.  On the card the scaled A is packed into `a_pattern`'s ELL
     form once per solve (the pattern of the batch when None).  The kernels
-    compute in float32, the rest in the QP's dtype."""
-    from pigeon_tpu_torch.solver.pallas_admm import (admm_iterations, pack,
-                                                      pattern_from)
+    compute in float32, the rest in the QP's dtype.
+
+    A dense P (the condensed QP, JAX admm.py:446-463): the Ruiz kernel
+    scales from the row maxima of |P| in place of the diagonal, the
+    scaled P = c D P D is formed here, and the ADMM kernel's statistics
+    take P x from the dense unscaled P."""
+    from pigeon_tpu_torch.solver.pallas_admm import admm_iterations
     from pigeon_tpu_torch.solver.pallas_ruiz import ruiz_batched
 
-    if qp.P_diag.dim() == 3:
-        raise NotImplementedError(
-            "the pallas pipeline with a dense P (the condensed QP) is not "
-            "ported")
     if opts.bf16_bulk_iters > 0:
         raise NotImplementedError(
             "the bf16 bulk phase (bf16_bulk_iters) is not ported")
@@ -461,10 +506,18 @@ def _solve_qp_pallas_batched(qp: QPData, warm: QPWarmStart,
             f"pallas_precision={opts.pallas_precision!r} is not ported "
             f"(only 'highest')")
     dtype = qp.q.dtype
+    dense_P = qp.P_diag.dim() == 3
     f32 = lambda t: t.to(torch.float32).contiguous()
     if opts.scaling_iters > 0:
-        out = ruiz_batched(*[f32(t) for t in qp], iters=opts.scaling_iters)
+        # dense P: scale from the row maxima of |P| (its diagonal alone
+        # underestimates the condensed G'WG block's scale)
+        P_scale = qp.P_diag.abs().amax(dim=-1) if dense_P else qp.P_diag
+        out = ruiz_batched(f32(P_scale), *[f32(t) for t in qp[1:]],
+                           iters=opts.scaling_iters)
         Pb, qb, Ab, lb, ub, D, E, c = [t.to(dtype) for t in out]
+        if dense_P:
+            Pb = (c[:, None, None] * qp.P_diag * D[:, :, None]
+                  * D[:, None, :])
     else:
         Pb, qb, Ab, lb, ub = qp
         D, E = torch.ones_like(qp.q), torch.ones_like(qp.l)
@@ -477,17 +530,13 @@ def _solve_qp_pallas_batched(qp: QPData, warm: QPWarmStart,
 
     kernel_ops = [f32(t) for t in (Ab, qb, lb, ub)]
     scalings = tuple(f32(t) for t in (D, E, c, qp.P_diag, qp.q))
-    ell = {}
-    if kernel_ops[0].device.type != "cpu":
-        pattern = (a_pattern if a_pattern is not None
-                   else pattern_from(kernel_ops[0]))
-        ell = dict(pattern=pattern, A_packed=pack(kernel_ops[0], pattern))
+    ell = _ell_form(kernel_ops[0], a_pattern)
 
     def run_iters(fac, x, z, y):
         return admm_iterations(
             fac[0], *kernel_ops, fac[1], x, z, y, opts.check_every, sigma,
             float(opts.alpha), tile=opts.pallas_tile, scalings=scalings,
-            check=int(opts.pallas_check_inner),
+            check=int(opts.pallas_check_inner), dense_P=dense_P,
             eps_abs=float(opts.eps_abs), eps_rel=float(opts.eps_rel), **ell)
 
     return run_segments(qp, warm, opts, D, E, c, factor, run_iters,

@@ -1,6 +1,6 @@
 """Block-banded KKT factorization of the sparse coupled MPC QP, batched
-over instances (counterpart of `pigeon_tpu/solver/banded.py`, scan
-method).
+over instances (counterpart of `pigeon_tpu/solver/banded.py`: the scan
+and the cyclic-reduction methods).
 
 Under a stage-interleaved variable ordering the reduced KKT matrix
 K = diag(P + sigma) + A' diag(rho) A is block-tridiagonal: every
@@ -16,7 +16,9 @@ substitution against the identity (W = L^-1) and K^-1 = W'W.
   JAX package).
 - `factor_inv_banded`: K = A' rho A as one float32 matmul, static slot
   gathers, the recursion, the forward substitution and W'W as batched
-  matmuls, and the un-permutation.
+  matmuls, and the un-permutation; with method "cr" block cyclic
+  reduction of K X = I (`solve_block_tridiag_cr`, batched torch ops, as
+  the JAX package runs it as XLA code) and one Newton polish.
 
 Full float32 is required throughout: K's condition (the rho_eq = 1e3 rho
 equality rows) amplifies matmul error into K^-1, and the JAX package
@@ -184,6 +186,81 @@ def chol_blocks_per_sm(bw: int) -> int:
 
 
 # ---------------------------------------------------------------------------
+# Block cyclic reduction (log-depth horizon solve)
+# ---------------------------------------------------------------------------
+
+def _spd_inv(D):
+    """SPD block inverses through the unrolled Cholesky: D^-1 = L^-T L^-1."""
+    Linv = _inv_lower_unrolled(_chol_unrolled(D))
+    return Linv.transpose(-1, -2) @ Linv
+
+
+def _cr_level(D, L, F):
+    """One cyclic-reduction level over dim 1: D (B, k, bw, bw) diagonal
+    blocks, L (B, k, bw, bw) sub-diagonal blocks with L[:, 0] == 0 (L[:, t]
+    couples row t to column t-1), F (B, k, bw, r) right-hand sides, k odd
+    >= 3.  Eliminates the even-indexed unknowns: the reduced
+    ((k-1)/2)-block system over the odd ones and the pieces of the back
+    substitution."""
+    Dinv_e = _spd_inv(D[:, 0::2])
+    LT = L.transpose(-1, -2)
+    G1 = L[:, 1::2] @ Dinv_e[:, :-1]          # L_j D_{j-1}^-1
+    G2 = LT[:, 2::2] @ Dinv_e[:, 1:]          # L_{j+1}' D_{j+1}^-1
+    D2 = D[:, 1::2] - G1 @ LT[:, 1::2] - G2 @ L[:, 2::2]
+    L2 = -G1 @ L[:, 0::2][:, :-1]             # L[:, 0] == 0 => L2[:, 0] == 0
+    F2 = F[:, 1::2] - G1 @ F[:, 0::2][:, :-1] - G2 @ F[:, 2::2]
+    return Dinv_e, D2, L2, F2
+
+
+def _cr_back(Dinv_e, L, F, x_odd):
+    """The even-indexed unknowns given the odd ones."""
+    B, h = x_odd.shape[:2]
+    bw = F.shape[-2]
+    z = torch.zeros_like(x_odd[:, :1])
+    x_prev = torch.cat([z, x_odd], dim=1)     # x_{j-1} for even j
+    x_next = torch.cat([x_odd, z], dim=1)     # x_{j+1}
+    LT_next = torch.cat([L[:, 1::2].transpose(-1, -2),
+                         torch.zeros((B, 1, bw, bw), dtype=L.dtype,
+                                     device=L.device)], dim=1)
+    x_e = Dinv_e @ (F[:, 0::2] - L[:, 0::2] @ x_prev - LT_next @ x_next)
+    out = torch.empty((B, 2 * h + 1) + F.shape[2:], dtype=F.dtype,
+                      device=F.device)
+    out[:, 0::2] = x_e
+    out[:, 1::2] = x_odd
+    return out
+
+
+def _cr_solve(D, L, F):
+    if D.shape[1] == 1:
+        return _spd_inv(D) @ F
+    Dinv_e, D2, L2, F2 = _cr_level(D, L, F)
+    return _cr_back(Dinv_e, L, F, _cr_solve(D2, L2, F2))
+
+
+def solve_block_tridiag_cr(K_diag, K_sub, rhs):
+    """Solve the SPD block-tridiagonal systems K x = rhs of a batch by
+    block cyclic reduction: ceil(log2(nb + 1)) elimination levels of
+    batched block products and inverses in place of the nb-step stage
+    recursion.  K_diag, K_sub (B, nb, bw, bw), K_sub[:, 0] == 0 and
+    K_sub[:, t] coupling stage t to t-1; rhs (B, nb, bw, r).  Returns x
+    (B, nb, bw, r).  The stages are padded with decoupled identity blocks
+    to 2^q - 1, so every level has an odd count; padded unknowns solve to
+    zero."""
+    B, nb, bw = K_diag.shape[:3]
+    like = dict(dtype=K_diag.dtype, device=K_diag.device)
+    m = 2 ** max(1, int(np.ceil(np.log2(nb + 1)))) - 1
+    pad = m - nb
+    D, L, F = K_diag, K_sub, rhs
+    if pad:
+        D = torch.cat([D, torch.eye(bw, **like).expand(B, pad, bw, bw)],
+                      dim=1)
+        L = torch.cat([L, torch.zeros((B, pad, bw, bw), **like)], dim=1)
+        F = torch.cat([F, torch.zeros((B, pad) + rhs.shape[2:], **like)],
+                      dim=1)
+    return _cr_solve(D, L, F)[:, :nb]
+
+
+# ---------------------------------------------------------------------------
 # Banded K^-1
 # ---------------------------------------------------------------------------
 
@@ -198,14 +275,17 @@ def factor_inv_banded(Pb, Ab, rho_vec, sigma: float, slots, n: int,
     `kernel`: the stage recursion through `chol_factor` (the batched
     route, as the JAX package's vmapped factor reaches its lane kernel);
     False runs the plain recursion on any device (the single-instance
-    route, where the JAX package runs its XLA scan)."""
+    route, where the JAX package runs its XLA scan).
+
+    method "cr": block cyclic reduction of K X = I
+    (`solve_block_tridiag_cr`, torch ops on any device) and one Newton
+    polish X <- X (2I - K X), which the JAX package adds because the
+    log-depth elimination compounds float32 rounding across levels."""
     if tp_axis is not None:
         raise NotImplementedError(
             "the tensor-parallel banded factor (tp_axis) is not ported")
-    if method != "scan":
-        raise NotImplementedError(
-            f"banded factor method {method!r} (cyclic reduction) is not "
-            f"ported")
+    if method not in ("scan", "cr"):
+        raise ValueError(f"unknown banded factor method {method!r}")
     B = Pb.shape[0]
     like = dict(dtype=Pb.dtype, device=Pb.device)
     slots_t = torch.as_tensor(np.asarray(slots, np.int64), device=Pb.device)
@@ -221,23 +301,35 @@ def factor_inv_banded(Pb, Ab, rho_vec, sigma: float, slots, n: int,
     K_sub = torch.cat([
         torch.zeros((B, 1, bw, bw), **like),
         K_ext[:, slots_t[1:, :, None], slots_t[:-1, None, :]]], dim=1)
+    n_perm = nb * bw
+    eye = torch.eye(n_perm, **like)
+
+    if method == "cr":
+        X = solve_block_tridiag_cr(K_diag, K_sub,
+                                   eye.reshape(nb, bw, n_perm).expand(
+                                       B, nb, bw, n_perm))
+        Kinv = _unpermute(X.reshape(B, n_perm, n_perm), slots, n)
+        K_dense = K_full + torch.diag_embed(Pb + sigma)
+        return Kinv @ (2.0 * torch.eye(n, **like) - K_dense @ Kinv)
 
     factor = chol_factor if kernel else chol_factor_plain
     Linvs, Ss = factor(K_diag.contiguous(), K_sub.contiguous())
 
     # forward substitution against the identity: y_t = Linv_t (I_t -
     # S_t y_{t-1}); the stacked y is W = L^-1 and K^-1 = W'W
-    n_perm = nb * bw
-    eye = torch.eye(n_perm, **like)
     y = torch.zeros((B, bw, n_perm), **like)
     ys = []
     for t in range(nb):
         y = Linvs[:, t] @ (eye[t * bw:(t + 1) * bw] - Ss[:, t] @ y)
         ys.append(y)
     W = torch.stack(ys, dim=1).reshape(B, n_perm, n_perm)
-    Kinv_perm = W.transpose(-1, -2) @ W
-    # un-permute: real variable i sits at permuted position pos[i]
+    return _unpermute(W.transpose(-1, -2) @ W, slots, n)
+
+
+def _unpermute(Kinv_perm, slots, n: int):
+    """Real variable i sits at permuted position pos[i]."""
+    slots = np.asarray(slots)
     pos = np.zeros(n + 1, np.int64)
-    pos[np.asarray(slots).reshape(-1)] = np.arange(n_perm)
-    pos = torch.as_tensor(pos[:n], device=Pb.device)
+    pos[slots.reshape(-1)] = np.arange(slots.size)
+    pos = torch.as_tensor(pos[:n], device=Kinv_perm.device)
     return Kinv_perm[:, pos][:, :, pos]

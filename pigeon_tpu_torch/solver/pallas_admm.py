@@ -1,6 +1,6 @@
 """Dense-K^-1 ADMM iterations on a CUDA kernel (counterpart of
 `pigeon_tpu/solver/pallas_admm.py`, precision mode "highest" with a
-diagonal P).
+diagonal P, the sparse QP's, or a dense one, the condensed QP's).
 
 `admm_iterations` launches `csrc/admm_dense.cu` for CUDA tensors and runs
 its plain PyTorch version, `admm_iterations_plain` (same iteration, same
@@ -163,42 +163,51 @@ def pack(A, pattern: EllPattern):
         B, m, pattern.row_width)
 
 
-def smem_bytes(n: int, m: int, row_width: int, col_width: int) -> int:
+def smem_bytes(n: int, m: int, row_width: int, col_width: int,
+               dense_P: bool = False) -> int:
     """Shared memory of one block of the kernel (`smem_bytes` in
     csrc/admm_dense.cu): the vectors, the row-ELL as (value, code) pairs,
-    K^-1 and the 16-bit column-ELL."""
-    floats = 6 * n + 8 * m + 8 + n * n
+    K^-1, with a dense P the (n, n) PuD, and the 16-bit column-ELL."""
+    floats = 6 * n + 8 * m + 8 + n * n + (n * n if dense_P else 0)
     return (4 * (-(-n // 4) * 4) + 8 * m * row_width + 4 * floats + 8
             + 4 * n * col_width)
 
 
-def plan_smem(n: int, m: int, row_width: int, col_width: int) -> int:
-    """`smem_bytes`, or ValueError for a shape whose K^-1 and A do not fit
-    one block (n > 211 at the sparse QP's m = 290 and widths 11, 15)."""
-    need = smem_bytes(n, m, row_width, col_width)
+def plan_smem(n: int, m: int, row_width: int, col_width: int,
+              dense_P: bool = False) -> int:
+    """`smem_bytes`, or ValueError for a shape whose K^-1 and A (and a
+    dense P) do not fit one block (n > 211 at the sparse QP's m = 290 and
+    widths 11, 15; the condensed QP's n = 103, m = 200, widths 39, 79
+    with its dense P take 189,148 B)."""
+    need = smem_bytes(n, m, row_width, col_width, dense_P)
     if need > SMEM_MAX:
         raise ValueError(
-            f"the dense ADMM kernel holds K^-1 and A's nonzeros in one "
-            f"block's shared memory: n={n}, m={m}, widths ({row_width}, "
-            f"{col_width}) need {need} B of the {SMEM_MAX} B a block may use")
+            f"the dense ADMM kernel holds K^-1, A's nonzeros"
+            f"{' and P' if dense_P else ''} in one block's shared memory: "
+            f"n={n}, m={m}, widths ({row_width}, {col_width}) need {need} B "
+            f"of the {SMEM_MAX} B a block may use")
     return need
 
 
-def max_active_clusters(pattern: EllPattern, tile: int) -> int:
+def max_active_clusters(pattern: EllPattern, tile: int,
+                        dense_P: bool = False) -> int:
     """How many clusters of `tile` blocks of the kernel the card holds at
     once (cudaOccupancyMaxActiveClusters) for this pattern's shapes."""
     return _kernels.occupancy("admm_dense.cu", "admm_dense_max_clusters",
                               pattern.n, pattern.m, pattern.row_width,
-                              pattern.col_width, int(tile))
+                              pattern.col_width, int(tile), int(dense_P))
 
 
 def _stats(A, x, z, y, invE, PuD, qu, invDc, eps_abs, eps_rel):
-    """Unscaled residual statistics (B, 8) and per-instance convergence."""
+    """Unscaled residual statistics (B, 8) and per-instance convergence;
+    PuD (B, n) for a diagonal P or (B, n, n) for a dense one."""
     ax = _mv(A, x)
     aty = _mtv(A, y)
     Ax_u = ax * invE
     z_u = z * invE
-    Px_u = PuD * x
+    # a dense P: P_u x_u = x_bar' (D[:, None] P_u), the JAX kernel's
+    # _dot6(x, PuD)
+    Px_u = _mtv(PuD, x) if PuD.dim() == 3 else PuD * x
     Aty_u = aty * invDc
     stat = lambda v: torch.abs(v).amax(dim=-1)
     zero = torch.zeros_like(stat(qu))
@@ -216,7 +225,8 @@ def admm_iterations_plain(Kinv, A, q, l, u, rho, x, z, y, E, PuD, qu, invDc,
                           tile: int = 1, check: int = 0,
                           eps_abs: float = 1e-3, eps_rel: float = 1e-3):
     """Plain PyTorch version of the dense ADMM kernel, with its early exit
-    per tile of `tile` consecutive instances: (x, z, y, stats)."""
+    per tile of `tile` consecutive instances: (x, z, y, stats).  PuD is
+    (B, n), or (B, n, n) for a dense P."""
     B = q.shape[0]
     inv_rho = 1.0 / rho
     invE = 1.0 / E
@@ -279,15 +289,17 @@ def admm_iterations(Kinv, A, q, l, u, rho, x0, z0, y0, n_iters: int,
     statistics [r_prim, r_dual, max|Ax|, max|z|, max|Px|, max|A'y|,
     executed iterations, 0].
 
-    scalings: (D, E, c, P_unscaled (B, n), q_unscaled) of the Ruiz step
-    for the statistics; identity scalings (and no P term) when omitted.
+    scalings: (D, E, c, P_unscaled, q_unscaled) of the Ruiz step for the
+    statistics, P_unscaled (B, n) or, with `dense_P`, (B, n, n); identity
+    scalings (and no P term) when omitted.
     `check` > 0 checks convergence every `check` iterations and stops a
     tile of `tile` consecutive instances once all of them have converged.
 
     Replaces the TPU kernel `pigeon_tpu/solver/pallas_admm.py:_kernel`
-    ("highest" mode).  One block per instance holds its K^-1 and A's
-    nonzeros in shared memory for the call (`plan_smem` raises ValueError
-    for shapes that do not fit), and a tile is a thread block cluster.
+    ("highest" mode, with its `dense_P` branch).  One block per instance
+    holds its K^-1 and A's nonzeros (and a dense PuD) in shared memory for
+    the call (`plan_smem` raises ValueError for shapes that do not fit),
+    and a tile is a thread block cluster.
     `pattern`: A's nonzero pattern (an `EllPattern` covering every nonzero
     of every instance; the pipeline passes its layout's); without one the
     union pattern of the batch is derived from A, with one host read.
@@ -304,24 +316,24 @@ def admm_iterations(Kinv, A, q, l, u, rho, x0, z0, y0, n_iters: int,
         raise NotImplementedError(
             "the equality-row split (m_eq) of the mixed precision modes is "
             "not ported")
-    if dense_P:
-        raise NotImplementedError(
-            "the dense ADMM kernel with a dense P (the condensed QP) is not "
-            "ported")
     B, m, n = A.shape
     if scalings is None:
         D = torch.ones_like(q)
         E = torch.ones_like(l)
         c = torch.ones((B,), dtype=q.dtype, device=q.device)
-        Pu, qu = torch.zeros_like(q), q
+        Pu = torch.zeros((B, n, n) if dense_P else (B, n), dtype=q.dtype,
+                         device=q.device)
+        qu = q
     else:
         D, E, c, Pu, qu = scalings
-    PuD = Pu * D
+    # a symmetric dense P: x_bar' (D[:, None] P_u) = P_u (D x_bar) = P_u x_u
+    PuD = D[:, :, None] * Pu if dense_P else Pu * D
     invDc = 1.0 / (D * c[:, None])
     ops = dict(Kinv=(Kinv, (B, n, n)), A=(A, (B, m, n)), q=(q, (B, n)),
                l=(l, (B, m)), u=(u, (B, m)), rho=(rho, (B, m)),
                x0=(x0, (B, n)), z0=(z0, (B, m)), y0=(y0, (B, m)),
-               E=(E, (B, m)), PuD=(PuD, (B, n)), qu=(qu, (B, n)),
+               E=(E, (B, m)), PuD=(PuD, (B, n, n) if dense_P else (B, n)),
+               qu=(qu, (B, n)),
                invDc=(invDc, (B, n)))
     _kernels.check_same(**ops)
     if q.device.type == "cpu":
@@ -336,7 +348,7 @@ def admm_iterations(Kinv, A, q, l, u, rho, x0, z0, y0, n_iters: int,
     if (pattern.m, pattern.n) != (m, n):
         raise ValueError(f"the pattern is of a {pattern.m} x {pattern.n} "
                          f"matrix, A of {m} x {n}")
-    plan_smem(n, m, pattern.row_width, pattern.col_width)
+    plan_smem(n, m, pattern.row_width, pattern.col_width, dense_P)
     if A_packed is None:
         A_packed = pack(A, pattern)
     _kernels.check_same(A_packed=(A_packed, (B, m, pattern.row_width)),
@@ -350,6 +362,6 @@ def admm_iterations(Kinv, A, q, l, u, rho, x0, z0, y0, n_iters: int,
         Kinv, A_packed, pat["row_code"], pat["col_slot"],
         pat["col_row"], q, l, u, rho, x, z, y, E, PuD, qu, invDc, stats, B,
         n, m, pattern.row_width, pattern.col_width, int(tile), int(n_iters),
-        float(sigma), float(alpha), int(check), float(eps_abs),
-        float(eps_rel))
+        int(dense_P), float(sigma), float(alpha), int(check),
+        float(eps_abs), float(eps_rel))
     return x, z, y, stats

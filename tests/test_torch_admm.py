@@ -154,7 +154,7 @@ def test_hard_rows_stay_in_their_box(solved):
 
 def test_unported_solver_options_raise():
     qp, warm, w = _qps("decoupled")
-    for change in (dict(factor_method="banded"), dict(backend="pallas"),
+    for change in (dict(backend="pallas"),
                    dict(factor_method="ns", ns_bf16_iters=2)):
         opts = dataclasses.replace(TSO(**SEGMENTS), **change)
         with pytest.raises(NotImplementedError):

@@ -3,7 +3,9 @@ float64: the stage plan, the plain block-Cholesky stage recursion (the
 plain version of the `banded_chol` kernel) against `_chol_factor_impl`,
 and the banded K^-1 against the JAX package's and against the dense
 inverse, on the Ruiz-scaled sparse QPs of a small fleet (horizon (2, 3):
-n=70, m=104, 6 blocks of 13)."""
+n=70, m=104, 6 blocks of 13); the block cyclic reduction
+(`solve_block_tridiag_cr`, method "cr") on tests/test_banded_cr.py's
+random systems and on the same QPs."""
 
 import jax
 import jax.numpy as jnp
@@ -143,9 +145,12 @@ def test_solver_factor_banded_matches_chol(scaled):
 def test_unported_factor_options_raise(scaled):
     Pb, Ab, rho = scaled["Pb"], scaled["Ab"], scaled["rho"]
     slots, n, bw, nb = scaled["plan"]
-    for kw in (dict(tp_axis="tp"), dict(method="cr")):
-        with pytest.raises(NotImplementedError):
-            TB.factor_inv_banded(Pb, Ab, rho, SIGMA, slots, n, bw, nb, **kw)
+    with pytest.raises(NotImplementedError):
+        TB.factor_inv_banded(Pb, Ab, rho, SIGMA, slots, n, bw, nb,
+                             tp_axis="tp")
+    with pytest.raises(ValueError):
+        TB.factor_inv_banded(Pb, Ab, rho, SIGMA, slots, n, bw, nb,
+                             method="lu")
 
 
 @pytest.mark.parametrize("bw, build", [(13, 13), (14, 16), (15, 16),
@@ -173,3 +178,57 @@ def test_chol_factor_cpu_takes_any_width():
     ref = np.linalg.inv(np.linalg.cholesky(Kd))
     np.testing.assert_allclose(Linv.numpy(), ref, rtol=1e-10, atol=1e-12)
     assert not S.any()
+
+
+# ---------------------------------------------------------------------------
+# Block cyclic reduction
+# ---------------------------------------------------------------------------
+
+def _random_block_tridiag(B, nb, bw, k, seed):
+    """tests/test_banded_cr.py's diagonally dominant symmetric
+    block-tridiagonal systems (so SPD), a batch of B."""
+    rng = np.random.default_rng(seed)
+    L = rng.normal(size=(B, nb, bw, bw)) * 0.3
+    L[:, 0] = 0.0
+    D = rng.normal(size=(B, nb, bw, bw))
+    D = (D + np.swapaxes(D, -1, -2)) / 2 + 2.0 * bw * np.eye(bw)
+    return D, L, rng.normal(size=(B, nb, bw, k))
+
+
+@pytest.mark.parametrize("nb", [1, 2, 3, 7, 16])
+def test_cr_solve_matches_jax(nb):
+    """The batched cyclic reduction against the JAX package's (one
+    instance at a time) at float64, levels padded to 2^q - 1 stages."""
+    D, L, F = _random_block_tridiag(2, nb, 5, 7, seed=nb)
+    x = TB.solve_block_tridiag_cr(t64(D), t64(L), t64(F))
+    assert x.shape == (2, nb, 5, 7)
+    ref = np.asarray(jax.jit(jax.vmap(JB.solve_block_tridiag_cr))(
+        jnp.asarray(D), jnp.asarray(L), jnp.asarray(F)))
+    for b in range(2):
+        np.testing.assert_allclose(x[b].numpy(), ref[b], rtol=0,
+                                   atol=1e-12 * np.abs(ref[b]).max())
+
+
+def test_factor_inv_banded_cr_matches_jax_and_dense(scaled):
+    """factor_inv_banded(method="cr") (cyclic reduction of K X = I and one
+    Newton polish) against the JAX package's and the dense inverse; and
+    `_factor_inv` with factor "banded_cr" and the plan takes it."""
+    from pigeon_tpu_torch.config import SolverOptions
+    Pb, Ab, rho = scaled["Pb"], scaled["Ab"], scaled["rho"]
+    slots, n, bw, nb = scaled["plan"]
+    K, _, _ = _blocks(Pb, Ab, rho, scaled["plan"])
+    Kinv = TB.factor_inv_banded(Pb, Ab, rho, SIGMA, slots, n, bw, nb,
+                                method="cr")
+    ref = np.asarray(jax.jit(jax.vmap(lambda P, A, r: JB.factor_inv_banded(
+        P, A, r, SIGMA, slots, n, bw, nb, method="cr")))(
+        *[jnp.asarray(t.numpy()) for t in (Pb, Ab, rho)]))
+    dense = torch.linalg.inv(K).numpy()
+    scale = np.abs(dense).max(axis=(1, 2), keepdims=True)
+    np.testing.assert_allclose(Kinv.numpy() / scale, ref / scale, rtol=0,
+                               atol=1e-9)
+    np.testing.assert_allclose(Kinv.numpy() / scale, dense / scale, rtol=0,
+                               atol=1e-9)
+    via = TA._factor_inv(Pb, Ab, rho, SIGMA,
+                         SolverOptions(factor_method="banded_cr"),
+                         scaled["plan"])
+    assert torch.equal(via, Kinv)

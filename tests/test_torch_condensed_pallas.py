@@ -1,0 +1,212 @@
+"""The hard condensed coupled QP on the "pallas" backend in the port
+against the JAX package, 3 vehicles on the straight test path at horizon
+(2, 3) (n=40, m=74, a dense P):
+
+- `solve_qp_batched` (the Ruiz kernel fed the row maxima of |P|, the
+  "chol" fallback of factor "banded", the dense ADMM kernel's dense-P
+  mode, through their plain versions here) at float32 with tiles of 2,
+  against the JAX pipeline in interpret mode; and its statistics
+  recomputed from the solution (tests/test_condensed.py:105's check, at
+  "highest");
+- the single-instance route: `solve_qp(backend="pallas")` (one instance
+  through the dense ADMM kernel at tile 1, the residuals outside) and
+  `simulate`, against the JAX package's, whose unbatched kernel call is
+  run in interpret mode as the JAX package's own tests run it."""
+
+import dataclasses
+import functools
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from torch_port_helpers import cache_arrays, straight_fleet, t64, tube_arrays
+from pigeon_tpu import hji as JH
+from pigeon_tpu import mpc as JM
+from pigeon_tpu import trajectory as JT
+from pigeon_tpu.config import HorizonParams as JHP
+from pigeon_tpu.config import SolverOptions as JSO
+from pigeon_tpu.solver import admm as JA
+from pigeon_tpu.solver import pallas_admm as JPA
+from pigeon_tpu_torch import convert
+from pigeon_tpu_torch import mpc as TM
+from pigeon_tpu_torch.config import HorizonParams as THP
+from pigeon_tpu_torch.config import SolverOptions as TSO
+from pigeon_tpu_torch.solver import admm as TA
+
+# chip_smoke.py's solver options for the hard fleets (max_iter 400 in
+# segments of 50, factor "banded", which a dense P turns into "chol"),
+# with tiles of 2 here
+PALLAS = dict(max_iter=400, check_every=50, eps_abs=1e-3, eps_rel=1e-3,
+              backend="pallas", factor_method="banded", scaling_iters=4,
+              pallas_tile=2, pallas_precision="highest",
+              pallas_check_inner=10, bf16_bulk_iters=0)
+HZ = (2, 3)
+
+
+def _configs(opts):
+    jcfg = JM.x1_coupled_config(hz=JHP(N_short=HZ[0], N_long=HZ[1]),
+                                condensed=True, solver=JSO(**opts))
+    tcfg = TM.x1_coupled_config(hz=THP(N_short=HZ[0], N_long=HZ[1]),
+                                condensed=True, solver=TSO(**opts))
+    return jcfg, tcfg
+
+
+def _tubes(dtype):
+    jtube = JT.straight_trajectory(60.0, 5.0, pad_to=32)
+    jcache = JH.inactive_cache()
+    return (jtube, jcache,
+            convert.tube_from_numpy(tube_arrays(jtube), device="cpu",
+                                    dtype=dtype),
+            convert.cache_from_numpy(cache_arrays(jcache), device="cpu"))
+
+
+@pytest.fixture
+def jax_unbatched_interpret(monkeypatch):
+    """The JAX package's single-instance "pallas" route calls its kernel
+    without `interpret`, which only a TPU lowers: run it in interpret
+    mode, as tests/test_pallas_admm.py runs the kernel on the CPU."""
+    monkeypatch.setattr(JPA, "admm_iterations", functools.partial(
+        JPA.admm_iterations, interpret=True))
+
+
+# ---------------------------------------------------------------------------
+# The batched pipeline at float32
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def pallas_solves():
+    B = 3
+    jcfg, tcfg = _configs(PALLAS)
+    _, _, ttube, tcache = _tubes(torch.float32)
+    q0, t0 = straight_fleet(B)
+    f32 = lambda a: torch.as_tensor(np.asarray(a), dtype=torch.float32)
+    carry = TM.init_carry(tcfg, B, device="cpu")
+    oc = f32(np.broadcast_to([1e4, 1e4, 0.0, 0.0], (B, 4)))
+    qp, warm, aux = TM._pre_solve(tcfg, ttube, tcache, carry, f32(q0),
+                                  f32(np.zeros((B, 3))), oc, f32(t0))
+    assert aux.w is None and qp.P_diag.shape == (B, 40, 40)
+    assert qp.A.shape == (B, 74, 40)
+    tsol = TA.solve_qp_batched(qp, warm, tcfg.solver,
+                               banded_plan=TM._banded_plan_for(tcfg),
+                               eq_rows=TM._eq_rows_for(tcfg),
+                               a_pattern=TM._a_pattern_for(tcfg))
+    J = lambda tup: [jnp.asarray(x.numpy()) for x in tup]
+    jsol = JA.solve_qp_batched(
+        JA.QPData(*J(qp)), JA.QPWarmStart(*J(warm)), jcfg.solver,
+        banded_plan=JM._banded_plan_for(jcfg), eq_rows=JM._eq_rows_for(jcfg))
+    return dict(qp=qp, tsol=tsol, jsol=jsol, opts=tcfg.solver)
+
+
+def test_pallas_pipeline_matches_jax(pallas_solves):
+    """Both pipelines compute in float32, where the 38 stiff equality rows
+    (rho_eq = 1e3 rho) make the iterates rounding-determined at the
+    solver's 1e-3 tolerance (tests/test_torch_mpc_sparse.py's finding on
+    the sparse QP): the same converged flags, iterations within one
+    segment, a rho_scale within the adaptive-rho tolerance (a factor of
+    5) of the JAX one, and each of x, z, y no further from the float64
+    solve (the "xla" backend on the same QPs) than three times the JAX
+    pipeline's distance to it (plus 1e-4 of its scale)."""
+    t, j, qp = (pallas_solves["tsol"], pallas_solves["jsol"],
+                pallas_solves["qp"])
+    assert t.x.dtype == torch.float32
+    np.testing.assert_array_equal(t.converged.numpy(),
+                                  np.asarray(j.converged))
+    assert t.converged.all()
+    assert np.abs(t.iterations.numpy() - np.asarray(j.iterations)).max() \
+        <= PALLAS["check_every"]
+    assert (t.iterations % PALLAS["pallas_check_inner"] == 0).all()
+    ratio = t.rho_scale.numpy() / np.asarray(j.rho_scale)
+    assert (ratio < 5.0).all() and (ratio > 0.2).all(), ratio
+    d64 = lambda tup: type(tup)(*[x.double() for x in tup])
+    exact = TA.solve_qp_batched(
+        d64(qp), d64(TA.cold_start(qp)),
+        dataclasses.replace(pallas_solves["opts"], backend="xla"))
+    assert exact.converged.all()
+    for name in ("x", "z", "y"):
+        e = getattr(exact, name).numpy()
+        d_port = np.abs(getattr(t, name).numpy() - e).max()
+        d_jax = np.abs(np.asarray(getattr(j, name)) - e).max()
+        assert d_port <= 3.0 * d_jax + 1e-4 * np.abs(e).max(), (
+            name, d_port, d_jax)
+
+
+def test_pallas_dense_P_stats_truthful(pallas_solves):
+    """The residuals the kernel reports, with its P x the dense matvec,
+    equal those recomputed at float64 from the returned solution (the
+    bars of tests/test_condensed.py:105), and `converged` implies the
+    OSQP test holds."""
+    qp, sol, opts = (pallas_solves["qp"], pallas_solves["tsol"],
+                     pallas_solves["opts"])
+    A, P, q = (qp.A.double().numpy(), qp.P_diag.double().numpy(),
+               qp.q.double().numpy())
+    x, z, y = (sol.x.double().numpy(), sol.z.double().numpy(),
+               sol.y.double().numpy())
+    for b in range(x.shape[0]):
+        Ax, Aty, Px = A[b] @ x[b], A[b].T @ y[b], P[b] @ x[b]
+        rp = np.abs(Ax - z[b]).max()
+        rd = np.abs(Px + q[b] + Aty).max()
+        np.testing.assert_allclose(float(sol.prim_res[b]), rp, rtol=1e-2,
+                                   atol=2e-4)
+        np.testing.assert_allclose(float(sol.dual_res[b]), rd, rtol=1e-2,
+                                   atol=2e-4)
+        if bool(sol.converged[b]):
+            eps_p = opts.eps_abs + opts.eps_rel * max(np.abs(Ax).max(),
+                                                      np.abs(z[b]).max())
+            eps_d = opts.eps_abs + opts.eps_rel * max(
+                np.abs(Px).max(), np.abs(Aty).max(), np.abs(q[b]).max())
+            assert rp <= eps_p * 1.01 and rd <= eps_d * 1.01
+
+
+# ---------------------------------------------------------------------------
+# The single-instance route
+# ---------------------------------------------------------------------------
+
+SINGLE = dict(backend="pallas", max_iter=400, check_every=25,
+              scaling_iters=10)
+
+
+def test_solve_qp_pallas_matches_jax(pallas_solves, jax_unbatched_interpret):
+    """One QP of the fleet at float64 through `solve_qp(backend="pallas")`
+    in both packages: the kernel's segments in float32, Ruiz, the factor
+    and the residuals at float64.  The same exit; the stiff equality rows
+    leave the float32 iterates rounding-determined, so x, z, y each no
+    further from the float64 solve (backend "xla") than three times the
+    JAX route's distance to it, plus 1e-4 of its scale."""
+    _, tcfg = _configs(SINGLE)
+    qp = TA.QPData(*[t[1].double() for t in pallas_solves["qp"]])
+    ts = TA.solve_qp(qp, None, tcfg.solver,
+                     a_pattern=TM._a_pattern_for(tcfg))
+    js = JA.solve_qp(JA.QPData(*[jnp.asarray(t.numpy()) for t in qp]), None,
+                     JSO(**SINGLE))
+    exact = TA.solve_qp(qp, None, TSO(**dict(SINGLE, backend="xla")))
+    assert ts.x.dtype == torch.float64
+    assert bool(ts.converged) and bool(js.converged) and bool(exact.converged)
+    assert int(ts.iterations) == int(js.iterations)
+    for name in ("x", "z", "y"):
+        e = getattr(exact, name).numpy()
+        d_port = np.abs(getattr(ts, name).numpy() - e).max()
+        d_jax = np.abs(np.asarray(getattr(js, name)) - e).max()
+        assert d_port <= 3.0 * d_jax + 1e-4 * np.abs(e).max(), (
+            name, d_port, d_jax)
+
+
+def test_simulate_pallas_matches_jax(jax_unbatched_interpret):
+    """`simulate` on the condensed config, backend "pallas", five steps:
+    the commands within the bar of tests/test_soft.py (2e-4 rad, 2 N),
+    the same exits, and the states."""
+    jcfg, tcfg = _configs(SINGLE)
+    jtube, jcache, ttube, tcache = _tubes(torch.float64)
+    q0 = np.array([0.2, 0.3, 0.01, 5.0, 0.05, 0.0])
+    jlog = JM.simulate(jcfg, jtube, jcache, jnp.asarray(q0), n_steps=5)
+    tlog = TM.simulate(tcfg, ttube, tcache, t64(q0), n_steps=5,
+                       device="cpu")
+    d = np.abs(tlog.u.numpy() - np.asarray(jlog.u))
+    assert d[:, 0].max() < 2e-4, d
+    assert d[:, 1:].max() < 2.0, d
+    np.testing.assert_array_equal(tlog.diag.iterations.numpy(),
+                                  np.asarray(jlog.diag.iterations))
+    assert tlog.diag.converged.all() and np.asarray(jlog.diag.converged).all()
+    np.testing.assert_allclose(tlog.q.numpy(), np.asarray(jlog.q),
+                               rtol=1e-9, atol=1e-7)

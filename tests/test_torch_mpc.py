@@ -135,10 +135,9 @@ def test_carry_matches(steps, k):
 @pytest.mark.parametrize("change", [
     dict(lin_substeps=2), dict(coupled=TCP(use_walls=True)),
     dict(lin_method="rk4"),
-    dict(soft=False, condensed=True),
     dict(formulation="decoupled", soft=False),
     dict(formulation="lateral")],
-    ids=["lin_substeps", "walls", "lin_method", "hard",
+    ids=["lin_substeps", "walls", "lin_method",
          "decoupled_hard", "unknown_formulation"])
 def test_unported_options_raise(change):
     cfg = dataclasses.replace(TM.x1_coupled_config(soft=True), **change)

@@ -242,13 +242,7 @@ def test_carry_round_trip_full_horizon():
 
 def test_unported_sparse_options_raise():
     cfg = TM.x1_coupled_config(hz=THP(N_short=2, N_long=3))
-    for change in (dict(condensed=True), dict(lin_method="rk4"),
-                   dict(formulation="decoupled")):
+    for change in (dict(lin_method="rk4"), dict(formulation="decoupled")):
         with pytest.raises(NotImplementedError):
             TM.init_carry(dataclasses.replace(cfg, **change), 2,
                           device="cpu")
-    # solve_qp (one instance) has no pallas route
-    qp = TA.QPData(*[t64(a) for a in (np.ones(2), np.zeros(2), np.eye(2),
-                                      -np.ones(2), np.ones(2))])
-    with pytest.raises(NotImplementedError):
-        TA.solve_qp(qp, None, TSO(backend="pallas"))

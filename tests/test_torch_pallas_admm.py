@@ -5,7 +5,9 @@ tile holds one instance), at the shapes of horizon (2, 3): n=70, m=104.
 
 - Well-conditioned random QPs (tests/test_pallas_admm.py's): a fixed
   segment, the early exit per tile and a remainder block, within 2e-4,
-  the tolerance tests/test_pallas_admm.py holds the JAX kernel to.
+  the tolerance tests/test_pallas_admm.py holds the JAX kernel to; and
+  the same with a dense P (the kernel's dense-P mode: P x in the
+  statistics from the dense unscaled P).
 - The Ruiz-scaled sparse QPs of a 5-vehicle fleet with their banded K^-1:
   the stiff equality rows (rho_eq = 1e3 rho) amplify float32 rounding, so
   both float32 implementations sit ~1e-3 of their scale from the float64
@@ -31,11 +33,12 @@ B, TILE, CHECK = 5, 2, 10
 SIGMA, ALPHA = 1e-6, 1.6
 
 
-def _random_ops(seed=0, n=70, m=104):
+def _random_ops(seed=0, n=70, m=104, dense_P=False):
     """tests/test_pallas_admm.py's well-conditioned random QPs, batched,
     with their scalings (D, E, c = 1, P and q unscaled); the boxes are
     centred on A x0 for a random x0, so each QP is feasible and the early
-    exit has something to find."""
+    exit has something to find.  `dense_P`: P a dense SPD (n, n) matrix,
+    M M' / n plus the diagonal."""
     rng = np.random.default_rng(seed)
     cols = {k: [] for k in ("K", "A", "q", "l", "u", "rho", "P")}
     for _ in range(B):
@@ -44,7 +47,11 @@ def _random_ops(seed=0, n=70, m=104):
         c_ = A @ rng.standard_normal(n)
         w = rng.uniform(0.1, 1.0, m)
         rho = rng.uniform(0.05, 5.0, m)
-        K = np.diag(P + SIGMA) + (A.T * rho) @ A
+        if dense_P:
+            M = rng.standard_normal((n, n // 2))
+            P = np.diag(P) + M @ M.T / n
+        K = (P if dense_P else np.diag(P)) + SIGMA * np.eye(n) \
+            + (A.T * rho) @ A
         Kinv = np.linalg.inv(K)
         for k, v in (("K", 0.5 * (Kinv + Kinv.T)), ("A", A),
                      ("q", rng.standard_normal(n)), ("l", c_ - w),
@@ -89,16 +96,16 @@ def ops():
                 scalings=[f(t) for t in (D, E, c, qp.P_diag, qp.q)])
 
 
-def _run(ops, n_iters, check):
+def _run(ops, n_iters, check, dense_P=False):
     ref = j_admm(*[jnp.asarray(a) for a in ops["mats"] + ops["warm"]],
                  n_iters, SIGMA, ALPHA, tile=TILE, interpret=True,
                  scalings=tuple(jnp.asarray(a) for a in ops["scalings"]),
-                 check=check, eps_abs=1e-3, eps_rel=1e-3)
+                 check=check, eps_abs=1e-3, eps_rel=1e-3, dense_P=dense_P)
     T = lambda a: torch.as_tensor(a)
     out = TP.admm_iterations(
         *[T(a) for a in ops["mats"] + ops["warm"]], n_iters, SIGMA, ALPHA,
         tile=TILE, scalings=tuple(T(a) for a in ops["scalings"]),
-        check=check, eps_abs=1e-3, eps_rel=1e-3)
+        check=check, eps_abs=1e-3, eps_rel=1e-3, dense_P=dense_P)
     return [np.asarray(r) for r in ref], [o.numpy() for o in out]
 
 
@@ -109,7 +116,27 @@ def _close(o, r, what):
 @pytest.mark.parametrize("n_iters,check", [(30, 0), (200, CHECK), (45, CHECK)],
                          ids=["fixed", "early_exit", "remainder"])
 def test_plain_matches_jax_kernel(n_iters, check):
-    ref, out = _run(_random_ops(), n_iters, check)
+    _held_to_jax(*_run(_random_ops(), n_iters, check), n_iters, check)
+
+
+@pytest.mark.parametrize("n_iters,check", [(30, 0), (200, CHECK)],
+                         ids=["fixed", "early_exit"])
+def test_plain_dense_P_matches_jax_kernel(n_iters, check):
+    """The dense-P mode (the JAX kernel's `dense_P`, :190 and :311): the
+    statistics' P x_u is x_bar' (D P_u), a matvec with the dense P."""
+    ops = _random_ops(seed=3, dense_P=True)
+    assert ops["scalings"][3].shape == (B, 70, 70)
+    ref, out = _run(ops, n_iters, check, dense_P=True)
+    _held_to_jax(ref, out, n_iters, check)
+    # the dense P is in the statistics: the diagonal mode differs
+    _, diag = _run(dict(ops, scalings=ops["scalings"][:3]
+                        + [np.ascontiguousarray(np.diagonal(
+                            ops["scalings"][3], axis1=1, axis2=2)),
+                           ops["scalings"][4]]), n_iters, check)
+    assert np.abs(diag[3][:, 4] - out[3][:, 4]).max() > 1e-2
+
+
+def _held_to_jax(ref, out, n_iters, check):
     for name, o, r in zip(("x", "z", "y"), out[:3], ref[:3]):
         assert o.dtype == np.float32 and o.shape == r.shape
         _close(o, r, name)
@@ -164,6 +191,6 @@ def test_unported_modes_raise(ops):
     T = lambda a: torch.as_tensor(a)
     args = [T(a) for a in ops["mats"] + ops["warm"]]
     for kw in (dict(precision="mixed", m_eq=48), dict(precision="high"),
-               dict(m_eq=48), dict(bf16=True), dict(dense_P=True)):
+               dict(m_eq=48), dict(bf16=True)):
         with pytest.raises(NotImplementedError):
             TP.admm_iterations(*args, 10, SIGMA, ALPHA, tile=TILE, **kw)

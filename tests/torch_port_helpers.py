@@ -47,5 +47,13 @@ def oval_fleet(B: int, seed: int = 0, k_max: int = 900):
     return q0, cols["t"][k0], cols
 
 
+def straight_fleet(B: int = 3):
+    """tests/test_soft.py's fleet for `trajectory.straight_trajectory`:
+    numpy (q0 (B, 6), t0 (B,))."""
+    q0 = np.stack([[0.2 * i, 0.3 * i, 0.01, 5.0, 0.05, 0.0]
+                   for i in range(B)])
+    return q0, np.zeros(B)
+
+
 def t64(a):
     return torch.as_tensor(np.array(a), dtype=torch.float64)
