@@ -39,7 +39,14 @@ Phases (any failure raises, so the script exits non-zero):
    kernel again at tile 1 on the calls of the unbatched condensed route
    (B=1, no check, identity scalings: the cold step's first segment and
    the second step's last, `check_admm_dense_tile1`); and its diagonal
-   mode on the sparse fleet's as before;
+   mode on the sparse fleet's as before.  Its other precision modes
+   ("mixed", "mixedk6", "high", "bf16"; `check_admm_dense_modes`) are
+   held the same way on the cold and the warm segment of both hard fleets
+   and on a ragged batch, each mode's build against its own float32 and
+   float64 plain versions (on the fixed iterations before the float32
+   plain version leaves float64's tenth of a scale or goes non-finite,
+   where it does; the statistics against the kernel's own iterates'),
+   with each build's time, bound, registers and shared memory;
 4. path "fleet": the coupled soft MPC for a fleet of 8192 vehicles on an
    oval (x1_coupled_config(soft=True), N_short=5, N_long=10, the lane
    solver with bench.py's options), one cold step and 10 warm closed-loop
@@ -62,6 +69,12 @@ Phases (any failure raises, so the script exits non-zero):
    factor falls through to the dense Cholesky for a dense P; one cold and
    10 warm steps, each launching vanloan and ruiz once and admm_dense
    (dense-P mode) once per solver segment;
+   path "fleet_sparse_mixedk6": the sparse fleet in precision mode
+   "mixedk6" (scripts/exp_conv.py's: the layout's 128 equality rows in
+   float32, the other rows and the vectors in bf16 pairs, K^-1 in
+   float32), one cold and 10 warm steps, each launching vanloan and ruiz
+   once, banded_chol once per factorization and admm_dense once per
+   segment, every launch its mixedk6 build (`_kernels.launches_by`);
 7. path "simulate": `mpc.simulate` for one vehicle on the card, 30
    closed-loop steps per soft formulation -- the unbatched route, dense
    linearization and `solve_qp` -- which launches expm_dense once per
@@ -95,7 +108,10 @@ Phases (any failure raises, so the script exits non-zero):
    float32 (`simulate_reference_check`, both unbatched formulations and
    the condensed one); the coupled, the sparse and the condensed check
    once more with active HJI rows (the mid grid, the other car 3-15 m
-   ahead);
+   ahead); the sparse fleet in mode "mixedk6" by the sparse rule, with
+   its controls; the precision ladder (`ladder_check`: 50 and 2 bf16
+   iterations before the mixedk6 segments, three steps, the bulk's
+   iterations and convergence accounted);
    and the Monte-Carlo rollout's 8 scenarios of least start value, five
    steps (`reference_montecarlo`);
 10. B=1 latency: the coupled fleet path for one vehicle, 20 warm steps;
@@ -110,6 +126,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import re
 import subprocess
 import sys
@@ -120,7 +137,7 @@ import numpy as np
 B_FLEET = 8192
 B_SPARSE = 2048
 WARM_STEPS = {"coupled": 10, "decoupled": 20, "sparse": 10,
-              "condensed": 10}
+              "condensed": 10, "sparse_mixedk6": 10}
 B1_STEPS = 20
 SIM_STEPS = 30
 # the condensed QP's single-vehicle path: as many steps as its reference
@@ -168,7 +185,15 @@ EXIT_NOISE = 1e-7
 # - outside_from_cpu: where the share of vehicles outside the bare bar may
 #   also reach twice the largest share of the CPU witnesses (the float32
 #   path and the moved float64 states): "active" with an active HJI row,
-#   "always" on every step.
+#   "always" on every step;
+# - segments: the fleet-wide iteration bar (the fleet means within one
+#   segment) grows by the in-kernel check period for each segment one
+#   run's batch went on with after the other's had stopped.  The rule
+#   lets the converged counts differ by two, and one vehicle left
+#   unconverged keeps every vehicle of its batch in the segment loop, at
+#   least a check period more each segment (the mixedk6 sparse fleet:
+#   63 of 64 converged on the card against 64 on the CPU gave means of
+#   163.1 and 93.8 iterations on one step).
 REF_RULES = {
     "coupled": dict(seeds=(0,), fleet_wide=False, exit_draws=0,
                     outside_from_cpu="active"),
@@ -176,6 +201,13 @@ REF_RULES = {
                       outside_from_cpu="never"),
     "sparse": dict(seeds=(0, 1, 2), fleet_wide=True, exit_draws=0,
                    outside_from_cpu="never"),
+    "sparse_mixedk6": dict(seeds=(0, 1, 2), fleet_wide=True, exit_draws=0,
+                           outside_from_cpu="never", segments=True),
+    # the precision ladder (`ladder_check`, placement 0, no controls): its
+    # bf16 bulk rounds the iterates at 2^-8, so the share outside the bar
+    # may reach twice the CPU float32 path's
+    "sparse_ladder": dict(seeds=(0,), fleet_wide=True, exit_draws=0,
+                          outside_from_cpu="always", segments=True),
     "condensed": dict(seeds=(0, 1, 2), fleet_wide=True, exit_draws=3,
                       outside_from_cpu="always"),
 }
@@ -205,12 +237,29 @@ PATH_KERNELS = {
     "decoupled": {"vanloan", "rollout", "chol_inverse", "admm_iterations"},
     "sparse": {"vanloan", "ruiz", "banded_chol", "admm_dense"},
     "condensed": {"vanloan", "ruiz", "admm_dense"},
+    "sparse_mixedk6": {"vanloan", "ruiz", "banded_chol", "admm_dense"},
     "simulate": {"expm_dense"},
     "simulate_condensed": {"expm_dense", "admm_dense"},
     "montecarlo": {"vanloan", "chol_inverse", "admm_iterations"},
 }
+# The dense ADMM kernel's build each hard fleet path must launch, and no
+# other (`_kernels.launches_by`: the mode, "_dense_P" for the dense-P build)
+PATH_B8_BUILD = {"sparse": "highest", "condensed": "highest_dense_P",
+                 "sparse_mixedk6": "mixedk6"}
 # bench.py's lane-solver iteration budget per formulation
 MAX_ITER = {"coupled": 150, "decoupled": 300}
+# The dense ADMM kernel's other precision modes, held on the "highest"
+# paths' captured segments (`check_admm_dense_modes`); where the float32
+# plain version goes non-finite within a segment, or ends it further
+# than MODE_DIVERGED of an output's scale from the float64 one, on the
+# fixed iterations before that point: the largest of MODE_HORIZONS at
+# which it is finite and within MODE_DIVERGED.  Past it the two float32
+# runs (kernel and plain) have each decorrelated from float64 (the
+# split's rounding on the stiff rows, or a diverging iteration), and the
+# float64 bar would compare two draws of the same rounding noise
+MODES_CHECKED = ("mixed", "mixedk6", "high", "bf16")
+MODE_HORIZONS = (1, 2, 3, 5, 10, 15, 20, 30, 40)
+MODE_DIVERGED = 0.1
 # the sparse QP's solver: the JAX package's sparse-path options
 # (scripts/exp_precision.py) with a budget of 400 iterations in segments
 # of 50 in place of its 100, which leaves part of the oval fleet
@@ -220,6 +269,19 @@ SPARSE_SOLVER = dict(max_iter=400, check_every=50, eps_abs=1e-3,
                      scaling_iters=4, pallas_tile=4,
                      pallas_precision="highest", pallas_check_inner=10,
                      bf16_bulk_iters=0)
+# The hard fleets' solver options: SPARSE_SOLVER, in mode "mixedk6" for
+# scripts/exp_conv.py's sparse fleet (its pallas_precision and eq_rows,
+# with this budget); the precision ladder (`ladder_check`) puts
+# LADDER_BULKS bf16 iterations before the mixedk6 segments, for
+# LADDER_STEPS steps (50 as the ladder's users would set it, and 2, the
+# count at which tests/test_torch_mpc_sparse.py holds the ladder to the
+# JAX package's: on the sparse QP the bf16 iteration diverges, so 50
+# leave every solve non-finite, in the plain version too)
+LADDER_BULKS = (50, 2)
+LADDER_STEPS = 3
+HARD_SOLVER = {
+    "sparse": SPARSE_SOLVER, "condensed": SPARSE_SOLVER,
+    "sparse_mixedk6": dict(SPARSE_SOLVER, pallas_precision="mixedk6")}
 # The hard condensed QP's fleet takes SPARSE_SOLVER as it is: its dense P
 # has no banded form, so "banded" falls through to the dense Cholesky, as
 # a user who sets condensed=True gets.  Its single-vehicle route
@@ -296,14 +358,16 @@ def fleet_config(formulation: str, hz=None):
     """x1_coupled_config or x1_decoupled_config, soft, on the lane solver
     with bench.py's options, or ("sparse") x1_coupled_config() as it comes
     on the pallas solver with SPARSE_SOLVER, or ("condensed")
-    x1_coupled_config(condensed=True) with the same options; `hz` =
+    x1_coupled_config(condensed=True) with the same options, or
+    ("sparse_mixedk6") the sparse QP in mode "mixedk6"; `hz` =
     (N_short, N_long) overrides the horizon."""
     from pigeon_tpu_torch import mpc
     from pigeon_tpu_torch.config import SolverOptions
 
-    if formulation in ("sparse", "condensed"):
-        cfg = mpc.x1_coupled_config(condensed=formulation == "condensed",
-                                    solver=SolverOptions(**SPARSE_SOLVER))
+    if formulation in HARD_SOLVER:
+        cfg = mpc.x1_coupled_config(
+            condensed=formulation == "condensed",
+            solver=SolverOptions(**HARD_SOLVER[formulation]))
     else:
         make = {"coupled": mpc.x1_coupled_config,
                 "decoupled": mpc.x1_decoupled_config}[formulation]
@@ -311,7 +375,7 @@ def fleet_config(formulation: str, hz=None):
     if hz is not None:
         cfg = dataclasses.replace(cfg, hz=dataclasses.replace(
             cfg.hz, N_short=hz[0], N_long=hz[1]))
-    if formulation in ("sparse", "condensed"):
+    if formulation in HARD_SOLVER:
         return cfg
     n_it = MAX_ITER[formulation]
     return dataclasses.replace(cfg, solver=SolverOptions(
@@ -1081,15 +1145,18 @@ def dense_admm(torch, ops, kw, n_iters, check, plain=False, dtype=None):
     """One call of the dense ADMM kernel (or its plain version, in
     `dtype` if given) on the captured operands `ops` = (Kinv, A, q, l, u,
     rho, x, z, y) with the captured options `kw` (a dense P where
-    `kw["dense_P"]`)."""
+    `kw["dense_P"]`; the precision mode of `kw`'s precision, bf16 and
+    m_eq, "highest" where it has none)."""
     from pigeon_tpu_torch.solver import pallas_admm as pa
 
     sigma, alpha = kw["sigma"], kw["alpha"]
     dense_P = kw.get("dense_P", False)
     # the wrapper's defaults where the caller gave none (the unbatched
-    # route passes no scalings, tolerances or check)
+    # route passes no scalings, tolerances, check or mode)
     eps = dict(eps_abs=kw.get("eps_abs", 1e-3), eps_rel=kw.get("eps_rel",
                                                                 1e-3))
+    mode = dict(precision=kw.get("precision", "highest"),
+                bf16=kw.get("bf16", False), m_eq=kw.get("m_eq", 0))
     if not plain:
         # the pipeline's pattern and packed A where `kw` has them; without
         # a pattern the wrapper derives the batch's
@@ -1098,7 +1165,8 @@ def dense_admm(torch, ops, kw, n_iters, check, plain=False, dtype=None):
                                   scalings=kw.get("scalings"),
                                   check=check, dense_P=dense_P,
                                   pattern=kw.get("pattern"),
-                                  A_packed=kw.get("A_packed"), **eps)
+                                  A_packed=kw.get("A_packed"), **eps,
+                                  **mode)
     q, l = ops[2], ops[3]
     # identity scalings and no P term, as the wrapper takes them
     D, E, c, Pu, qu = kw.get("scalings") or (
@@ -1106,21 +1174,35 @@ def dense_admm(torch, ops, kw, n_iters, check, plain=False, dtype=None):
         torch.zeros_like(q), q)
     cast = (lambda t: t) if dtype is None else (lambda t: t.to(dtype))
     PuD = D[:, :, None] * Pu if dense_P else Pu * D
+    name = pa.mode_of(mode["precision"], mode["bf16"], mode["m_eq"],
+                      ops[1].shape[1])
     return pa.admm_iterations_plain(
         *[cast(t) for t in ops], cast(E), cast(PuD), cast(qu),
         cast(1.0 / (D * c[:, None])), n_iters, sigma, alpha, kw["tile"],
-        check, **eps)
+        check, **eps, mode=name,
+        m_eq=mode["m_eq"] if name in pa.MIXED_MODES else 0)
 
 
-def held_vs_f64(torch, out_k, out_p, out_e, what, keep=None):
+def held_vs_f64(torch, out_k, out_p, out_e, what, keep=None, truth=None):
     """Kernel and float32 plain outputs, each against the float64 plain
     version, over the instances in `keep` (all if None): for x, z, y and
     stats rows 0-5 (admm_errors' scales) the kernel's error is at most
-    twice the float32 plain version's plus ADMM_REL."""
+    twice the float32 plain version's plus ADMM_REL.  With `truth` (an
+    output -> the float64 statistics of its own x, z, y) the statistics
+    are each held against their own iterates' instead: in the split
+    modes the statistics' bf16 split of y is discontinuous in y, so two
+    runs' statistics differ by the split itself wherever their iterates
+    differ by rounding."""
     lane = lambda o: [t.double().T for t in o]
     e_l = lane(out_e)
     errs_k = admm_errors(torch, lane(out_k), e_l, keep)
     errs_p = admm_errors(torch, lane(out_p), e_l, keep)
+    if truth is not None:
+        for errs, o in ((errs_k, out_k), (errs_p, out_p)):
+            own = admm_errors(torch, lane(o),
+                              lane(list(o[:3]) + [truth(o)]), keep)
+            errs.update({k: v for k, v in own.items()
+                         if k.startswith("stats")})
     vs_plain = admm_errors(torch, lane(out_k), lane(out_p), keep)
     bad = {name: (errs_k[name], errs_p[name]) for name in errs_k
            if not errs_k[name] <= 2.0 * errs_p[name] + ADMM_REL}
@@ -1139,9 +1221,10 @@ def three_ways(torch, ops, kw, n_iters, check):
     return k, p, e
 
 
-def held_fixed(torch, ops, kw, n_iters, what):
+def held_fixed(torch, ops, kw, n_iters, what, truth=None):
     """A fixed segment (no early exit), held by `held_vs_f64`."""
-    return held_vs_f64(torch, *three_ways(torch, ops, kw, n_iters, 0), what)
+    return held_vs_f64(torch, *three_ways(torch, ops, kw, n_iters, 0), what,
+                       truth=truth)
 
 
 def exits_consistent(torch, stats, tile, n_iters, kw, what):
@@ -1165,7 +1248,8 @@ def exits_consistent(torch, stats, tile, n_iters, kw, what):
             f"admm_dense {what}: a tile stopped before converging")
 
 
-def held_segment(torch, ops, kw, n_iters, check, what, some_early=True):
+def held_segment(torch, ops, kw, n_iters, check, what, some_early=True,
+                 truth=None):
     """A segment with the early exit per tile, kernel against the float32
     and the float64 plain versions.  Exits at the tolerance's edge are
     rounding-determined, so a tile's executed count may differ between
@@ -1207,7 +1291,7 @@ def held_segment(torch, ops, kw, n_iters, check, what, some_early=True):
     same = ((ek == ep) & (ek == ee)).nonzero().flatten()
     rec["agreeing_share"] = same.numel() / ek.numel()
     rec.update(held_vs_f64(torch, k, p, e, f"{what}, agreeing tiles",
-                           keep=same))
+                           keep=same, truth=truth))
     return k, p, rec
 
 
@@ -1413,6 +1497,180 @@ def check_admm_dense_tile1(torch, captures):
                 shapes=[list(ops[0].shape), list(ops[1].shape)])
 
 
+def tracks_f64(p, e):
+    """Whether float32 outputs `p` (x, z, y first) are finite and each
+    within MODE_DIVERGED of its scale from the float64 outputs `e`."""
+    return all(bool(a.isfinite().all())
+               and float((a.double() - b).abs().max())
+               <= MODE_DIVERGED * float(b.abs().max())
+               for a, b in zip(p[:3], e[:3]))
+
+
+def plain_horizon(torch, ops, kw, n_iters):
+    """How far the float32 plain version of `kw`'s mode stays a reference
+    on these operands: the largest count in MODE_HORIZONS (up to n_iters)
+    after which it `tracks_f64` (fixed iterations, chained from one count
+    to the next).  Returns (count, the first count that fails or None)."""
+    p, e = list(ops), [t.double() for t in ops]
+    done, last = 0, 0
+    for count in [c for c in MODE_HORIZONS if c <= n_iters] + [n_iters]:
+        if count <= done:
+            continue
+        step = count - done
+        p = list(p[:6]) + list(dense_admm(torch, p, kw, step, 0,
+                                          plain=True)[:3])
+        e = list(e[:6]) + list(dense_admm(torch, e, kw, step, 0, plain=True,
+                                          dtype=torch.float64)[:3])
+        done = count
+        if not tracks_f64(p[6:], e[6:]):
+            return last, count
+        last = count
+    return last, None
+
+
+def stats_of_iterates(torch, ops, kw):
+    """output -> the float64 statistics of its own x, z, y, through the
+    mode's products of `kw` (`pallas_admm.products`, the bf16 roundings
+    of the float32 iterates' splits kept)."""
+    from pigeon_tpu_torch.solver import pallas_admm as pa
+
+    d = lambda t: t.double()
+    D, E, c, Pu, qu = (d(t) for t in kw["scalings"])
+    m_eq = kw.get("m_eq", 0)
+    mode = pa.mode_of(kw.get("precision", "highest"), kw.get("bf16", False),
+                      m_eq, ops[1].shape[1])
+    matA, matAT, _ = pa.products(d(ops[0]), d(ops[1]), mode,
+                                 m_eq if mode in pa.MIXED_MODES else 0)
+    PuD = D[:, :, None] * Pu if kw.get("dense_P", False) else Pu * D
+    invDc = 1.0 / (D * c[:, None])
+    return lambda o: pa._stats(matA, matAT, d(o[0]), d(o[1]), d(o[2]),
+                               1.0 / E, PuD, qu, invDc, kw["eps_abs"],
+                               kw["eps_rel"])[0]
+
+
+def held_mode(torch, ops, kw, n_iters, check, what, some_early=False):
+    """One segment in `kw`'s mode, held as the "highest" segments are
+    (`held_segment`: exits per tile and the float64 bar; the statistics
+    against their own iterates', `stats_of_iterates`) where the float32
+    plain version `tracks_f64` over it, else on the fixed iterations
+    before the point where it stops (`plain_horizon`, `held_fixed`)."""
+    truth = stats_of_iterates(torch, ops, kw)
+    if tracks_f64(dense_admm(torch, ops, kw, n_iters, check, plain=True),
+                  dense_admm(torch, ops, kw, n_iters, check, plain=True,
+                             dtype=torch.float64)):
+        rec = held_segment(torch, ops, kw, n_iters, check, what,
+                           some_early, truth)[2]
+        return dict(rec, held="segment", iterations=n_iters)
+    horizon, fails = plain_horizon(torch, ops, kw, n_iters)
+    # a plain version already MODE_DIVERGED from float64 after one
+    # iteration (the bf16 roundings of rhs and xt, times the stiff rows'
+    # rho) is held on that one: the kernel and the float32 plain version
+    # start from the same w
+    horizon = max(horizon, 1)
+    rec = held_fixed(torch, ops, kw, horizon,
+                     f"{what}, {horizon} fixed before the plain version "
+                     f"diverges", truth)
+    return dict(rec, held=f"{horizon} fixed iterations: the float32 plain "
+                          f"version is non-finite or more than "
+                          f"{MODE_DIVERGED} of a scale from float64 "
+                          f"after {fails}", iterations=horizon)
+
+
+def mode_flops(torch, A, m_eq, mode, executed, check, n, dense_P):
+    """`admm_flops` of a dense ADMM segment in `mode`: a split nonzero of
+    A costs three FMAs a product where an unsplit one costs one (it
+    counts three times), a split K^-1 three times 2 n^2, and each vector
+    split or rounded for a product 6 operations an entry (w and xt, and
+    rhs where K^-1 is split or rounded; x and y at each check)."""
+    from pigeon_tpu_torch.solver import pallas_admm as pa
+
+    m = A.shape[1]
+    nz = A != 0
+    split = torch.zeros(m, dtype=torch.bool, device=A.device)
+    if mode == "high":
+        split[:] = True
+    elif mode in pa.MIXED_MODES:
+        split[m_eq:] = True
+    nnz = nz.sum(dim=(1, 2)) + 2 * nz[:, split].sum(dim=(1, 2))
+    plain = mode == "highest"
+    vec = 0 if plain else 6 * (n + m + (0 if mode == "mixedk6" else n))
+    return admm_flops(
+        torch, nnz, executed, check, n,
+        10 * m + 5 * n + (4 * n * n if mode in ("mixed", "high") else 0)
+        + vec,
+        10 * m + 12 * n + (2 * n * n if dense_P else 0)
+        + (0 if plain else 6 * (n + m)))
+
+
+def check_admm_dense_modes(torch, forms):
+    """The dense ADMM kernel's other modes ("mixed", "mixedk6", "high",
+    "bf16") on the "highest" paths' captures, `forms` = {name: (cold
+    segment, warm segment, m_eq)} for the sparse fleet (diagonal P) and
+    the condensed fleet (dense P): each mode's build held on the cold
+    and the warm segment and on a ragged batch (B_RAGGED instances of
+    the warm one) against its float32 and float64 plain versions
+    (`held_mode`), with its cold segment's time, plain time and bound
+    (`mode_flops`), registers, shared bytes and resident clusters."""
+    from pigeon_tpu_torch.solver import pallas_admm as pa
+
+    out = {}
+    for form, ((c_args, c_kw), (w_args, w_kw), m_eq) in forms.items():
+        ops, (n_iters, sigma, alpha) = c_args[:9], c_args[9:12]
+        w_ops = w_args[:9]
+        dense_P = c_kw.get("dense_P", False)
+        pattern = c_kw.get("pattern") or pa.pattern_from(ops[1])
+        n, m = ops[0].shape[-1], ops[1].shape[1]
+        for mode in MODES_CHECKED:
+            mkw = (dict(bf16=True) if mode == "bf16"
+                   else dict(precision=mode))
+            kw = dict(c_kw, sigma=sigma, alpha=alpha, m_eq=m_eq, **mkw)
+            kw.setdefault("A_packed", pa.pack(ops[1], pattern))
+            wkw = dict(w_kw, sigma=sigma, alpha=alpha, m_eq=m_eq, **mkw)
+            check = kw["check"]
+            what = f"{mode}, {form}"
+            cold = held_mode(torch, ops, kw, n_iters, check,
+                             f"{what} (cold segment)")
+            warm = held_mode(torch, w_ops, wkw, n_iters, check,
+                             f"{what} (warm segment)")
+            cut = [o[:B_RAGGED].contiguous() for o in w_ops]
+            rkw = dict(wkw, A_packed=None, scalings=tuple(
+                t[:B_RAGGED].contiguous() for t in wkw["scalings"]))
+            ragged = held_mode(torch, cut, rkw, n_iters, check,
+                               f"{what} (warm segment, ragged)")
+            k = dense_admm(torch, ops, kw, n_iters, check)
+            torch.cuda.synchronize()
+            ms = cuda_ms(torch, lambda: dense_admm(torch, ops, kw, n_iters,
+                                                   check), 5)
+            plain = cuda_ms(torch, lambda: dense_admm(
+                torch, ops, kw, n_iters, check, plain=True), 2)
+            flops = mode_flops(torch, ops[1], m_eq, mode, k[3][:, 6], check,
+                               n, dense_P)
+            pat = pattern.tensors(ops[1].device)
+            b_ms, b_by = bound(nbytes(ops[0], kw["A_packed"], *ops[2:],
+                                      *kw["scalings"], *k,
+                                      *[pat[key] for key in (
+                                          "row_code", "col_slot",
+                                          "col_row")]), flops)
+            rec = dict(mode=mode, form=form, dense_P=dense_P, ms=ms,
+                       plain_ms=plain, library_ms=None, bound_ms=b_ms,
+                       bound_by=b_by, iters_mean=float(k[3][:, 6].mean()),
+                       finite=bool(torch.isfinite(k[0]).all()),
+                       registers=pa.registers(mode, dense_P),
+                       smem_bytes=pa.plan_smem(
+                           n, m, pattern.row_width, pattern.col_width,
+                           dense_P, mode),
+                       max_active_clusters=pa.max_active_clusters(
+                           pattern, kw["tile"], dense_P, mode),
+                       cold=cold, warm=warm, ragged=ragged,
+                       shapes=[list(ops[0].shape), list(ops[1].shape)])
+            # x's largest difference from the float32 plain version,
+            # relative to its scale, on the cold segment's held part
+            rec["err"] = cold["vs_plain"].get("x", 0.0)
+            log(phase="kernel_check_mode", name="admm_dense", **rec)
+            out[f"{mode}_{form}"] = rec
+    return out
+
+
 KERNEL_META = {
     "vanloan": ("pigeon_tpu_torch/csrc/vanloan.cu",
                 "pigeon_tpu/discretize.py:563", check_vanloan),
@@ -1537,12 +1795,15 @@ def profile_step(torch, st):
 
 
 def reference_verdict(torch, fleet_wide, check, card, c32, u64, exit64=(),
-                      outside_from_cpu=False):
+                      outside_from_cpu=False, inner=0):
     """One step of `reference_check`'s rule: `card` and `c32` are the
     (commands, diagnostics) of the card and of the CPU float32 path, `u64`
     the CPU float64 commands, `exit64` the CPU float64 commands from the
     states moved by EXIT_NOISE.  `fleet_wide` and `outside_from_cpu` as
-    in REF_RULES.  Returns the record and the rules broken."""
+    in REF_RULES; `inner` (REF_RULES' "segments"): the in-kernel check
+    period, by which the fleet-wide iteration bar grows for each segment
+    one run's batch went on with after the other's stopped.  Returns the
+    record and the rules broken."""
     (ug, dg_), (u32, d32) = card, c32
     bar = torch.tensor([2e-4, 2.0, 2.0], dtype=torch.float64)
     dg = (ug.cpu().double() - u64).abs()
@@ -1574,8 +1835,12 @@ def reference_verdict(torch, fleet_wide, check, card, c32, u64, exit64=(),
                converged=[float(conv_g.double().mean()),
                           float(conv_c.double().mean())], **extra)
     if fleet_wide:
+        # each run's segments: its slowest vehicle's count in segments
+        segs = lambda it: math.ceil(float(it.max()) / check)
+        rec["iters_allowed"] = check + inner * abs(segs(it_g) - segs(it_c))
         same = (abs(int(conv_g.sum()) - int(conv_c.sum())) <= 2
-                and abs(float(it_g.mean() - it_c.mean())) <= check)
+                and abs(float(it_g.mean() - it_c.mean()))
+                <= rec["iters_allowed"])
     else:
         same = (bool((conv_g == conv_c).all())
                 and rec["iters_diff"] <= check)
@@ -1746,8 +2011,10 @@ def reference_check(torch, formulation="coupled", device="cuda",
                                     u64[keep])
                 exit64 = [u[keep] for u in exit64]
                 u_cq = None if u_cq is None else u_cq[keep]
+            inner = solver.pallas_check_inner if rule.get("segments") else 0
             rec, broken = reference_verdict(torch, fleet_wide, check, card,
-                                            cpu32, u64, exit64, outside)
+                                            cpu32, u64, exit64, outside,
+                                            inner)
             rec.update(flags)
             if fleet_wide:
                 rec["per_vehicle_rule_broken"] = reference_verdict(
@@ -1765,7 +2032,7 @@ def reference_check(torch, formulation="coupled", device="cuda",
                 same_bits[name] &= bool(torch.equal(u_c, ug))
                 crec, cbroken = reference_verdict(
                     torch, fleet_wide, check, (u_c, d_c), cpu32, u64, exit64,
-                    outside)
+                    outside, inner)
                 rec[f"control_{name}"] = dict(
                     broken=cbroken, err_bars=crec["err_bars"],
                     max_excess=crec["max_excess"],
@@ -1780,6 +2047,92 @@ def reference_check(torch, formulation="coupled", device="cuda",
         seeds.append(dict(seed=seed, steps=steps, controls_rejected=rejected,
                           controls_same_bits=same_bits))
     return dict(rule=rule, seeds=seeds)
+
+
+def ladder_check(torch, kernels, bulk, device="cuda"):
+    """The precision ladder on the sparse step (`bulk` iterations in mode
+    "bf16", then the "mixedk6" segments) for B_REF vehicles over
+    LADDER_STEPS steps, each also run on the CPU at float32 and float64
+    from the card's state and compared by REF_RULES["sparse_ladder"]
+    (`reference_verdict`).  On each card step:
+    - the dense ADMM kernel runs first the bulk (bf16, `bulk` iterations,
+      its bf16 build), then only mixedk6 segments (that build);
+    - each vehicle's iterations are `bulk` plus its executed segment
+      iterations;
+    - its converged flag is the last segment's convergence test, whatever
+      the bulk's statistics say (the bulk sets no convergence; the share
+      they would have called converged is recorded);
+    - the vehicles whose solve fell back (non-finite) are those of the
+      CPU float64 step, within two."""
+    from pigeon_tpu_torch.solver import pallas_admm as pa
+
+    rule = REF_RULES["sparse_ladder"]
+    gpu = make_setup(torch, B_REF, device, formulation="sparse_mixedk6")
+    opts = dataclasses.replace(gpu["cfg"].solver, bf16_bulk_iters=bulk)
+    gpu["cfg"] = dataclasses.replace(gpu["cfg"], solver=opts)
+    conv_of = lambda st, qu: (
+        (st[:, 0] <= opts.eps_abs + opts.eps_rel * torch.maximum(st[:, 2],
+                                                                  st[:, 3]))
+        & (st[:, 1] <= opts.eps_abs + opts.eps_rel * torch.maximum(
+            torch.maximum(st[:, 4], st[:, 5]), qu.abs().amax(dim=-1))))
+    steps = []
+    for i in range(LADDER_STEPS):
+        c32 = copy_state(torch, gpu, "cpu", torch.float32)
+        c64 = copy_state(torch, gpu, "cpu", torch.float64)
+        calls, original = [], pa.admm_iterations
+
+        def spy(*args, **kw):
+            out = original(*args, **kw)
+            calls.append((kw.get("bf16", False), kw.get("precision"),
+                          args[9], out[3], kw["scalings"][4]))
+            return out
+
+        before = kernels.launches_by("admm_dense")
+        pa.admm_iterations = spy
+        try:
+            card = closed_loop_step(torch, gpu)
+        finally:
+            pa.admm_iterations = original
+        after = kernels.launches_by("admm_dense")
+        grew = {k: v - before.get(k, 0) for k, v in after.items()
+                if v != before.get(k, 0)}
+        fb_card = gpu["carry"].nan_fallback.cpu()
+        cpu32 = closed_loop_step(torch, c32)
+        u64, d64 = closed_loop_step(torch, c64)
+        fb64 = c64["carry"].nan_fallback
+        first, segs = calls[0], calls[1:]
+        require(first[0] and first[2] == bulk and segs
+                and all(not c[0] and c[1] == "mixedk6"
+                        and c[2] == opts.check_every for c in segs)
+                and grew == {"bf16": 1, "mixedk6": len(segs)},
+                f"ladder step {i}: calls "
+                f"{[(c[0], c[1], c[2]) for c in calls]}, builds {grew}")
+        executed = bulk + sum(c[3][:, 6] for c in segs)
+        dg = card[1]
+        require(torch.equal(dg.iterations.double(), executed.double()),
+                f"ladder step {i}: iterations are not the bulk's plus the "
+                f"segments'")
+        last_conv = conv_of(segs[-1][3], segs[-1][4])
+        require(torch.equal(dg.converged, last_conv),
+                f"ladder step {i}: converged is not the last segment's")
+        rec, broken = reference_verdict(
+            torch, rule["fleet_wide"], opts.check_every, card, cpu32, u64,
+            outside_from_cpu=rule["outside_from_cpu"] == "always",
+            inner=opts.pallas_check_inner if rule["segments"] else 0)
+        rec.update(
+            segments=len(segs),
+            bulk_would_converge=float(conv_of(first[3], first[4])
+                                      .double().mean()),
+            bulk_finite=float(torch.isfinite(first[3][:, :6]).all(dim=1)
+                              .double().mean()),
+            bulk_r_prim_median=float(first[3][:, 0].median()),
+            fallback=[float(fb_card.double().mean()),
+                      float(c32["carry"].nan_fallback.double().mean()),
+                      float(fb64.double().mean())])
+        require(not broken and int((fb_card != fb64).sum()) <= 2,
+                f"ladder card vs CPU, step {i}: {broken} {rec}")
+        steps.append(dict(step=i, **rec))
+    return dict(bulk=bulk, batch=B_REF, steps=steps)
 
 
 # ---------------------------------------------------------------------------
@@ -2109,6 +2462,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
     from pigeon_tpu_torch import _kernels as kernels
+    from pigeon_tpu_torch import mpc
 
     smi = nvidia_smi()
     name = torch.cuda.get_device_name(0)
@@ -2231,38 +2585,60 @@ def main() -> int:
         torch, sim_cd)
     log_check("admm_dense", second["admm_dense_simulate_condensed"],
               path="simulate_condensed")
+    # the dense ADMM kernel's other modes, on both hard fleets' segments
+    m_eq = {f: int(np.asarray(mpc._eq_rows_for(fleet_config(f))).size)
+            for f in ("sparse", "condensed")}
+    require(m_eq == {"sparse": 128, "condensed": 38},
+            f"the layouts' leading equality rows {m_eq}")
+    modes = check_admm_dense_modes(torch, {
+        "sparse": (cap_sp["admm_dense"], warm_sp["admm_dense"],
+                   m_eq["sparse"]),
+        "condensed": (cap_cd["admm_dense"], warm_cd["admm_dense"],
+                      m_eq["condensed"])})
     del cap, cap_dec, small, extra, cap_sp, small_sp, warm_sp
     del cap_cd, small_cd, warm_cd, sim_cd
 
     # ---- path: the coupled fleet ------------------------------------------
-    launches = {}
+    launches, builds = {}, {}
 
     def fleet_phase(formulation, phase, B=B_FLEET):
         kernels.reset_launches()
         recs, st = run_fleet(torch, B, WARM_STEPS[formulation], kernels,
                              formulation)
         launches[phase] = kernels.launches()
+        builds[phase] = kernels.launches_by("admm_dense")
         warm_ms = [r["ms"] for r in recs[1:]]
         last = recs[-1]
         log(phase=phase, batch=B, cold_ms=recs[0]["ms"],
             warm_ms_median=float(np.median(warm_ms)),
             solves_per_s=B / (float(np.median(warm_ms)) / 1e3),
             iters_mean_last=last["iters"], converged_last=last["conv"],
-            launches=launches[phase], steps=recs)
+            launches=launches[phase], admm_dense_builds=builds[phase],
+            steps=recs)
         require(last["conv"] >= 0.99, f"converged fraction {last['conv']}")
+        if formulation in PATH_B8_BUILD:
+            # every launch of the dense ADMM kernel was the path's build
+            require(builds[phase] == {PATH_B8_BUILD[formulation]:
+                                      launches[phase]["admm_dense"]},
+                    f"{phase}: admm_dense builds {builds[phase]}")
         if formulation == "sparse":
             require(all(r["launches"] == SPARSE_STEP_LAUNCHES for r in recs),
                     f"sparse step launches {[r['launches'] for r in recs]}")
-        if formulation == "condensed":
+        if formulation in ("condensed", "sparse_mixedk6"):
             # vanloan and ruiz once, admm_dense once per segment of the
-            # budget: fewer only on a step where every vehicle converged
+            # budget: fewer only on a step where every vehicle converged;
+            # the sparse QP's banded factor once per factorization (the
+            # first and each refactor before a segment)
             n_seg = SPARSE_SOLVER["max_iter"] // SPARSE_SOLVER["check_every"]
             segs = [r["launches"].get("admm_dense", 0) for r in recs]
+            chol = [r["launches"].get("banded_chol", 0) for r in recs]
+            sparse = formulation != "condensed"
             require(all(r["launches"].get("vanloan") == 1
                         and r["launches"].get("ruiz") == 1
                         and 1 <= k <= n_seg and (k == n_seg or r["conv"] == 1)
-                        for r, k in zip(recs, segs)),
-                    f"condensed step launches {[r['launches'] for r in recs]}")
+                        and (1 <= f <= k if sparse else f == 0)
+                        for r, k, f in zip(recs, segs, chol)),
+                    f"{phase} step launches {[r['launches'] for r in recs]}")
         log(phase="profile", path=phase, batch=B, **profile_step(torch, st))
 
     fleet_phase("coupled", "fleet")
@@ -2270,6 +2646,8 @@ def main() -> int:
     fleet_phase("decoupled", "fleet_decoupled")
     # ---- path: the sparse coupled fleet -----------------------------------
     fleet_phase("sparse", "fleet_sparse", B_SPARSE)
+    # ---- path: the sparse fleet in mode "mixedk6" -------------------------
+    fleet_phase("sparse_mixedk6", "fleet_sparse_mixedk6", B_SPARSE)
     # ---- path: the hard condensed coupled fleet ---------------------------
     fleet_phase("condensed", "fleet_condensed", B_SPARSE)
 
@@ -2314,9 +2692,15 @@ def main() -> int:
     require(all(v > 0 for v in main_launches.values()), main_launches)
 
     # ---- reference checks -------------------------------------------------
-    for formulation in ("coupled", "decoupled", "sparse", "condensed"):
+    for formulation in ("coupled", "decoupled", "sparse", "condensed",
+                        "sparse_mixedk6"):
         log(phase="reference", formulation=formulation, batch=B_REF,
             **reference_check(torch, formulation))
+    for bulk in LADDER_BULKS:
+        t0 = time.perf_counter()
+        rec = ladder_check(torch, kernels, bulk)
+        log(phase="reference_ladder", seconds=time.perf_counter() - t0,
+            **rec)
     for formulation, sim_log in sim_logs.items():
         log(phase="reference_simulate",
             **simulate_reference_check(torch, formulation, sim_log))
@@ -2361,6 +2745,11 @@ def main() -> int:
                 "library_ms")
         out["other_shapes"] = {name: {q: o[q] for q in keys}
                                for name, o in others.items() if o}
+        if k == "admm_dense":
+            out["launches_by_build"] = builds
+            out["modes"] = {name: {q: o[q] for q in keys + (
+                "registers", "smem_bytes", "iters_mean")}
+                for name, o in modes.items()}
         return out
 
     print(json.dumps({"kernels": [entry(k) for k in KERNEL_META]}),

@@ -44,16 +44,18 @@ def _load(source: str, name: str, argtypes: list):
 
 class Kernel:
     """One C entry point of one source file; `launches` counts the calls
-    that launched it."""
+    that launched it, and `launches_by` those of each build a caller
+    names (`tag`)."""
 
     def __init__(self, name: str, source: str, argtypes: list):
         self.name = name
         self.source = source
         self.argtypes = argtypes + [_P]          # trailing stream
         self.launches = 0
+        self.launches_by = {}
         self._fn = None
 
-    def launch(self, *args):
+    def launch(self, *args, tag: str = None):
         if self._fn is None:
             self._fn = _load(self.source, self.name, self.argtypes)
         conv = [a.data_ptr() if isinstance(a, torch.Tensor) else a
@@ -63,6 +65,8 @@ class Kernel:
             raise RuntimeError(f"CUDA kernel {self.name} failed to launch: "
                                f"cudaError {err}")
         self.launches += 1
+        if tag is not None:
+            self.launches_by[tag] = self.launches_by.get(tag, 0) + 1
 
 
 KERNELS = {
@@ -82,7 +86,7 @@ KERNELS = {
                           [_P] * 4 + [_L, _I, _I, _I]),
     "admm_dense": Kernel(
         "admm_dense_f32", "admm_dense.cu",
-        [_P] * 17 + [_I] * 8 + [_F, _F, _I, _F, _F]),
+        [_P] * 17 + [_I] * 10 + [_F, _F, _I, _F, _F]),
 }
 
 
@@ -102,10 +106,17 @@ def occupancy(source: str, name: str, *args: int) -> int:
 def reset_launches():
     for k in KERNELS.values():
         k.launches = 0
+        k.launches_by = {}
 
 
 def launches() -> dict:
     return {name: k.launches for name, k in KERNELS.items()}
+
+
+def launches_by(name: str) -> dict:
+    """The launches of kernel `name` by build (the wrapper's tags: the
+    dense ADMM kernel's mode, "_dense_P" added for its dense-P build)."""
+    return dict(KERNELS[name].launches_by)
 
 
 def _nvcc() -> str:

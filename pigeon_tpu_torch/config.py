@@ -232,8 +232,9 @@ class SolverOptions:
     #   "high":    3-pass bf16x3 everywhere — DIVERGES on this QP family
     #              (rho_eq rows amplify the noise; kept for experiments).
     #   "mixed":   equality-row A/A^T tiles at 6-pass fp32, inequality
-    #              tiles and K^-1 at 3-pass bf16x3 (needs eq_rows plumbed
-    #              from the layout; ~1.6x fewer MXU passes).
+    #              tiles and K^-1 at 3-pass bf16x3 (needs the layout's
+    #              eq_rows, which mpc_step_batched passes; ~1.6x fewer MXU
+    #              passes on the TPU, three FMAs for one on the H100).
     #   "mixedk6": like "mixed" but K^-1 also at 6-pass fp32.
     # The FACTORIZATION stays at HIGHEST regardless (solver/banded.py).
     pallas_precision: str = "highest"

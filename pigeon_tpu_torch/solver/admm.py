@@ -71,10 +71,13 @@ def cold_start(qp: QPData) -> QPWarmStart:
 ADAPT_TOL = 5.0
 
 
-def _rho_start(qp: QPData, warm: QPWarmStart, opts: SolverOptions):
-    """Per-row base rho (equality rows, l == u, get the stiff scaling, as
-    OSQP) and the warm start's multiplier."""
-    is_eq = (qp.u - qp.l) < 1e-10
+def _rho_start(qp: QPData, warm: QPWarmStart, opts: SolverOptions,
+               is_eq=None):
+    """Per-row base rho (equality rows get the stiff scaling, as OSQP) and
+    the warm start's multiplier.  The equality rows are `is_eq` ((m,) or
+    (B, m) bool) where given, else the rows with l == u at run time."""
+    if is_eq is None:
+        is_eq = (qp.u - qp.l) < 1e-10
     rho_base = torch.where(
         is_eq, torch.full_like(qp.l, opts.rho * opts.rho_eq_scale),
         torch.full_like(qp.l, opts.rho))
@@ -168,13 +171,21 @@ def _factor_inv(Pb, Ab, rho_vec, sigma: float, opts: SolverOptions,
     else:
         K = K + torch.diag_embed(Pb + sigma)
     if method == "ns":
-        if opts.ns_bf16_iters > 0:
-            raise NotImplementedError(
-                "the bf16 bulk phase of the Newton-Schulz factor "
-                "(ns_bf16_iters) is not ported")
         norm_inf = torch.abs(K).sum(dim=-1).amax(dim=-1)[..., None, None]
         X = K / (norm_inf * norm_inf)
-        for _ in range(opts.ns_iters):
+        bulk = min(opts.ns_bf16_iters, opts.ns_iters)
+        if bulk > 0:
+            # the JAX package's bf16 bulk (admm.py:180-197; measured there
+            # not to converge on the condensed KKT family, so off by
+            # default): bf16 operands and a bf16 result in each step, the
+            # products summed in float32
+            bf = lambda t: t.to(torch.bfloat16)
+            mm = lambda a, b: bf(a.float() @ b.float())
+            Kb, Xb, eye2 = bf(K), bf(X), bf(2.0 * eye)
+            for _ in range(bulk):
+                Xb = mm(Xb, bf(eye2.float() - mm(Kb, Xb).float()))
+            X = Xb.to(K.dtype)
+        for _ in range(opts.ns_iters - bulk):
             X = X @ (2.0 * eye - K @ X)
         return 0.5 * (X + X.transpose(-1, -2))
     # a K that is not positive definite (a QP with non-finite data) gives
@@ -367,7 +378,9 @@ def solve_qp(qp: QPData, warm: "QPWarmStart | None" = None,
     banded_plan: the static stage plan (`solver/banded.py`) that
     factor_method "banded" needs; on this route its stage recursion is
     the plain PyTorch scan, as the JAX package's unbatched factor is its
-    XLA scan.  eq_rows: accepted for symmetry with `solve_qp_batched`.
+    XLA scan.  eq_rows: accepted for symmetry with `solve_qp_batched`; as
+    in the JAX package this route runs the kernel in mode "highest"
+    whatever `opts.pallas_precision` says.
     w_soft: optional (m,) exact-penalty weights (inf = hard row); a
     finite-weight row's z-update is the shrinkage prox of
     W dist(., [l, u]) in place of the box projection.  As in the JAX
@@ -393,11 +406,11 @@ def solve_qp_batched(qp: QPData, warm: QPWarmStart,
     the lane solver on its CUDA kernels (`solver/lane_admm.py`); "pallas":
     the natively batched pipeline (`_solve_qp_pallas_batched`) for hard
     QPs, with a diagonal or a dense P.  w_soft: (m,) or (B, m), for "xla" and
-    "lanes".  eq_rows: the statically known equality rows, which only the
-    mixed-precision kernel modes (not ported) would use.  a_pattern: A's
-    static nonzero pattern (`pallas_admm.EllPattern`) for "pallas"'s dense
-    ADMM kernel; without it the pipeline derives the batch's (one host
-    read per solve)."""
+    "lanes".  eq_rows: the statically known equality rows (indices into
+    the m rows), which "pallas"'s mixed precision modes run in float32
+    and give the stiff rho.  a_pattern: A's static nonzero pattern
+    (`pallas_admm.EllPattern`) for "pallas"'s dense ADMM kernel; without
+    it the pipeline derives the batch's (one host read per solve)."""
     if opts.backend == "lanes":
         from pigeon_tpu_torch.solver.lane_admm import solve_lanes_batched
         return solve_lanes_batched(qp, warm, opts, w_soft)
@@ -407,7 +420,7 @@ def solve_qp_batched(qp: QPData, warm: QPWarmStart,
                 "soft rows are supported by the 'xla' and 'lanes' backends; "
                 "the dense ADMM kernel has no shrink prox")
         return _solve_qp_pallas_batched(qp, warm, opts, banded_plan,
-                                        a_pattern)
+                                        a_pattern, eq_rows)
     if opts.backend != "xla":
         raise NotImplementedError(
             f"solver backend {opts.backend!r} is not ported")
@@ -417,7 +430,8 @@ def solve_qp_batched(qp: QPData, warm: QPWarmStart,
 
 
 def run_segments(qp: QPData, warm: QPWarmStart, opts: SolverOptions, D, E,
-                 c, factor, run_iters, layout=None) -> QPSolution:
+                 c, factor, run_iters, layout=None, is_eq=None,
+                 bulk=None) -> QPSolution:
     """The segment loop of the kernel pipelines ("lanes" and "pallas"),
     on the scalings (D, E, c) of the Ruiz step: up to `max_iter //
     check_every` segments of `run_iters(fac, x, z, y) -> (x, z, y, stats)`
@@ -433,11 +447,15 @@ def run_segments(qp: QPData, warm: QPWarmStart, opts: SolverOptions, D, E,
     keep their rho, so their factor does not change).  Between segments
     two flags are read on the host: one sync per segment but the last.
     `layout` = (to, back) maps the (B, k) iterates to run_iters' layout
-    and back."""
+    and back.  `is_eq`: the equality rows for the stiff rho (`_rho_start`).
+    `bulk` = (n, run): `run(fac, x, z, y)` runs n iterations before the
+    segments (the "pallas" pipeline's bf16 bulk phase, JAX admm.py:
+    565-580): its statistics set no convergence, at least one segment
+    follows, and the executed count starts at n."""
     to_k, back = layout or (lambda v: v, lambda v: v)
     dtype, dev = qp.q.dtype, qp.q.device
     B = qp.q.shape[0]
-    rho_base, rho_scale = _rho_start(qp, warm, opts)
+    rho_base, rho_scale = _rho_start(qp, warm, opts, is_eq)
     rho_of = lambda s: torch.clamp(rho_base * s[:, None], RHO_MIN, RHO_MAX)
     x, z, y = (to_k(v) for v in (warm.x / D, E * warm.z,
                                  c[:, None] * warm.y / E))
@@ -447,6 +465,9 @@ def run_segments(qp: QPData, warm: QPWarmStart, opts: SolverOptions, D, E,
     r_prim = r_dual = torch.full((B,), math.inf, dtype=dtype, device=dev)
     converged = torch.zeros((B,), dtype=torch.bool, device=dev)
     iters_acc = torch.zeros((B,), dtype=dtype, device=dev)
+    if bulk is not None:
+        x, z, y, _ = bulk[1](fac, x, z, y)
+        iters_acc = iters_acc + float(bulk[0])
     for seg in range(n_seg):
         x, z, y, stats = run_iters(fac, x, z, y)
         stats = stats.to(dtype)
@@ -481,31 +502,36 @@ def run_segments(qp: QPData, warm: QPWarmStart, opts: SolverOptions, D, E,
 
 def _solve_qp_pallas_batched(qp: QPData, warm: QPWarmStart,
                              opts: SolverOptions, banded_plan=None,
-                             a_pattern=None) -> QPSolution:
+                             a_pattern=None, eq_rows=None) -> QPSolution:
     """The natively batched pipeline of the JAX package's "pallas"
     backend: Ruiz equilibration (`pallas_ruiz.ruiz_batched`), the K^-1 of
     `_factor_inv` for the whole batch, then `run_segments` with segments
     of `check_every` iterations through `pallas_admm.admm_iterations`,
     each with the in-kernel early exit per tile of `opts.pallas_tile`
-    instances.  On the card the scaled A is packed into `a_pattern`'s ELL
-    form once per solve (the pattern of the batch when None).  The kernels
-    compute in float32, the rest in the QP's dtype.
+    instances, in the mode `opts.pallas_precision`.  On the card the scaled
+    A is packed into `a_pattern`'s ELL form once per solve (the pattern of
+    the batch when None).  The kernels compute in float32, the rest in the
+    QP's dtype.
 
     A dense P (the condensed QP, JAX admm.py:446-463): the Ruiz kernel
     scales from the row maxima of |P| in place of the diagonal, the
     scaled P = c D P D is formed here, and the ADMM kernel's statistics
-    take P x from the dense unscaled P."""
-    from pigeon_tpu_torch.solver.pallas_admm import admm_iterations
+    take P x from the dense unscaled P.
+
+    The mixed modes with `eq_rows` (JAX admm.py:465-515): the stiff rho
+    goes to the rows of `eq_rows`, not to those with l == u at run time,
+    and the kernel sees the rows permuted, `eq_rows` first (no permutation
+    when they lead already, as in every layout); K = A' rho A does not
+    depend on the rows' order, so the factor takes them as they are.
+    Without `eq_rows` a mixed mode raises ValueError, as in the JAX
+    package.  `opts.bf16_bulk_iters` > 0 runs that many iterations in
+    mode "bf16" before the segments (`run_segments`' bulk)."""
+    from pigeon_tpu_torch.solver.pallas_admm import (MIXED_MODES,
+                                                     admm_iterations)
     from pigeon_tpu_torch.solver.pallas_ruiz import ruiz_batched
 
-    if opts.bf16_bulk_iters > 0:
-        raise NotImplementedError(
-            "the bf16 bulk phase (bf16_bulk_iters) is not ported")
-    if opts.pallas_precision != "highest":
-        raise NotImplementedError(
-            f"pallas_precision={opts.pallas_precision!r} is not ported "
-            f"(only 'highest')")
     dtype = qp.q.dtype
+    m = qp.l.shape[-1]
     dense_P = qp.P_diag.dim() == 3
     f32 = lambda t: t.to(torch.float32).contiguous()
     if opts.scaling_iters > 0:
@@ -528,16 +554,38 @@ def _solve_qp_pallas_batched(qp: QPData, warm: QPWarmStart,
         return (f32(_factor_inv(Pb, Ab, rho_vec, sigma, opts, banded_plan)),
                 f32(rho_vec))
 
-    kernel_ops = [f32(t) for t in (Ab, qb, lb, ub)]
-    scalings = tuple(f32(t) for t in (D, E, c, qp.P_diag, qp.q))
-    ell = _ell_form(kernel_ops[0], a_pattern)
+    is_eq, m_eq, perm = None, 0, None
+    if opts.pallas_precision in MIXED_MODES and eq_rows is not None:
+        eq = torch.as_tensor(eq_rows, dtype=torch.long).flatten().cpu()
+        m_eq = int(eq.numel())
+        is_eq = torch.zeros(m, dtype=torch.bool)
+        is_eq[eq] = True
+        if not torch.equal(eq, torch.arange(m_eq)):
+            perm = torch.cat([eq, torch.arange(m)[~is_eq]]).to(qp.q.device)
+        is_eq = is_eq.to(qp.q.device)
+    rows = (lambda t: t) if perm is None else (lambda t: t[:, perm])
+    kernel_ops = [f32(rows(Ab)), f32(qb), f32(rows(lb)), f32(rows(ub))]
+    scalings = tuple(f32(t) for t in (D, rows(E), c, qp.P_diag, qp.q))
+    # a permuted A takes the pattern of its own nonzeros
+    ell = _ell_form(kernel_ops[0], a_pattern if perm is None else None)
 
-    def run_iters(fac, x, z, y):
-        return admm_iterations(
-            fac[0], *kernel_ops, fac[1], x, z, y, opts.check_every, sigma,
-            float(opts.alpha), tile=opts.pallas_tile, scalings=scalings,
-            check=int(opts.pallas_check_inner), dense_P=dense_P,
-            eps_abs=float(opts.eps_abs), eps_rel=float(opts.eps_rel), **ell)
+    def run(n_iters, **mode):
+        def go(fac, x, z, y):
+            x, z, y, st = admm_iterations(
+                fac[0], *kernel_ops, rows(fac[1]), x, rows(z), rows(y),
+                n_iters, sigma, float(opts.alpha), tile=opts.pallas_tile,
+                scalings=scalings, check=int(opts.pallas_check_inner),
+                dense_P=dense_P, eps_abs=float(opts.eps_abs),
+                eps_rel=float(opts.eps_rel), m_eq=m_eq, **ell, **mode)
+            if perm is not None:
+                z = torch.empty_like(z).index_copy_(1, perm, z)
+                y = torch.empty_like(y).index_copy_(1, perm, y)
+            return x, z, y, st
+        return go
 
-    return run_segments(qp, warm, opts, D, E, c, factor, run_iters,
-                        layout=(f32, lambda v: v))
+    bulk = (None if opts.bf16_bulk_iters <= 0 else
+            (opts.bf16_bulk_iters, run(opts.bf16_bulk_iters, bf16=True)))
+    return run_segments(qp, warm, opts, D, E, c, factor,
+                        run(opts.check_every,
+                            precision=opts.pallas_precision),
+                        layout=(f32, lambda v: v), is_eq=is_eq, bulk=bulk)

@@ -1,12 +1,16 @@
 """Dense-K^-1 ADMM iterations on a CUDA kernel (counterpart of
-`pigeon_tpu/solver/pallas_admm.py`, precision mode "highest" with a
+`pigeon_tpu/solver/pallas_admm.py`, all five precision modes, with a
 diagonal P, the sparse QP's, or a dense one, the condensed QP's).
 
 `admm_iterations` launches `csrc/admm_dense.cu` for CUDA tensors and runs
 its plain PyTorch version, `admm_iterations_plain` (same iteration, same
 statistics, same early exit per tile), for CPU tensors.  Both compute in
 the inputs' dtype; the solver passes float32, as the JAX package's kernel
-computes.
+computes.  The modes change the arithmetic of the products v M:
+"highest" plain sums; "bf16" M and v rounded to bfloat16; "high" the
+bf16 split v M ~ (v_hi M_hi + v_hi M_lo) + v_lo M_hi of every product;
+"mixed" and "mixedk6" the split for the inequality rows of A (after the
+`m_eq` equality rows, which stay plain), and for K^-1 in "mixed".
 
 The kernel holds each instance's K^-1 and the nonzeros of its A in one
 block's shared memory.  A reaches it in an ELL form: `EllPattern` is the
@@ -31,6 +35,10 @@ TILE_MAX = 8
 SMEM_MAX = 232448
 SLOTS_MAX = 32767
 
+
+# the precision modes, in the order of csrc/admm_dense.cu's MODE
+MODES = ("highest", "mixed", "mixedk6", "high", "bf16")
+MIXED_MODES = ("mixed", "mixedk6")
 
 # a row slot's code (csrc/admm_dense.cu): column, merges after the slot,
 # first and last slot of its lane's sum
@@ -164,22 +172,26 @@ def pack(A, pattern: EllPattern):
 
 
 def smem_bytes(n: int, m: int, row_width: int, col_width: int,
-               dense_P: bool = False) -> int:
+               dense_P: bool = False, mode: str = "highest") -> int:
     """Shared memory of one block of the kernel (`smem_bytes` in
     csrc/admm_dense.cu): the vectors, the row-ELL as (value, code) pairs,
-    K^-1, with a dense P the (n, n) PuD, and the 16-bit column-ELL."""
+    K^-1, with a dense P the (n, n) PuD, the 16-bit column-ELL, and in
+    every mode but "highest" the four vectors' bf16 splits (one word an
+    entry: 2 n + 2 m, the first rounded up to 4)."""
+    n4 = -(-n // 4) * 4
     floats = 6 * n + 8 * m + 8 + n * n + (n * n if dense_P else 0)
-    return (4 * (-(-n // 4) * 4) + 8 * m * row_width + 4 * floats + 8
-            + 4 * n * col_width)
+    split = 0 if mode == "highest" else 4 * (n4 + n + 2 * m)
+    return (4 * n4 + 8 * m * row_width + 4 * floats + 8
+            + 4 * n * col_width + split)
 
 
 def plan_smem(n: int, m: int, row_width: int, col_width: int,
-              dense_P: bool = False) -> int:
+              dense_P: bool = False, mode: str = "highest") -> int:
     """`smem_bytes`, or ValueError for a shape whose K^-1 and A (and a
     dense P) do not fit one block (n > 211 at the sparse QP's m = 290 and
     widths 11, 15; the condensed QP's n = 103, m = 200, widths 39, 79
-    with its dense P take 189,148 B)."""
-    need = smem_bytes(n, m, row_width, col_width, dense_P)
+    with its dense P take 189,148 B, 191,576 B in the split modes)."""
+    need = smem_bytes(n, m, row_width, col_width, dense_P, mode)
     if need > SMEM_MAX:
         raise ValueError(
             f"the dense ADMM kernel holds K^-1, A's nonzeros"
@@ -190,19 +202,92 @@ def plan_smem(n: int, m: int, row_width: int, col_width: int,
 
 
 def max_active_clusters(pattern: EllPattern, tile: int,
-                        dense_P: bool = False) -> int:
+                        dense_P: bool = False, mode: str = "highest") -> int:
     """How many clusters of `tile` blocks of the kernel the card holds at
     once (cudaOccupancyMaxActiveClusters) for this pattern's shapes."""
     return _kernels.occupancy("admm_dense.cu", "admm_dense_max_clusters",
                               pattern.n, pattern.m, pattern.row_width,
-                              pattern.col_width, int(tile), int(dense_P))
+                              pattern.col_width, int(tile), int(dense_P),
+                              MODES.index(mode))
 
 
-def _stats(A, x, z, y, invE, PuD, qu, invDc, eps_abs, eps_rel):
-    """Unscaled residual statistics (B, 8) and per-instance convergence;
-    PuD (B, n) for a diagonal P or (B, n, n) for a dense one."""
-    ax = _mv(A, x)
-    aty = _mtv(A, y)
+def registers(mode: str = "highest", dense_P: bool = False) -> int:
+    """Registers a thread of the kernel's build for `mode` and `dense_P`
+    (cudaFuncGetAttributes)."""
+    return _kernels.occupancy("admm_dense.cu", "admm_dense_registers",
+                              MODES.index(mode), int(dense_P))
+
+
+def mode_of(precision: str, bf16: bool = False, m_eq: int = 0,
+            m: int = 0) -> str:
+    """The kernel's mode for the JAX signature's `precision` and `bf16`
+    (bf16 wins, as in the JAX package); ValueError for an unknown one, or
+    for a mixed mode without 0 < m_eq <= m leading equality rows."""
+    mode = "bf16" if bf16 else str(precision)
+    if mode not in MODES:
+        raise ValueError(f"unknown precision {precision!r}")
+    if mode in MIXED_MODES and not 0 < m_eq <= m:
+        raise ValueError("mixed precision requires m_eq leading equality "
+                         "rows (caller permutes them to the front)")
+    return mode
+
+
+def bf16_round(t):
+    """t rounded to bfloat16 (to nearest, ties to even), in t's dtype."""
+    return t.to(torch.bfloat16).to(t.dtype)
+
+
+def bf16_split(t):
+    """(hi, lo) = (bf16(t), bf16(t - hi)) in t's dtype: the JAX kernel's
+    split of a matrix (pallas_admm.py:335-339) and of a vector (:131-132)."""
+    hi = bf16_round(t)
+    return hi, bf16_round(t - hi)
+
+
+def _split_product(prod, v, pair):
+    """The JAX kernel's _dot_split: (v_hi M_hi + v_hi M_lo) + v_lo M_hi,
+    each product `prod(v, M)` summed in v's dtype."""
+    hi, lo = pair
+    v_hi, v_lo = bf16_split(v)
+    return (prod(v_hi, hi) + prod(v_hi, lo)) + prod(v_lo, hi)
+
+
+def products(Kinv, A, mode: str = "highest", m_eq: int = 0):
+    """The kernel's three products in `mode`'s arithmetic (the JAX
+    kernel's matA, matAT and matK, :135-158): A'v (v over rows), A v and
+    v' K^-1, for batches A (B, m, n), K^-1 (B, n, n)."""
+    mtv = lambda v, M: _mtv(M, v)
+    mv = lambda v, M: _mv(M, v)
+    if mode == "highest":
+        return (lambda v: _mtv(A, v)), (lambda v: _mv(A, v)), \
+            (lambda v: _mtv(Kinv, v))
+    if mode == "bf16":
+        Ab, Kb = bf16_round(A), bf16_round(Kinv)
+        return ((lambda v: _mtv(Ab, bf16_round(v))),
+                (lambda v: _mv(Ab, bf16_round(v))),
+                (lambda v: _mtv(Kb, bf16_round(v))))
+    if mode == "high":
+        A2, K2 = bf16_split(A), bf16_split(Kinv)
+        return ((lambda v: _split_product(mtv, v, A2)),
+                (lambda v: _split_product(mv, v, A2)),
+                (lambda v: _split_product(mtv, v, K2)))
+    A_eq, A_in = A[:, :m_eq], bf16_split(A[:, m_eq:])
+    K2 = bf16_split(Kinv) if mode == "mixed" else None
+    return ((lambda v: _mtv(A_eq, v[:, :m_eq])
+             + _split_product(mtv, v[:, m_eq:], A_in)),
+            (lambda v: torch.cat([_mv(A_eq, v),
+                                  _split_product(mv, v, A_in)], dim=-1)),
+            (lambda v: _mtv(Kinv, v) if K2 is None
+             else _split_product(mtv, v, K2)))
+
+
+def _stats(matA, matAT, x, z, y, invE, PuD, qu, invDc, eps_abs, eps_rel):
+    """Unscaled residual statistics (B, 8) and per-instance convergence,
+    A x and A'y through the mode's products; PuD (B, n) for a diagonal P
+    or (B, n, n) for a dense one (its product plain in every mode, as the
+    JAX kernel's _dot6 at :190)."""
+    ax = matAT(x)
+    aty = matA(y)
     Ax_u = ax * invE
     z_u = z * invE
     # a dense P: P_u x_u = x_bar' (D[:, None] P_u), the JAX kernel's
@@ -223,26 +308,30 @@ def _stats(A, x, z, y, invE, PuD, qu, invDc, eps_abs, eps_rel):
 def admm_iterations_plain(Kinv, A, q, l, u, rho, x, z, y, E, PuD, qu, invDc,
                           n_iters: int, sigma: float, alpha: float,
                           tile: int = 1, check: int = 0,
-                          eps_abs: float = 1e-3, eps_rel: float = 1e-3):
+                          eps_abs: float = 1e-3, eps_rel: float = 1e-3,
+                          mode: str = "highest", m_eq: int = 0):
     """Plain PyTorch version of the dense ADMM kernel, with its early exit
     per tile of `tile` consecutive instances: (x, z, y, stats).  PuD is
-    (B, n), or (B, n, n) for a dense P."""
+    (B, n), or (B, n, n) for a dense P.  `mode` (one of MODES) and `m_eq`
+    as `products`; in float64 the bf16 roundings stay and the sums run in
+    float64."""
     B = q.shape[0]
     inv_rho = 1.0 / rho
     invE = 1.0 / E
+    matA, matAT, matK = products(Kinv, A, mode, m_eq)
 
     def body(x, z, y):
         w = rho * z - y
-        rhs = sigma * x - q + _mtv(A, w)
-        xt = _mtv(Kinv, rhs)
-        zt = _mv(A, xt)
+        rhs = sigma * x - q + matA(w)
+        xt = matK(rhs)
+        zt = matAT(xt)
         x_n = alpha * xt + (1.0 - alpha) * x
         z_mix = alpha * zt + (1.0 - alpha) * z
         z_n = torch.clamp(z_mix + y * inv_rho, l, u)
         return x_n, z_n, y + rho * (z_mix - z_n)
 
-    stats_of = lambda x, z, y: _stats(A, x, z, y, invE, PuD, qu, invDc,
-                                      eps_abs, eps_rel)
+    stats_of = lambda x, z, y: _stats(matA, matAT, x, z, y, invE, PuD, qu,
+                                      invDc, eps_abs, eps_rel)
     if 0 < check < n_iters:
         n_tiles = -(-B // tile)
         active = torch.ones(B, dtype=torch.bool, device=q.device)
@@ -295,11 +384,18 @@ def admm_iterations(Kinv, A, q, l, u, rho, x0, z0, y0, n_iters: int,
     `check` > 0 checks convergence every `check` iterations and stops a
     tile of `tile` consecutive instances once all of them have converged.
 
+    `precision` ("highest", "mixed", "mixedk6", "high") and `bf16` (which
+    wins: "bf16") select the mode, as in the JAX package; the mixed modes
+    take the `m_eq` leading rows of A as its equality rows (ValueError
+    unless 0 < m_eq <= m), which other modes ignore.
+
     Replaces the TPU kernel `pigeon_tpu/solver/pallas_admm.py:_kernel`
-    ("highest" mode, with its `dense_P` branch).  One block per instance
+    (every mode, with its `dense_P` branch).  One block per instance
     holds its K^-1 and A's nonzeros (and a dense PuD) in shared memory for
     the call (`plan_smem` raises ValueError for shapes that do not fit),
-    and a tile is a thread block cluster.
+    and a tile is a thread block cluster; the kernel splits K^-1 and A
+    into their bf16 forms where it loads them, so `A_packed` is the same
+    in every mode.
     `pattern`: A's nonzero pattern (an `EllPattern` covering every nonzero
     of every instance; the pipeline passes its layout's); without one the
     union pattern of the batch is derived from A, with one host read.
@@ -307,16 +403,9 @@ def admm_iterations(Kinv, A, q, l, u, rho, x0, z0, y0, n_iters: int,
     pipeline packs once per solve); else the wrapper packs, one gather.
     Both are used only on the card: the CPU runs the dense plain
     version."""
-    if bf16 or precision != "highest":
-        raise NotImplementedError(
-            f"the dense ADMM kernel's precision mode "
-            f"{'bf16' if bf16 else precision!r} is not ported (only "
-            f"'highest')")
-    if m_eq:
-        raise NotImplementedError(
-            "the equality-row split (m_eq) of the mixed precision modes is "
-            "not ported")
     B, m, n = A.shape
+    mode = mode_of(precision, bf16, m_eq, m)
+    m_eq = int(m_eq) if mode in MIXED_MODES else 0
     if scalings is None:
         D = torch.ones_like(q)
         E = torch.ones_like(l)
@@ -339,7 +428,7 @@ def admm_iterations(Kinv, A, q, l, u, rho, x0, z0, y0, n_iters: int,
     if q.device.type == "cpu":
         return admm_iterations_plain(
             Kinv, A, q, l, u, rho, x0, z0, y0, E, PuD, qu, invDc, n_iters,
-            sigma, alpha, tile, check, eps_abs, eps_rel)
+            sigma, alpha, tile, check, eps_abs, eps_rel, mode, m_eq)
     if not 1 <= tile <= TILE_MAX:
         raise ValueError(f"the CUDA kernel takes 1 <= tile <= {TILE_MAX} "
                          f"(a cluster of `tile` blocks); got tile={tile}")
@@ -348,7 +437,7 @@ def admm_iterations(Kinv, A, q, l, u, rho, x0, z0, y0, n_iters: int,
     if (pattern.m, pattern.n) != (m, n):
         raise ValueError(f"the pattern is of a {pattern.m} x {pattern.n} "
                          f"matrix, A of {m} x {n}")
-    plan_smem(n, m, pattern.row_width, pattern.col_width, dense_P)
+    plan_smem(n, m, pattern.row_width, pattern.col_width, dense_P, mode)
     if A_packed is None:
         A_packed = pack(A, pattern)
     _kernels.check_same(A_packed=(A_packed, (B, m, pattern.row_width)),
@@ -362,6 +451,7 @@ def admm_iterations(Kinv, A, q, l, u, rho, x0, z0, y0, n_iters: int,
         Kinv, A_packed, pat["row_code"], pat["col_slot"],
         pat["col_row"], q, l, u, rho, x, z, y, E, PuD, qu, invDc, stats, B,
         n, m, pattern.row_width, pattern.col_width, int(tile), int(n_iters),
-        int(dense_P), float(sigma), float(alpha), int(check),
-        float(eps_abs), float(eps_rel))
+        int(dense_P), MODES.index(mode), m_eq, float(sigma), float(alpha),
+        int(check), float(eps_abs), float(eps_rel),
+        tag=mode + ("_dense_P" if dense_P else ""))
     return x, z, y, stats

@@ -154,11 +154,51 @@ def test_hard_rows_stay_in_their_box(solved):
 
 def test_unported_solver_options_raise():
     qp, warm, w = _qps("decoupled")
-    for change in (dict(backend="pallas"),
-                   dict(factor_method="ns", ns_bf16_iters=2)):
+    for change in (dict(backend="pallas"),):
         opts = dataclasses.replace(TSO(**SEGMENTS), **change)
         with pytest.raises(NotImplementedError):
             TA.solve_qp_batched(qp, warm, opts, w_soft=w)
+
+
+def _ns_factors(iters, bulk):
+    """The K^-1 of the scaled soft coupled QPs (a rho of 0.1, 1e2 on
+    every fifth row) by Newton-Schulz with `bulk` bf16 steps of `iters`,
+    in both packages, float64, and the exact inverse."""
+    qp, _, _ = _qps("coupled")
+    (Pb, _, Ab, _, _), _, _, _ = TA.ruiz(qp, 4)
+    rho = torch.full_like(qp.l, 0.1)
+    rho[:, ::5] = 1e2
+    opts = dict(factor_method="ns", ns_iters=iters, ns_bf16_iters=bulk)
+    port = TA._factor_inv(Pb, Ab, rho, 1e-6, TSO(**opts))
+    J = lambda t: jnp.asarray(t.numpy())
+    jax_ = jax.vmap(lambda P, A, r: JA._factor_inv(
+        P, A, r, 1e-6, JSO(**opts)))(J(Pb), J(Ab), J(rho))
+    K = (Ab.transpose(-1, -2) * rho[:, None, :]) @ Ab + 1e-6 * torch.eye(
+        Pb.shape[-1], dtype=Pb.dtype)
+    K = K + (Pb if Pb.dim() == 3 else torch.diag_embed(Pb))
+    return port.numpy(), np.asarray(jax_), torch.linalg.inv(K).numpy()
+
+
+@pytest.mark.parametrize("iters,bulk", [(12, 12), (40, 6)],
+                         ids=["all_bf16", "bf16_then_fp32"])
+def test_ns_bf16_bulk_matches_jax(iters, bulk):
+    """`ns_bf16_iters` (JAX admm.py:180-197): bf16 operands and results
+    in each bulk step, products summed in float32, then float64 steps.
+    All in bf16, the port's factor lies within bf16 resolution (2^-8 of
+    the scale) of the JAX package's and further than that from the
+    float64 Newton-Schulz of as many steps; with float64 steps after it
+    both reach the exact inverse to 1e-9 of its scale."""
+    port, jax_, exact = _ns_factors(iters, bulk)
+    scale = np.abs(exact).max()
+    assert np.isfinite(port).all()
+    if bulk == iters:
+        fp64 = _ns_factors(iters, 0)[0]
+        d_jax = np.abs(port - jax_).max()
+        assert d_jax <= 2.0 ** -8 * scale, d_jax / scale
+        assert np.abs(port - fp64).max() > d_jax
+    else:
+        np.testing.assert_allclose(port, exact, rtol=0, atol=1e-9 * scale)
+        np.testing.assert_allclose(jax_, exact, rtol=0, atol=1e-9 * scale)
 
 
 def test_hard_qp_without_weights_matches_jax():

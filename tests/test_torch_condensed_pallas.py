@@ -11,7 +11,9 @@ against the JAX package, 3 vehicles on the straight test path at horizon
 - the single-instance route: `solve_qp(backend="pallas")` (one instance
   through the dense ADMM kernel at tile 1, the residuals outside) and
   `simulate`, against the JAX package's, whose unbatched kernel call is
-  run in interpret mode as the JAX package's own tests run it."""
+  run in interpret mode as the JAX package's own tests run it; that route
+  runs mode "highest" whatever `pallas_precision` says, as the JAX
+  package's does."""
 
 import dataclasses
 import functools
@@ -42,6 +44,9 @@ PALLAS = dict(max_iter=400, check_every=50, eps_abs=1e-3, eps_rel=1e-3,
               backend="pallas", factor_method="banded", scaling_iters=4,
               pallas_tile=2, pallas_precision="highest",
               pallas_check_inner=10, bf16_bulk_iters=0)
+# tests/test_condensed.py:105-130's options for "mixedk6"
+MIXEDK6 = dict(PALLAS, factor_method="ns", pallas_precision="mixedk6",
+               max_iter=150, check_every=150)
 HZ = (2, 3)
 
 
@@ -75,10 +80,9 @@ def jax_unbatched_interpret(monkeypatch):
 # The batched pipeline at float32
 # ---------------------------------------------------------------------------
 
-@pytest.fixture(scope="module")
-def pallas_solves():
+def _pallas_solves(opts):
     B = 3
-    jcfg, tcfg = _configs(PALLAS)
+    jcfg, tcfg = _configs(opts)
     _, _, ttube, tcache = _tubes(torch.float32)
     q0, t0 = straight_fleet(B)
     f32 = lambda a: torch.as_tensor(np.asarray(a), dtype=torch.float32)
@@ -97,6 +101,16 @@ def pallas_solves():
         JA.QPData(*J(qp)), JA.QPWarmStart(*J(warm)), jcfg.solver,
         banded_plan=JM._banded_plan_for(jcfg), eq_rows=JM._eq_rows_for(jcfg))
     return dict(qp=qp, tsol=tsol, jsol=jsol, opts=tcfg.solver)
+
+
+@pytest.fixture(scope="module")
+def pallas_solves():
+    return _pallas_solves(PALLAS)
+
+
+@pytest.fixture(scope="module")
+def mixedk6_solves():
+    return _pallas_solves(MIXEDK6)
 
 
 def test_pallas_pipeline_matches_jax(pallas_solves):
@@ -137,8 +151,43 @@ def test_pallas_dense_P_stats_truthful(pallas_solves):
     equal those recomputed at float64 from the returned solution (the
     bars of tests/test_condensed.py:105), and `converged` implies the
     OSQP test holds."""
-    qp, sol, opts = (pallas_solves["qp"], pallas_solves["tsol"],
-                     pallas_solves["opts"])
+    _dense_P_stats_truthful(pallas_solves)
+
+
+def test_mixedk6_pipeline_matches_jax(mixedk6_solves):
+    """"mixedk6" (tests/test_condensed.py:105's options) against the JAX
+    pipeline.  In one 150-iteration segment these QPs end with their dual
+    residual at the tolerance's edge in float32, in "highest" too (there
+    the port's pipeline stops two of the three at 120 iterations and the
+    JAX one none), so the exits are not compared: x, z, y each no further
+    from the float64 solve (backend "xla", "ns" at float64, 400
+    iterations) than three times the JAX pipeline's distance to it, plus
+    1e-4 of its scale."""
+    t, j, qp = (mixedk6_solves["tsol"], mixedk6_solves["jsol"],
+                mixedk6_solves["qp"])
+    assert t.x.dtype == torch.float32 and torch.isfinite(t.x).all()
+    d64 = lambda tup: type(tup)(*[x.double() for x in tup])
+    exact = TA.solve_qp_batched(
+        d64(qp), d64(TA.cold_start(qp)),
+        dataclasses.replace(mixedk6_solves["opts"], backend="xla",
+                            max_iter=400, check_every=50))
+    assert exact.converged.all()
+    for name in ("x", "z", "y"):
+        e = getattr(exact, name).numpy()
+        d_port = np.abs(getattr(t, name).numpy() - e).max()
+        d_jax = np.abs(np.asarray(getattr(j, name)) - e).max()
+        assert d_port <= 3.0 * d_jax + 1e-4 * np.abs(e).max(), (
+            name, d_port, d_jax)
+
+
+def test_mixedk6_dense_P_stats_truthful(mixedk6_solves):
+    """The split products in the statistics, with the dense P x: the
+    bars of tests/test_condensed.py:105."""
+    _dense_P_stats_truthful(mixedk6_solves)
+
+
+def _dense_P_stats_truthful(solves):
+    qp, sol, opts = solves["qp"], solves["tsol"], solves["opts"]
     A, P, q = (qp.A.double().numpy(), qp.P_diag.double().numpy(),
                qp.q.double().numpy())
     x, z, y = (sol.x.double().numpy(), sol.z.double().numpy(),
@@ -190,6 +239,25 @@ def test_solve_qp_pallas_matches_jax(pallas_solves, jax_unbatched_interpret):
         d_jax = np.abs(np.asarray(getattr(js, name)) - e).max()
         assert d_port <= 3.0 * d_jax + 1e-4 * np.abs(e).max(), (
             name, d_port, d_jax)
+
+
+@pytest.mark.parametrize("change", [
+    dict(pallas_precision="mixedk6"), dict(pallas_precision="mixed"),
+    dict(pallas_precision="high"), dict(bf16_bulk_iters=20)],
+    ids=["mixedk6", "mixed", "high", "bf16_bulk"])
+def test_solve_qp_pallas_ignores_precision(pallas_solves, change):
+    """The single-instance route runs the kernel in mode "highest"
+    whatever the options' precision or bf16 bulk say (JAX admm.py:286-294
+    passes neither): the same bits as "highest"."""
+    qp = TA.QPData(*[t[1].double() for t in pallas_solves["qp"]])
+    _, tcfg = _configs(SINGLE)
+    ref = TA.solve_qp(qp, None, tcfg.solver,
+                      a_pattern=TM._a_pattern_for(tcfg))
+    got = TA.solve_qp(qp, None, TSO(**dict(SINGLE, **change)),
+                      eq_rows=TM._eq_rows_for(tcfg),
+                      a_pattern=TM._a_pattern_for(tcfg))
+    for name in TA.QPSolution._fields:
+        assert torch.equal(getattr(got, name), getattr(ref, name)), name
 
 
 def test_simulate_pallas_matches_jax(jax_unbatched_interpret):

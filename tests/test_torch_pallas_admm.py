@@ -14,12 +14,14 @@ tile holds one instance), at the shapes of horizon (2, 3): n=70, m=104.
   iteration; the plain version must be no further from it than twice the
   JAX kernel is, and exit at the JAX kernel's checks to within one."""
 
+import functools
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
-from torch_port_helpers import oval_fleet, t64
+from torch_port_helpers import oval_fleet, random_admm_ops, t64
 from pigeon_tpu.solver.pallas_admm import admm_iterations as j_admm
 from pigeon_tpu_torch import hji as TH
 from pigeon_tpu_torch import mpc as TM
@@ -31,39 +33,7 @@ from pigeon_tpu_torch.solver import pallas_admm as TP
 
 B, TILE, CHECK = 5, 2, 10
 SIGMA, ALPHA = 1e-6, 1.6
-
-
-def _random_ops(seed=0, n=70, m=104, dense_P=False):
-    """tests/test_pallas_admm.py's well-conditioned random QPs, batched,
-    with their scalings (D, E, c = 1, P and q unscaled); the boxes are
-    centred on A x0 for a random x0, so each QP is feasible and the early
-    exit has something to find.  `dense_P`: P a dense SPD (n, n) matrix,
-    M M' / n plus the diagonal."""
-    rng = np.random.default_rng(seed)
-    cols = {k: [] for k in ("K", "A", "q", "l", "u", "rho", "P")}
-    for _ in range(B):
-        P = rng.uniform(0.1, 2.0, n)
-        A = rng.standard_normal((m, n)) / np.sqrt(n)
-        c_ = A @ rng.standard_normal(n)
-        w = rng.uniform(0.1, 1.0, m)
-        rho = rng.uniform(0.05, 5.0, m)
-        if dense_P:
-            M = rng.standard_normal((n, n // 2))
-            P = np.diag(P) + M @ M.T / n
-        K = (P if dense_P else np.diag(P)) + SIGMA * np.eye(n) \
-            + (A.T * rho) @ A
-        Kinv = np.linalg.inv(K)
-        for k, v in (("K", 0.5 * (Kinv + Kinv.T)), ("A", A),
-                     ("q", rng.standard_normal(n)), ("l", c_ - w),
-                     ("u", c_ + w), ("rho", rho), ("P", P)):
-            cols[k].append(v)
-    f = lambda k: np.asarray(cols[k], np.float32)
-    warm = [np.asarray(0.1 * rng.standard_normal(s), np.float32)
-            for s in ((B, n), (B, m), (B, m))]
-    ones = lambda *s: np.ones(s, np.float32)
-    return dict(mats=[f(k) for k in ("K", "A", "q", "l", "u", "rho")],
-                warm=warm,
-                scalings=[ones(B, n), ones(B, m), ones(B), f("P"), f("q")])
+_random_ops = functools.partial(random_admm_ops, B, SIGMA)
 
 
 @pytest.fixture(scope="module")
@@ -186,11 +156,3 @@ def test_mpc_qps_within_float32_rounding(ops, n_iters, check):
             name, d_port, d_jax)
     assert np.abs(out[3][:, 6] - ref[3][:, 6]).max() <= CHECK
 
-
-def test_unported_modes_raise(ops):
-    T = lambda a: torch.as_tensor(a)
-    args = [T(a) for a in ops["mats"] + ops["warm"]]
-    for kw in (dict(precision="mixed", m_eq=48), dict(precision="high"),
-               dict(m_eq=48), dict(bf16=True)):
-        with pytest.raises(NotImplementedError):
-            TP.admm_iterations(*args, 10, SIGMA, ALPHA, tile=TILE, **kw)

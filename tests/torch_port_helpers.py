@@ -57,3 +57,42 @@ def straight_fleet(B: int = 3):
 
 def t64(a):
     return torch.as_tensor(np.array(a), dtype=torch.float64)
+
+
+def random_admm_ops(B: int, sigma: float, seed=0, n=70, m=104,
+                    dense_P=False, m_eq=0):
+    """tests/test_pallas_admm.py's well-conditioned random QPs, batched,
+    with their scalings (D, E, c = 1, P and q unscaled), as float32 numpy
+    operands of a dense ADMM segment: mats (K^-1, A, q, l, u, rho), warm
+    (x, z, y) and scalings.  The boxes are centred on A x0 for a random
+    x0, so each QP is feasible and the early exit has something to find.
+    `dense_P`: P a dense SPD (n, n) matrix, M M' / n plus the diagonal.
+    `m_eq`: the first m_eq rows are equality rows (l = u) with ten times
+    their drawn rho, as the mixed precision modes take them."""
+    rng = np.random.default_rng(seed)
+    cols = {k: [] for k in ("K", "A", "q", "l", "u", "rho", "P")}
+    for _ in range(B):
+        P = rng.uniform(0.1, 2.0, n)
+        A = rng.standard_normal((m, n)) / np.sqrt(n)
+        c_ = A @ rng.standard_normal(n)
+        w = rng.uniform(0.1, 1.0, m)
+        rho = rng.uniform(0.05, 5.0, m)
+        if dense_P:
+            M = rng.standard_normal((n, n // 2))
+            P = np.diag(P) + M @ M.T / n
+        w[:m_eq] = 0.0
+        rho[:m_eq] *= 10.0
+        K = (P if dense_P else np.diag(P)) + sigma * np.eye(n) \
+            + (A.T * rho) @ A
+        Kinv = np.linalg.inv(K)
+        for k, v in (("K", 0.5 * (Kinv + Kinv.T)), ("A", A),
+                     ("q", rng.standard_normal(n)), ("l", c_ - w),
+                     ("u", c_ + w), ("rho", rho), ("P", P)):
+            cols[k].append(v)
+    f = lambda k: np.asarray(cols[k], np.float32)
+    warm = [np.asarray(0.1 * rng.standard_normal(s), np.float32)
+            for s in ((B, n), (B, m), (B, m))]
+    ones = lambda *s: np.ones(s, np.float32)
+    return dict(mats=[f(k) for k in ("K", "A", "q", "l", "u", "rho")],
+                warm=warm,
+                scalings=[ones(B, n), ones(B, m), ones(B), f("P"), f("q")])
