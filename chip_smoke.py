@@ -5,7 +5,7 @@
 Phases (any failure raises, so the script exits non-zero):
 
 1. the card's name and power limit (nvidia-smi), torch and CUDA versions;
-2. build the eight CUDA kernels from `pigeon_tpu_torch/csrc/` (one nvcc
+2. build the nine CUDA kernels from `pigeon_tpu_torch/csrc/` (one nvcc
    per source, in parallel) and print the build time and register use;
 3. kernel checks: capture each kernel's inputs at the shapes its path
    gives it (float32) -- one cold step of the coupled and the decoupled
@@ -32,14 +32,18 @@ Phases (any failure raises, so the script exits non-zero):
    Cholesky inverse the Python plan must match the kernel's own); the two
    ADMM kernels and the Ruiz kernel launch as thread block clusters.  The
    ADMM kernels' bounds count A's nonzeros, not m n.  The dense ADMM
-   kernel's dense-P mode and the Ruiz kernel are held the same way on the
-   inputs of the hard condensed fleet (a cold and a warm segment, a
-   ragged batch, horizon (4, 8)), with the split of its segment's time
-   measured from variants of the call (`dense_p_split`); the dense ADMM
-   kernel again at tile 1 on the calls of the unbatched condensed route
-   (B=1, no check, identity scalings: the cold step's first segment and
-   the second step's last, `check_admm_dense_tile1`); and its diagonal
-   mode on the sparse fleet's as before.  Its other precision modes
+   kernel has two builds, picked from A's widths (`pallas_admm.
+   plan_build`): the narrow one (`admm_dense`, the sparse fleet's) and
+   the wide one (`admm_wide`, the condensed QP's long rows and columns).
+   The wide build's dense-P mode and the Ruiz kernel are held the same
+   way on the inputs of the hard condensed fleet (a cold and a warm
+   segment, a ragged batch, horizon (4, 8)), with the split of its
+   segment's time measured from variants of the call (`dense_p_split`);
+   the wide build again at tile 1 on the calls of the unbatched condensed
+   route (B=1, no check, identity scalings: the cold step's first segment
+   and the second step's last, `check_admm_dense_tile1`, with its latency
+   floor); and the narrow build on the sparse fleet's as before.  Its
+   other precision modes
    ("mixed", "mixedk6", "high", "bf16"; `check_admm_dense_modes`) are
    held the same way on the cold and the warm segment of both hard fleets
    and on a ragged batch, each mode's build against its own float32 and
@@ -67,8 +71,9 @@ Phases (any failure raises, so the script exits non-zero):
    (x1_coupled_config(condensed=True), QPs of n=103, m=200, a dense P)
    for 2048 vehicles on the sparse fleet's solver options, whose banded
    factor falls through to the dense Cholesky for a dense P; one cold and
-   10 warm steps, each launching vanloan and ruiz once and admm_dense
-   (dense-P mode) once per solver segment;
+   10 warm steps, each launching vanloan and ruiz once and admm_wide
+   (the dense ADMM kernel's wide build, dense-P mode) once per solver
+   segment, and no launch of the narrow build;
    path "fleet_sparse_mixedk6": the sparse fleet in precision mode
    "mixedk6" (scripts/exp_conv.py's: the layout's 128 equality rows in
    float32, the other rows and the vectors in bf16 pairs, K^-1 in
@@ -81,8 +86,8 @@ Phases (any failure raises, so the script exits non-zero):
    step and no other kernel; then torch.profiler over 5 more steps; and
    path "simulate_condensed": 10 steps of the hard condensed QP on
    backend "pallas", whose `solve_qp` runs each solver segment on the
-   dense ADMM kernel at tile 1 (expm_dense once per step, admm_dense
-   once per segment), profiled over 2 more;
+   dense ADMM kernel's wide build at tile 1 (expm_dense once per step,
+   admm_wide once per segment), profiled over 2 more;
 8. path "montecarlo": `montecarlo.run_dynamic_obstacle`, the HJI safety
    filter's Monte-Carlo study, at scripts/exp_safety_ab.py's
    hammer_eps1.5 arm (the soft coupled QP with the HJI row and its
@@ -236,16 +241,21 @@ PATH_KERNELS = {
     "coupled": {"vanloan", "chol_inverse", "admm_iterations"},
     "decoupled": {"vanloan", "rollout", "chol_inverse", "admm_iterations"},
     "sparse": {"vanloan", "ruiz", "banded_chol", "admm_dense"},
-    "condensed": {"vanloan", "ruiz", "admm_dense"},
+    "condensed": {"vanloan", "ruiz", "admm_wide"},
     "sparse_mixedk6": {"vanloan", "ruiz", "banded_chol", "admm_dense"},
     "simulate": {"expm_dense"},
-    "simulate_condensed": {"expm_dense", "admm_dense"},
+    "simulate_condensed": {"expm_dense", "admm_wide"},
     "montecarlo": {"vanloan", "chol_inverse", "admm_iterations"},
 }
-# The dense ADMM kernel's build each hard fleet path must launch, and no
-# other (`_kernels.launches_by`: the mode, "_dense_P" for the dense-P build)
-PATH_B8_BUILD = {"sparse": "highest", "condensed": "highest_dense_P",
-                 "sparse_mixedk6": "mixedk6"}
+# The dense ADMM kernel's build each hard path must launch, and no other:
+# the narrow ("admm_dense") or the wide build ("admm_wide", the condensed
+# QP's widths; `pallas_admm.plan_build`), and its mode
+# (`_kernels.launches_by`: "_dense_P" added for the dense-P build)
+B8_KERNELS = ("admm_dense", "admm_wide")
+PATH_B8_BUILD = {"sparse": ("admm_dense", "highest"),
+                 "condensed": ("admm_wide", "highest_dense_P"),
+                 "sparse_mixedk6": ("admm_dense", "mixedk6"),
+                 "simulate_condensed": ("admm_wide", "highest")}
 # bench.py's lane-solver iteration budget per formulation
 MAX_ITER = {"coupled": 150, "decoupled": 300}
 # The dense ADMM kernel's other precision modes, held on the "highest"
@@ -292,13 +302,17 @@ SIM_CONDENSED_SOLVER = dict(backend="pallas")
 PORT_KERNEL_FUNCTIONS = {"vanloan_kernel", "chol_inverse_kernel",
                          "admm_kernel", "rollout_kernel",
                          "expm_dense_kernel", "ruiz_kernel",
-                         "banded_chol_kernel", "admm_dense_kernel"}
+                         "banded_chol_kernel", "admm_dense_kernel",
+                         "admm_wide_kernel"}
 # The dense exponential's run-time build is swept over these d against
 # its plain version (the path's d, 19 and 17, take exact builds)
 EXPM_SWEEP_D = (1, 2, 7, 16, 18, 20, 32)
 # cycles from one fp32 FMA to the next that depends on it (Hopper), for
 # the dense exponential's latency floor
 FMA_LATENCY_CYCLES = 4
+# cycles from a shared-memory load to its use, taken as ~30 for Hopper,
+# for the latency floor of the dense ADMM kernel's wide build at tile 1
+SMEM_LATENCY_CYCLES = 30
 # H100 SXM data-sheet peaks (dense): HBM bandwidth and non-tensor fp32
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_FLOPS = 67e12
@@ -1296,37 +1310,38 @@ def held_segment(torch, ops, kw, n_iters, check, what, some_early=True,
 
 
 def dense_p_split(torch, ops, kw, n_iters, check):
-    """Where the dense-P mode's time goes on the main-path call, from
-    device times of variants of it on one wave of it (the first instances,
-    as many as the card holds at once, so that a variant that fits more
-    blocks on an SM does not run fewer waves; same operands unless
-    named):
+    """Where the dense-P mode's time goes on the main-path call, in its
+    pattern's build, from device times of variants of it on one wave of it (the first instances, as many as the card
+    holds at once, so that a variant that fits more blocks on an SM does
+    not run fewer waves; same operands unless named):
     - full: the call as the path makes it (`check`-iteration checks);
     - diagonal_P: the diagonal build, P's diagonal in place of P;
     - fixed: no check, one statistics pass at the end;
     - thin_A: fixed, A replaced by one entry a row (row width 1, column
       width 2), so A x and A'w cost next to nothing;
     - load: no iteration, the call's loads and one statistics pass.
-    Differences: P x at the checks (full - diagonal_P), the checks'
-    statistics (full - fixed), the A products (fixed - thin_A), the rest
-    of the iterations (thin_A - load)."""
+    Differences: P x at the checks (full - diagonal_P; in the wide build
+    PuD read from device memory), the checks' statistics (full - fixed),
+    the A products (fixed - thin_A), the rest of the iterations (thin_A -
+    load)."""
     from pigeon_tpu_torch.solver import pallas_admm as pa
 
     tile = kw["tile"]
     pattern = kw.get("pattern") or pa.pattern_from(ops[1])
+    build = pattern.build
     wave = pa.max_active_clusters(pattern, tile, True) * tile
     cut = lambda t: t[:wave].contiguous()
     ops = [cut(t) for t in ops]
     D, E, c, Pu, qu = (cut(t) for t in kw["scalings"])
     kw = dict(kw, scalings=(D, E, c, Pu, qu), pattern=pattern,
-              A_packed=cut(kw["A_packed"]))
+              A_packed=pa.pack(ops[1], pattern))
     diag = dict(kw, dense_P=False, scalings=(
         D, E, c, torch.diagonal(Pu, dim1=1, dim2=2).contiguous(), qu))
     B, m, n = ops[1].shape
     thin = torch.zeros_like(ops[1])
     rows = torch.arange(m, device=thin.device)
     thin[:, rows, rows % n] = 1.0
-    thin_pattern = pa.pattern_from(thin)
+    thin_pattern = pa.pattern_from(thin).as_build(build)
     thin_ops = list(ops[:1]) + [thin] + list(ops[2:])
     thin_kw = dict(kw, pattern=thin_pattern,
                    A_packed=pa.pack(thin, thin_pattern))
@@ -1337,7 +1352,7 @@ def dense_p_split(torch, ops, kw, n_iters, check):
               fixed=t(ops, kw, n_iters, 0),
               thin_A=t(thin_ops, thin_kw, n_iters, 0),
               load=t(ops, kw, 0, 0))
-    return dict(wave=wave, ms=ms,
+    return dict(build=build, wave=wave, ms=ms,
                 thin_widths=[thin_pattern.row_width, thin_pattern.col_width],
                 thin_max_active_clusters=pa.max_active_clusters(
                     thin_pattern, tile, True),
@@ -1347,12 +1362,33 @@ def dense_p_split(torch, ops, kw, n_iters, check):
                 rest_of_iterations=ms["thin_A"] - ms["load"])
 
 
+def a_bytes(pattern, B: int) -> int:
+    """A's bytes as the bound counts them, whichever build's storage: each
+    static nonzero's value once an instance (float32), and the pattern
+    once: a column index a nonzero (int16) and the row starts (int32)."""
+    return 4 * B * pattern.nnz + 2 * pattern.nnz + 4 * (pattern.m + 1)
+
+
+def residency(torch, pattern, B, tile, dense_P, mode="highest") -> dict:
+    """A build's shared bytes a block, registers, resident clusters and
+    waves for B instances."""
+    from pigeon_tpu_torch.solver import pallas_admm as pa
+
+    clusters = pa.max_active_clusters(pattern, tile, dense_P, mode)
+    return dict(build=pattern.build,
+                smem_bytes=pa.block_smem(pattern, dense_P, mode),
+                registers=pa.registers(mode, dense_P, pattern.build),
+                max_active_clusters=clusters,
+                waves=-(-B // (clusters * tile)))
+
+
 def check_admm_dense(torch, args, kw, extra):
     """`args`: a hard fleet's first segment of its cold step (Kinv, A, q,
     l, u, rho, x, z, y, n_iters, sigma, alpha), the sparse fleet's
-    (diagonal P) or the condensed fleet's (`kw["dense_P"]`);
-    `extra["warm"]`: the first segment of a warm step, `extra["small"]`:
-    the 12-stage horizon's call.
+    (diagonal P, the narrow build) or the condensed fleet's
+    (`kw["dense_P"]`, the wide build); `extra["warm"]`: the first segment
+    of a warm step, `extra["small"]`: the 12-stage horizon's call, held
+    in the main call's build whichever the plan gives its widths.
 
     On the cold step no tile converges within the segment, so the early
     exit per tile is held on the warm step's segment too, where most
@@ -1364,17 +1400,34 @@ def check_admm_dense(torch, args, kw, extra):
     check = kw["check"]
     # the pipeline passes its layout's pattern and packed A on the card
     pattern = kw.get("pattern") or pa.pattern_from(ops[1])
+    build = pattern.build
     kw.setdefault("A_packed", pa.pack(ops[1], pattern))
-    fixed = held_fixed(torch, ops, kw, 10, "(10 fixed)")
-    # the layout's static pattern and the union pattern of the batch (one
-    # host read) skip only exact zeros, in the same order: the same bits
+    k10, p10, e10 = three_ways(torch, ops, kw, 10, 0)
+    fixed = held_vs_f64(torch, k10, p10, e10, "(10 fixed)")
+    # without a pattern the wrapper derives the union pattern of the batch
+    # (one host read).  The narrow build skips only exact zeros, in the
+    # same order, whichever pattern: the same bits as the layout's.  The
+    # wide build's order follows its pattern's lane plan, so the two
+    # patterns' calls differ by rounding: each is held to float64, and
+    # they to each other within the bar a kernel keeps from float64
     derived = dense_admm(torch, ops, dict(kw, pattern=None, A_packed=None),
                          10, 0)
-    static = dense_admm(torch, ops, kw, 10, 0)
-    torch.cuda.synchronize()
     union = pa.pattern_from(ops[1])
-    require(all(torch.equal(a, b) for a, b in zip(derived, static)),
-            "admm_dense with the batch's union pattern vs the layout's")
+    union_errs = None
+    if build == "wide":
+        union_errs = held_vs_f64(torch, derived, p10, e10,
+                                 "(10 fixed, the batch's union pattern)")
+        lane = lambda o: [t.double().T for t in o]
+        vs_layout = admm_errors(torch, lane(derived), lane(k10))
+        bar = fixed["plain_vs_f64"]
+        bad = {k: (v, bar[k]) for k, v in vs_layout.items()
+               if not v <= 2.0 * bar[k] + ADMM_REL}
+        require(not bad, f"admm_dense (10 fixed) with the batch's union "
+                f"pattern vs the layout's: {bad}")
+        union_errs["vs_layout"] = vs_layout
+    else:
+        require(all(torch.equal(a, b) for a, b in zip(derived, k10)),
+                "admm_dense with the batch's union pattern vs the layout's")
     # the main-path call (its executed counts give the bound's work)
     ok_, op_, cold_exits = held_segment(torch, ops, kw, n_iters, check,
                                         "(cold segment)", some_early=False)
@@ -1394,15 +1447,19 @@ def check_admm_dense(torch, args, kw, extra):
                                 "(warm segment, ragged)",
                                 some_early=False)[2]
     s_args, s_kw = extra["small"]
-    s_kw = dict(s_kw, sigma=s_args[10], alpha=s_args[11])
+    s_pattern = (s_kw.get("pattern") or pa.pattern_from(s_args[1]))
+    s_kw = dict(s_kw, sigma=s_args[10], alpha=s_args[11],
+                pattern=s_pattern.as_build(build), A_packed=None)
     small_errs = held_fixed(torch, s_args[:9], s_kw, 10,
                             f"(10 fixed) at {tuple(s_args[1].shape)}")
+    small_errs["plan_build"] = s_pattern.build
     ms = cuda_ms(torch, lambda: dense_admm(torch, ops, kw, n_iters, check), 5)
     warm_ms = cuda_ms(torch, lambda: dense_admm(torch, w_ops, w_kw, n_iters,
                                                 check), 5)
     pack_ms = cuda_ms(torch, lambda: pa.pack(ops[1], pattern), 20)
     # the pack runs once per solve, outside the kernel
-    log(phase="admm_dense_pack", ms=pack_ms, shape=list(kw["A_packed"].shape),
+    log(phase="admm_dense_pack", build=build, ms=pack_ms,
+        shape=list(kw["A_packed"].shape),
         bytes=nbytes(ops[1], kw["A_packed"]))
     plain = cuda_ms(torch, lambda: dense_admm(torch, ops, kw, n_iters, check,
                                               plain=True), 2)
@@ -1413,36 +1470,46 @@ def check_admm_dense(torch, args, kw, extra):
     flops = admm_flops(torch, (ops[1] != 0).sum(dim=(1, 2)), executed, check,
                        n, 10 * m + 5 * n,
                        10 * m + 12 * n + (2 * n * n if dense_P else 0))
-    # the kernel's inputs as the pipeline passes them: A packed, not dense
-    pat = pattern.tensors(ops[1].device)
-    b_ms, b_by = bound(nbytes(ops[0], kw["A_packed"], *ops[2:],
-                              *kw["scalings"], *ok_,
-                              *[pat[k] for k in ("row_code", "col_slot",
-                                                 "col_row")]),
-                       flops)
-    split = (dense_p_split(torch, ops, kw, n_iters, check) if dense_P
-             else None)
-    return dict(err=float((ok_[0] - op_[0]).abs().max()),
-                rel=fixed["vs_plain"]["x"], fixed_errs=fixed,
-                dense_p_split=split,
-                cold_exits=cold_exits, warm_exits=warm_exits,
-                ragged_errs=ragged, ragged_exits=ragged_exits,
-                small_horizon_errs=small_errs,
-                iters_mean=float(executed.mean()), ms=ms, plain_ms=plain,
-                library_ms=None, bound_ms=b_ms, bound_by=b_by,
-                warm_ms=warm_ms,
-                warm_iters_mean=warm_exits["mean"][0], pack_ms=pack_ms,
-                pattern=dict(nonzeros=pattern.nnz,
-                             widths=[pattern.row_width, pattern.col_width],
-                             union_nonzeros=union.nnz,
-                             a_nonzeros_mean=float((ops[1] != 0).sum(
-                                 dim=(1, 2)).double().mean())),
-                max_active_clusters=pa.max_active_clusters(
-                    pattern, kw["tile"], dense_P),
-                smem_bytes=pa.plan_smem(n, m, pattern.row_width,
-                                        pattern.col_width, dense_P),
-                dense_P=dense_P,
-                shapes=[list(ops[0].shape), list(ops[1].shape)])
+    # the kernel's inputs, A as its static nonzeros (`a_bytes`)
+    b_ms, b_by = bound(nbytes(ops[0], *ops[2:], *kw["scalings"], *ok_)
+                       + a_bytes(pattern, ops[1].shape[0]), flops)
+    rec = dict(err=float((ok_[0] - op_[0]).abs().max()),
+               rel=fixed["vs_plain"]["x"], fixed_errs=fixed,
+               union_errs=union_errs,
+               cold_exits=cold_exits, warm_exits=warm_exits,
+               ragged_errs=ragged, ragged_exits=ragged_exits,
+               small_horizon_errs=small_errs,
+               iters_mean=float(executed.mean()), ms=ms, plain_ms=plain,
+               library_ms=None, bound_ms=b_ms, bound_by=b_by,
+               warm_ms=warm_ms,
+               warm_iters_mean=warm_exits["mean"][0], pack_ms=pack_ms,
+               pattern=dict(nonzeros=pattern.nnz,
+                            widths=[pattern.row_width, pattern.col_width],
+                            union_nonzeros=union.nnz,
+                            a_nonzeros_mean=float((ops[1] != 0).sum(
+                                dim=(1, 2)).double().mean())),
+               **residency(torch, pattern, ops[1].shape[0], kw["tile"],
+                           dense_P),
+               dense_P=dense_P,
+               shapes=[list(ops[0].shape), list(ops[1].shape)])
+    if build == "wide":
+        rec["lane_warps"] = list(pattern.lane_warps)
+        rec["slots"] = list(pattern.slots)
+    if dense_P:
+        rec["dense_p_split"] = dense_p_split(torch, ops, kw, n_iters, check)
+    return rec
+
+
+def wide_chain_links(pattern) -> int:
+    """The wide build's dependent links an iteration: in each A product the
+    longest lane run and its group tree's steps, and in the K^-1 product
+    a part's run of rows and its two butterfly steps."""
+    links = 0
+    for desc, runs in ((pattern.row_lanes, pattern.row_runs),
+                       (pattern.col_lanes, pattern.col_runs)):
+        size = (desc.astype(np.int64) >> 21) & 63
+        links += int((runs >> 16).max()) + int(np.ceil(np.log2(size.max())))
+    return links + ((-(-pattern.n // 4)) | 1) + 2
 
 
 def check_admm_dense_tile1(torch, captures):
@@ -1452,9 +1519,11 @@ def check_admm_dense_tile1(torch, captures):
     scalings, A packed once per solve): the first segment of the cold
     step and the last of the second step, each kernel against the float32
     and the float64 plain version (`held_fixed`) at the path's iteration
-    count.  Times the first call."""
-    from pigeon_tpu_torch.solver import pallas_admm as pa
-
+    count.  Times the first call and the wide build's latency floor: its
+    dependent links an iteration (`wide_chain_links`) at
+    SMEM_LATENCY_CYCLES each and the highest SM clock, plus a call that
+    runs no iteration (the launch, one device-memory round trip, the
+    statistics)."""
     recs = []
     for args, kw in captures:
         ops, (n_iters, sigma, alpha) = args[:9], args[9:12]
@@ -1482,19 +1551,24 @@ def check_admm_dense_tile1(torch, captures):
                        torch.full((1,), float(n_iters), device=ops[1].device),
                        0, n,
                        10 * m + 5 * n, 10 * m + 12 * n)
-    pat = pattern.tensors(ops[1].device)
-    b_ms, b_by = bound(nbytes(ops[0], kw["A_packed"], *ops[2:], *ops[6:],
-                              torch.empty(8),
-                              *[pat[k] for k in ("row_code", "col_slot",
-                                                 "col_row")]),
-                       flops)
-    return dict(err=max(r["err"] for r in recs),
-                rel=first["fixed_errs"]["vs_plain"]["x"], calls=recs,
-                ms=ms, plain_ms=plain, library_ms=None, bound_ms=b_ms,
-                bound_by=b_by, tile=1,
-                smem_bytes=pa.plan_smem(n, m, pattern.row_width,
-                                        pattern.col_width),
-                shapes=[list(ops[0].shape), list(ops[1].shape)])
+    b_ms, b_by = bound(nbytes(ops[0], *ops[2:], *ops[6:], torch.empty(8))
+                       + a_bytes(pattern, 1), flops)
+    rec = dict(err=max(r["err"] for r in recs),
+               rel=first["fixed_errs"]["vs_plain"]["x"], calls=recs,
+               ms=ms, plain_ms=plain, library_ms=None, bound_ms=b_ms,
+               bound_by=b_by, tile=1,
+               **residency(torch, pattern, 1, 1, False),
+               shapes=[list(ops[0].shape), list(ops[1].shape)])
+    if pattern.build == "wide":
+        empty_ms = cuda_ms(torch, lambda: dense_admm(torch, ops, kw, 0, 0),
+                           20)
+        links = wide_chain_links(pattern)
+        chain_ms = (n_iters * links * SMEM_LATENCY_CYCLES
+                    / (float(nvidia_smi("clocks.max.sm").split()[0]) * 1e3))
+        rec.update(chain_links=links, chain_ms=chain_ms,
+                   no_iteration_ms=empty_ms,
+                   latency_floor_ms=chain_ms + empty_ms)
+    return rec
 
 
 def tracks_f64(p, e):
@@ -1610,7 +1684,9 @@ def check_admm_dense_modes(torch, forms):
     and the warm segment and on a ragged batch (B_RAGGED instances of
     the warm one) against its float32 and float64 plain versions
     (`held_mode`), with its cold segment's time, plain time and bound
-    (`mode_flops`), registers, shared bytes and resident clusters."""
+    (`mode_flops`), registers, shared bytes, resident clusters and waves
+    in the build the pattern's widths give (the sparse QP's narrow, the
+    condensed QP's wide)."""
     from pigeon_tpu_torch.solver import pallas_admm as pa
 
     out = {}
@@ -1645,22 +1721,14 @@ def check_admm_dense_modes(torch, forms):
                 torch, ops, kw, n_iters, check, plain=True), 2)
             flops = mode_flops(torch, ops[1], m_eq, mode, k[3][:, 6], check,
                                n, dense_P)
-            pat = pattern.tensors(ops[1].device)
-            b_ms, b_by = bound(nbytes(ops[0], kw["A_packed"], *ops[2:],
-                                      *kw["scalings"], *k,
-                                      *[pat[key] for key in (
-                                          "row_code", "col_slot",
-                                          "col_row")]), flops)
+            b_ms, b_by = bound(nbytes(ops[0], *ops[2:], *kw["scalings"], *k)
+                               + a_bytes(pattern, ops[1].shape[0]), flops)
             rec = dict(mode=mode, form=form, dense_P=dense_P, ms=ms,
                        plain_ms=plain, library_ms=None, bound_ms=b_ms,
                        bound_by=b_by, iters_mean=float(k[3][:, 6].mean()),
                        finite=bool(torch.isfinite(k[0]).all()),
-                       registers=pa.registers(mode, dense_P),
-                       smem_bytes=pa.plan_smem(
-                           n, m, pattern.row_width, pattern.col_width,
-                           dense_P, mode),
-                       max_active_clusters=pa.max_active_clusters(
-                           pattern, kw["tile"], dense_P, mode),
+                       **residency(torch, pattern, ops[1].shape[0],
+                                   kw["tile"], dense_P, mode),
                        cold=cold, warm=warm, ragged=ragged,
                        shapes=[list(ops[0].shape), list(ops[1].shape)])
             # x's largest difference from the float32 plain version,
@@ -1690,6 +1758,8 @@ KERNEL_META = {
                     "pigeon_tpu/solver/banded.py:132", check_banded_chol),
     "admm_dense": ("pigeon_tpu_torch/csrc/admm_dense.cu",
                    "pigeon_tpu/solver/pallas_admm.py:38", check_admm_dense),
+    "admm_wide": ("pigeon_tpu_torch/csrc/admm_wide.cu",
+                  "pigeon_tpu/solver/pallas_admm.py:38", check_admm_dense),
 }
 
 
@@ -2162,12 +2232,19 @@ def simulate_setup(torch, formulation: str, device, dtype):
             hji.inactive_cache(device=device), q0)
 
 
+def b8_builds(kernel: str, tag: str, count: int) -> dict:
+    """`_kernels.launches_by` of both B8 builds when `count` launches all
+    went to `kernel`'s build `tag`."""
+    return {k: ({tag: count} if k == kernel and count else {})
+            for k in B8_KERNELS}
+
+
 def run_simulate(torch, kernels, formulation: str, steps: int = SIM_STEPS,
                  profile_steps: int = SIM_PROFILE_STEPS):
     """`steps` closed-loop steps of one vehicle on the card through
     `mpc.simulate`.  The route must launch expm_dense once per step and no
-    other kernel but, for "condensed", admm_dense once per solver segment
-    (the log's iterations over `check_every`).  Returns the record, the
+    other kernel but, for "condensed", the dense ADMM kernel's wide build
+    once per solver segment (the log's iterations over `check_every`).  Returns the record, the
     log, and torch.profiler's per-step reading of `profile_steps` more
     steps from the same start."""
     from pigeon_tpu_torch import mpc
@@ -2184,9 +2261,13 @@ def run_simulate(torch, kernels, formulation: str, steps: int = SIM_STEPS,
     launched = kernels.launches()
     expect = dict.fromkeys(launched, 0)
     expect["expm_dense"] = steps
+    builds = {k: kernels.launches_by(k) for k in B8_KERNELS}
     if formulation == "condensed":
-        expect["admm_dense"] = (int(log.diag.iterations.sum())
-                                // cfg.solver.check_every)
+        b8, tag = PATH_B8_BUILD["simulate_condensed"]
+        expect[b8] = (int(log.diag.iterations.sum())
+                      // cfg.solver.check_every)
+        require(builds == b8_builds(b8, tag, expect[b8]),
+                f"simulate ({formulation}): B8 builds {builds}")
     require(launched == expect,
             f"simulate ({formulation}): launches {launched}, expected "
             f"{expect}")
@@ -2203,7 +2284,8 @@ def run_simulate(torch, kernels, formulation: str, steps: int = SIM_STEPS,
                step_ms=wall / steps * 1e3,
                converged_share=float(conv.float().mean()),
                iters_mean=float(log.diag.iterations.float().mean()),
-               e_last=float(log.diag.e[-1]), launches=launched)
+               e_last=float(log.diag.e[-1]), launches=launched,
+               b8_builds=builds)
     prof = profile_call(
         torch, lambda: mpc.simulate(cfg, tube, cache, q0,
                                     n_steps=profile_steps),
@@ -2537,10 +2619,14 @@ def main() -> int:
              "ruiz": small_sp["ruiz"],
              "admm_dense": dict(small=small_sp["admm_dense"],
                                 warm=warm_sp["admm_dense"]),
+             "admm_wide": dict(small=small_cd["admm_dense"],
+                               warm=warm_cd["admm_dense"]),
              "banded_chol": dict(small=small_sp["banded_chol"],
                                  factor=cap_sp["factor_inv_banded"])}
     for kname in ("ruiz", "banded_chol", "admm_dense"):
         cap[kname] = cap_sp[kname]
+    # the dense ADMM kernel's wide build at the condensed fleet's shapes
+    cap["admm_wide"] = cap_cd["admm_dense"]
     require(cap["expm_dense"][0][0].shape == (1, 15, 19, 19)
             and extra["expm_dense"]["decoupled"][0][0].shape
             == (1, 30, 17, 17), "the unbatched route's dense stacks")
@@ -2569,21 +2655,16 @@ def main() -> int:
             # the structured exponential at the sparse fleet's shapes
             second["vanloan_sparse"] = fn(torch, *cap_sp["vanloan"])
             log_check(kname, second["vanloan_sparse"], path="fleet_sparse")
-    # the dense ADMM kernel's dense-P mode and the Ruiz kernel (its
-    # diagonal input the row maxima of |P|) at the condensed fleet's
-    # shapes
-    second["admm_dense_condensed"] = check_admm_dense(
-        torch, *cap_cd["admm_dense"],
-        dict(small=small_cd["admm_dense"], warm=warm_cd["admm_dense"]))
-    log_check("admm_dense", second["admm_dense_condensed"],
-              path="fleet_condensed")
+    # the Ruiz kernel (its diagonal input the row maxima of |P|) at the
+    # condensed fleet's shapes
     second["ruiz_condensed"] = check_ruiz(torch, *cap_cd["ruiz"],
                                           small_cd["ruiz"])
     log_check("ruiz", second["ruiz_condensed"], path="fleet_condensed")
-    # and at tile 1, B = 1, as the unbatched condensed route launches it
-    second["admm_dense_simulate_condensed"] = check_admm_dense_tile1(
+    # the wide build at tile 1, B = 1, as the unbatched condensed route
+    # launches it
+    second["admm_wide_simulate_condensed"] = check_admm_dense_tile1(
         torch, sim_cd)
-    log_check("admm_dense", second["admm_dense_simulate_condensed"],
+    log_check("admm_wide", second["admm_wide_simulate_condensed"],
               path="simulate_condensed")
     # the dense ADMM kernel's other modes, on both hard fleets' segments
     m_eq = {f: int(np.asarray(mpc._eq_rows_for(fleet_config(f))).size)
@@ -2606,31 +2687,33 @@ def main() -> int:
         recs, st = run_fleet(torch, B, WARM_STEPS[formulation], kernels,
                              formulation)
         launches[phase] = kernels.launches()
-        builds[phase] = kernels.launches_by("admm_dense")
+        builds[phase] = {k: kernels.launches_by(k) for k in B8_KERNELS}
         warm_ms = [r["ms"] for r in recs[1:]]
         last = recs[-1]
         log(phase=phase, batch=B, cold_ms=recs[0]["ms"],
             warm_ms_median=float(np.median(warm_ms)),
             solves_per_s=B / (float(np.median(warm_ms)) / 1e3),
             iters_mean_last=last["iters"], converged_last=last["conv"],
-            launches=launches[phase], admm_dense_builds=builds[phase],
+            launches=launches[phase], b8_builds=builds[phase],
             steps=recs)
         require(last["conv"] >= 0.99, f"converged fraction {last['conv']}")
         if formulation in PATH_B8_BUILD:
             # every launch of the dense ADMM kernel was the path's build
-            require(builds[phase] == {PATH_B8_BUILD[formulation]:
-                                      launches[phase]["admm_dense"]},
-                    f"{phase}: admm_dense builds {builds[phase]}")
+            b8, tag = PATH_B8_BUILD[formulation]
+            require(builds[phase] == b8_builds(b8, tag,
+                                               launches[phase][b8]),
+                    f"{phase}: B8 builds {builds[phase]}")
         if formulation == "sparse":
             require(all(r["launches"] == SPARSE_STEP_LAUNCHES for r in recs),
                     f"sparse step launches {[r['launches'] for r in recs]}")
         if formulation in ("condensed", "sparse_mixedk6"):
-            # vanloan and ruiz once, admm_dense once per segment of the
+            # vanloan and ruiz once, B8 once per segment of the
             # budget: fewer only on a step where every vehicle converged;
             # the sparse QP's banded factor once per factorization (the
             # first and each refactor before a segment)
             n_seg = SPARSE_SOLVER["max_iter"] // SPARSE_SOLVER["check_every"]
-            segs = [r["launches"].get("admm_dense", 0) for r in recs]
+            segs = [r["launches"].get(PATH_B8_BUILD[formulation][0], 0)
+                    for r in recs]
             chol = [r["launches"].get("banded_chol", 0) for r in recs]
             sparse = formulation != "condensed"
             require(all(r["launches"].get("vanloan") == 1
@@ -2668,6 +2751,7 @@ def main() -> int:
         torch, kernels, "condensed", SIM_STEPS_CONDENSED,
         SIM_PROFILE_STEPS_CONDENSED)
     launches["simulate_condensed"] = rec["launches"]
+    builds["simulate_condensed"] = rec["b8_builds"]
     log(phase="simulate", **rec)
     log(phase="profile", path="simulate", formulation="condensed", batch=1,
         **prof)
@@ -2745,11 +2829,12 @@ def main() -> int:
                 "library_ms")
         out["other_shapes"] = {name: {q: o[q] for q in keys}
                                for name, o in others.items() if o}
-        if k == "admm_dense":
-            out["launches_by_build"] = builds
+        if k in B8_KERNELS:
+            out["launches_by_build"] = {ph: b[k] for ph, b in builds.items()}
             out["modes"] = {name: {q: o[q] for q in keys + (
-                "registers", "smem_bytes", "iters_mean")}
-                for name, o in modes.items()}
+                "registers", "smem_bytes", "iters_mean", "waves")}
+                for name, o in modes.items() if o["build"] ==
+                {"admm_dense": "narrow", "admm_wide": "wide"}[k]}
         return out
 
     print(json.dumps({"kernels": [entry(k) for k in KERNEL_META]}),

@@ -87,6 +87,9 @@ KERNELS = {
     "admm_dense": Kernel(
         "admm_dense_f32", "admm_dense.cu",
         [_P] * 17 + [_I] * 10 + [_F, _F, _I, _F, _F]),
+    "admm_wide": Kernel(
+        "admm_wide_f32", "admm_wide.cu",
+        [_P] * 15 + [_I] * 12 + [_F, _F, _I, _F, _F]),
 }
 
 
@@ -115,7 +118,8 @@ def launches() -> dict:
 
 def launches_by(name: str) -> dict:
     """The launches of kernel `name` by build (the wrapper's tags: the
-    dense ADMM kernel's mode, "_dense_P" added for its dense-P build)."""
+    dense ADMM kernel's mode, "_dense_P" added for its dense-P build, in
+    its narrow ("admm_dense") and wide ("admm_wide") build)."""
     return dict(KERNELS[name].launches_by)
 
 

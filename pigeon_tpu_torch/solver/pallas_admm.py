@@ -13,9 +13,13 @@ bf16 split v M ~ (v_hi M_hi + v_hi M_lo) + v_lo M_hi of every product;
 `m_eq` equality rows, which stay plain), and for K^-1 in "mixed".
 
 The kernel holds each instance's K^-1 and the nonzeros of its A in one
-block's shared memory.  A reaches it in an ELL form: `EllPattern` is the
-static nonzero pattern (shared by every instance; the sparse QP's layout
-gives it, see `layout_pattern`) and `pack` gathers an A's values into it.
+block's shared memory.  `EllPattern` is A's static nonzero pattern (shared
+by every instance; the layout gives it, see `layout_pattern`) and `pack`
+gathers an A's values into it.  It has two builds, picked from the
+pattern's widths by `plan_build`: the narrow one (`csrc/admm_dense.cu`, A
+in an ELL form, the sparse QP's) and the wide one (`csrc/admm_wide.cu`, A
+compact in row and column order, the condensed QP's long rows and
+columns split over lanes by `lane_plan`).
 """
 
 from __future__ import annotations
@@ -44,6 +48,86 @@ MIXED_MODES = ("mixed", "mixedk6")
 # first and last slot of its lane's sum
 CODE_MERGE_SHIFT, CODE_FIRST, CODE_LAST = 16, 1 << 19, 1 << 20
 
+# The narrow build gives each row of A, and each column, one thread: a
+# dependent chain as long as the row or column.  A pattern with a row or
+# column longer than a warp's 32 lanes takes the wide build, which splits
+# them over lanes (the condensed QP's widths 39 and 79; the sparse QP's 11
+# and 15 keep the narrow build and its first design's sums).
+NARROW_WIDTH_MAX = 32
+# the wide build's warps a block, and a lane descriptor of its lane plans
+# (csrc/admm_wide.cu): segment, place in the group, group size
+WIDE_WARPS = 10
+LANE_IDLE, LANE_G_SHIFT, LANE_SIZE_SHIFT = 0xFFFF, 16, 21
+
+
+def plan_build(row_width: int, col_width: int) -> str:
+    """The dense ADMM kernel's build for a pattern of these widths:
+    "wide" past NARROW_WIDTH_MAX, else "narrow"."""
+    return ("wide" if max(row_width, col_width) > NARROW_WIDTH_MAX
+            else "narrow")
+
+
+def kld(n: int) -> int:
+    """The wide build's row stride of K^-1: n rounded
+    up to 8 mod 32, so a warp's 8 columns by 4 rows hit 32 banks."""
+    return n + (8 - n) % 32
+
+
+def _pack_groups(size) -> list:
+    """Groups of `size[s]` contiguous lanes into 32-lane warps, first fit
+    by decreasing size (ties by segment): a list of each warp's
+    segments."""
+    warps, room = [], []
+    for seg in np.lexsort((np.arange(size.size), -size)):
+        g = int(size[seg])
+        for w, r in enumerate(room):
+            if r >= g:
+                warps[w].append(seg)
+                room[w] -= g
+                break
+        else:
+            warps.append([seg])
+            room.append(32 - g)
+    return warps
+
+
+def lane_plan(lengths, warps: int = WIDE_WARPS) -> np.ndarray:
+    """The wide build's lanes for segments (rows or columns of A) of these
+    lengths: each segment a group of G = ceil(len / L) lanes (1..32) in
+    one lane warp, for the chain length L whose plan has the least
+    estimated latency (then the fewest lane warps): the block's `warps`
+    run the lane warps in rounds, and a round costs ~32 FMA latencies of
+    dependent shared loads and stores (a lane's descriptor and run, an
+    index, the vector's entry, the result; ~8 each), L FMAs and the group
+    tree's log2 G steps (~8 each).  Returns one int32 descriptor a lane, 32 a
+    lane warp: segment | g << LANE_G_SHIFT | G << LANE_SIZE_SHIFT, idle
+    lanes LANE_IDLE with G 1."""
+    lengths = np.asarray(lengths, np.int64)
+    longest = max(1, int(lengths.max(initial=0)))
+    best, packs = None, {}
+    for L in range(-(-longest // 32), longest + 1):
+        size = np.clip(-(-lengths // L), 1, 32)
+        key = size.tobytes()
+        if key not in packs:
+            packs[key] = _pack_groups(size)
+        packed = packs[key]
+        steps = int(np.ceil(np.log2(size.max())))
+        cost = (-(-len(packed) // warps) * (32 + L + 8 * steps),
+                len(packed))
+        if best is None or cost < best[0]:
+            best = cost, size, packed
+    _, size, packed = best
+    desc = np.full((len(packed), 32), LANE_IDLE | (1 << LANE_SIZE_SHIFT),
+                   np.int64)
+    for w, segs in enumerate(packed):
+        lane = 0
+        for seg in segs:
+            g = int(size[seg])
+            desc[w, lane:lane + g] = (seg | (np.arange(g) << LANE_G_SHIFT)
+                                      | (g << LANE_SIZE_SHIFT))
+            lane += g
+    return desc.reshape(-1).astype(np.int32)
+
 
 def _bitrev5(v):
     return sum(((v >> b) & 1) << (4 - b) for b in range(5))
@@ -70,9 +154,44 @@ def _merges(keys) -> list:
     return out
 
 
+def _slices(desc, starts) -> tuple:
+    """The slots of a lane plan's runs (csrc/admm_wide.cu): lane l of lane
+    warp w reads its segment's g-th run of ceil(len / G) consecutive
+    positions (from the segment starts `starts`; none for an idle lane)
+    at slots base_w + l, + 32, ..., base_w the slots of the lane warps
+    before w, 32 times the longest run of each.  Returns each lane's run
+    word (its first slot | its count << 16) and the position read at each
+    slot (-1 for a pad, never read)."""
+    desc = desc.astype(np.int64)
+    seg = desc & 0xFFFF
+    idle = seg == LANE_IDLE
+    seg = np.where(idle, 0, seg)
+    g, size = (desc >> LANE_G_SHIFT) & 31, (desc >> LANE_SIZE_SHIFT) & 63
+    s0, s1 = starts[seg].astype(np.int64), starts[seg + 1].astype(np.int64)
+    run = -(-(s1 - s0) // size)
+    p = np.minimum(s0 + g * run, s1)
+    count = np.where(idle, 0, np.minimum(p + run, s1) - p)
+    longest = count.reshape(-1, 32).max(axis=1)
+    base = np.concatenate([[0], np.cumsum(32 * longest)[:-1]])
+    first = np.repeat(base, 32) + np.arange(desc.size) % 32
+    pos = np.full(32 * int(longest.sum()), -1, np.int64)
+    lane = np.repeat(np.arange(desc.size), count)
+    i = np.arange(lane.size) - np.repeat(np.cumsum(count) - count, count)
+    pos[first[lane] + 32 * i] = p[lane] + i
+    if pos.size > SLOTS_MAX:
+        raise ValueError(f"{pos.size} slots exceed the wide build's 16-bit "
+                         f"slots")
+    return (first | (count << 16)).astype(np.int32), pos
+
+
 class EllPattern:
-    """The nonzero positions (rows, cols) of an m x n matrix in the
-    kernel's forms (numpy; `tensors` moves them to a device):
+    """The nonzero positions (rows, cols) of an m x n matrix in the forms
+    of the kernel's build (numpy; `tensors` moves them to a device):
+    `build` ("narrow" or "wide"; `plan_build` of the widths unless
+    given), `nnz`, and `row_width`, `col_width` the most nonzeros of a row
+    and of a column.
+
+    The narrow build's:
 
     - row-ELL: each row's `row_width` slots; `flat` the index r n + c of
       each slot in the flattened A (pads point at entry 0 and are never
@@ -86,21 +205,76 @@ class EllPattern:
       the tree's merges after that lane's sum (the absent lanes' zero
       sums left out);
     - column-ELL: each column's row-ELL slots in ascending row, `col_slot`
-      and `col_row` (n, col_width) int16, -1 pads."""
+      and `col_row` (n, col_width) int16, -1 pads.
 
-    def __init__(self, rows, cols, m: int, n: int):
+    The wide build's: each nonzero once in row order and once in column
+    order, `csr_flat` and `csc_flat` the index r n + c of each in the
+    flattened A, `csr_col` and `csc_row` its column and row,
+    `csr_start` (m + 1) and `csc_start` (n + 1) each row's and column's
+    first; the rows' and the columns' `lane_plan`s (`row_lanes`,
+    `col_lanes`), each lane's run word (`row_runs`, `col_runs`) and the
+    position in row (column) order each slot reads (`row_pos`, `col_pos`,
+    -1 pads; `_slices`); and `plan`, the lane plans, the runs and each
+    slot's column (row) in one int32 block, as the kernel copies it
+    (csrc/admm_wide.cu's `plan_words`)."""
+
+    def __init__(self, rows, cols, m: int, n: int, build: str = None):
         rows = np.asarray(rows, np.int64)
         cols = np.asarray(cols, np.int64)
         key = np.unique(rows * n + cols)
         rows, cols = key // n, key % n
         self.m, self.n, self.nnz = m, n, key.size
+        self._key = key
+        per_row = np.bincount(rows, minlength=m)
+        per_col = np.bincount(cols, minlength=n)
+        self.row_width = max(1, int(per_row.max(initial=0)))
+        self.col_width = max(1, int(per_col.max(initial=0)))
+        self.build = build or plan_build(self.row_width, self.col_width)
+        self._on = {}
+        if self.build == "wide":
+            self._wide(rows, cols, per_row, per_col)
+        elif self.build == "narrow":
+            self._narrow(rows, cols)
+        else:
+            raise ValueError(f"unknown build {build!r}")
+
+    def _wide(self, rows, cols, per_row, per_col):
+        if max(self.nnz, self.m, self.n) > SLOTS_MAX:
+            raise ValueError(f"{self.nnz} nonzeros of a {self.m} x "
+                             f"{self.n} matrix exceed the wide build's "
+                             f"16-bit positions")
+        starts = lambda per: np.concatenate([[0], np.cumsum(per)])
+        self.csr_flat = self._key
+        self.csr_col = cols
+        self.csr_start = starts(per_row)
+        by_col = np.lexsort((rows, cols))
+        self.csc_flat = self._key[by_col]
+        self.csc_row = rows[by_col]
+        self.csc_start = starts(per_col)
+        self.row_lanes = lane_plan(per_row)
+        self.col_lanes = lane_plan(per_col)
+        self.row_runs, self.row_pos = _slices(self.row_lanes, self.csr_start)
+        self.col_runs, self.col_pos = _slices(self.col_lanes, self.csc_start)
+        # a pad slot reads entry 0 of A and of the vector, and is never read
+        at = lambda a, pos: np.where(pos >= 0, a[np.maximum(pos, 0)], 0)
+        even = lambda a: np.concatenate([a, np.zeros(a.size % 2, a.dtype)])
+        shorts = np.concatenate([even(at(self.csr_col, self.row_pos)),
+                                 even(at(self.csc_row, self.col_pos))])
+        shorts = shorts.astype(np.int16)
+        self.plan = np.concatenate([self.row_lanes, self.row_runs,
+                                    self.col_lanes, self.col_runs,
+                                    shorts.view(np.int32)])
+        self._slot_flat = np.concatenate([at(self.csr_flat, self.row_pos),
+                                          at(self.csc_flat, self.col_pos)])
+
+    def _narrow(self, rows, cols):
+        m, n = self.m, self.n
         if n > 1 << CODE_MERGE_SHIFT:
             raise ValueError(f"n={n} exceeds the kernel's 16-bit columns")
         lane_key = _bitrev5(cols % 32)
         order = np.lexsort((cols, lane_key, rows))
         rows, cols, lane_key = rows[order], cols[order], lane_key[order]
         per_row = np.bincount(rows, minlength=m)
-        self.row_width = max(1, int(per_row.max(initial=0)))
         start = np.concatenate([[0], np.cumsum(per_row)[:-1]])
         pos = np.arange(rows.size) - start[rows]
         slot = rows * self.row_width + pos
@@ -125,24 +299,49 @@ class EllPattern:
         self.row_code[rows, pos] = code
         by_col = np.lexsort((rows, cols))
         per_col = np.bincount(cols, minlength=n)
-        self.col_width = max(1, int(per_col.max(initial=0)))
         cstart = np.concatenate([[0], np.cumsum(per_col)[:-1]])
         cpos = np.arange(cols.size) - cstart[cols[by_col]]
         self.col_slot = np.full((n, self.col_width), -1, np.int16)
         self.col_row = np.full((n, self.col_width), -1, np.int16)
         self.col_slot[cols[by_col], cpos] = slot[by_col]
         self.col_row[cols[by_col], cpos] = rows[by_col]
-        self._on = {}
+
+    def as_build(self, build: str) -> "EllPattern":
+        """The same positions in the forms of `build`."""
+        return EllPattern(self._key // self.n, self._key % self.n, self.m,
+                          self.n, build)
+
+    @property
+    def lane_warps(self) -> tuple:
+        """The wide build's lane warps: (rows, columns)."""
+        return self.row_lanes.size // 32, self.col_lanes.size // 32
+
+    @property
+    def slots(self) -> tuple:
+        """The wide build's slots: (rows, columns)."""
+        return self.row_pos.size, self.col_pos.size
+
+    def packed_shape(self, B: int) -> tuple:
+        """The shape of `pack`'s values for B instances: the row-ELL's (B,
+        m, row_width), or the wide build's (B, row slots + column
+        slots)."""
+        return ((B, self.m, self.row_width) if self.build == "narrow"
+                else (B, sum(self.slots)))
 
     def tensors(self, device) -> dict:
-        """The pattern's arrays on `device` (cached per device)."""
+        """The pattern's arrays on `device` (cached per device): `flat`,
+        the gather `pack` makes, and the build's arrays the kernel reads."""
         key = str(torch.device(device))
         if key not in self._on:
             t = lambda a: torch.as_tensor(np.ascontiguousarray(a),
                                           device=device)
-            self._on[key] = dict(flat=t(self.flat), row_code=t(self.row_code),
-                                 col_slot=t(self.col_slot),
-                                 col_row=t(self.col_row))
+            if self.build == "narrow":
+                self._on[key] = dict(
+                    flat=t(self.flat), row_code=t(self.row_code),
+                    col_slot=t(self.col_slot), col_row=t(self.col_row))
+            else:
+                self._on[key] = dict(flat=t(self._slot_flat),
+                                     plan=t(self.plan))
         return self._on[key]
 
 
@@ -163,12 +362,13 @@ def pattern_from(A) -> EllPattern:
 
 
 def pack(A, pattern: EllPattern):
-    """A (B, m, n) -> its row-ELL values (B, m, row_width), one gather;
-    entries of A outside the pattern are dropped."""
+    """A (B, m, n) -> its values in the pattern's build's form
+    (`packed_shape`: the row-ELL, or the wide build's row and column
+    orders), one gather; entries of A outside the pattern are dropped."""
     B, m, n = A.shape
     flat = pattern.tensors(A.device)["flat"]
     return A.reshape(B, m * n).index_select(1, flat).view(
-        B, m, pattern.row_width)
+        pattern.packed_shape(B))
 
 
 def smem_bytes(n: int, m: int, row_width: int, col_width: int,
@@ -201,20 +401,70 @@ def plan_smem(n: int, m: int, row_width: int, col_width: int,
     return need
 
 
+def smem_bytes_wide(n: int, m: int, slots: tuple, lane_warps: tuple,
+                    mode: str = "highest") -> int:
+    """Shared memory of one block of the wide build (`smem_bytes` in
+    csrc/admm_wide.cu) for (row, column) `slots` and `lane_warps`: the
+    vectors, K^-1 at row stride `kld(n)`, A's values
+    in both slot orders, in every mode but "highest" the four vectors'
+    words, and the pattern block (lane plans, runs, 16-bit indices)."""
+    mat = n * kld(n)
+    even = lambda v: v + v % 2
+    sr, sc = slots
+    plan = 64 * sum(lane_warps) + (even(sr) + even(sc)) // 2
+    words = (7 * n + 8 * m + 8 + mat + sr + sc
+             + (0 if mode == "highest" else 2 * n + 2 * m) + 2 + plan)
+    return 4 * words
+
+
+def plan_smem_wide(n: int, m: int, slots: tuple, lane_warps: tuple,
+                   mode: str = "highest") -> int:
+    """`smem_bytes_wide`, or ValueError for a shape that does not fit one
+    block (the condensed QP's n = 103, m = 200, 3,105 nonzeros in 3,456
+    row and 3,360 column slots of 9 and 7 lane warps take 97,164 B, a
+    dense P's PuD staying in device memory)."""
+    need = smem_bytes_wide(n, m, slots, lane_warps, mode)
+    if need > SMEM_MAX:
+        raise ValueError(
+            f"the dense ADMM kernel's wide build holds K^-1 and A's "
+            f"nonzeros in one block's shared memory: n={n}, m={m}, "
+            f"{sum(slots)} slots need {need} B of the {SMEM_MAX} B a block "
+            f"may use")
+    return need
+
+
+def block_smem(pattern: EllPattern, dense_P: bool = False,
+               mode: str = "highest") -> int:
+    """Shared memory of one block of the pattern's build (`plan_smem` or
+    `plan_smem_wide`; ValueError where it does not fit)."""
+    if pattern.build == "narrow":
+        return plan_smem(pattern.n, pattern.m, pattern.row_width,
+                         pattern.col_width, dense_P, mode)
+    return plan_smem_wide(pattern.n, pattern.m, pattern.slots,
+                          pattern.lane_warps, mode)
+
+
 def max_active_clusters(pattern: EllPattern, tile: int,
                         dense_P: bool = False, mode: str = "highest") -> int:
-    """How many clusters of `tile` blocks of the kernel the card holds at
-    once (cudaOccupancyMaxActiveClusters) for this pattern's shapes."""
-    return _kernels.occupancy("admm_dense.cu", "admm_dense_max_clusters",
-                              pattern.n, pattern.m, pattern.row_width,
-                              pattern.col_width, int(tile), int(dense_P),
-                              MODES.index(mode))
+    """How many clusters of `tile` blocks of the pattern's build the card
+    holds at once (cudaOccupancyMaxActiveClusters) for its shapes."""
+    if pattern.build == "narrow":
+        return _kernels.occupancy(
+            "admm_dense.cu", "admm_dense_max_clusters", pattern.n,
+            pattern.m, pattern.row_width, pattern.col_width, int(tile),
+            int(dense_P), MODES.index(mode))
+    return _kernels.occupancy(
+        "admm_wide.cu", "admm_wide_max_clusters", pattern.n, pattern.m,
+        *pattern.slots, *pattern.lane_warps, int(tile), int(dense_P),
+        MODES.index(mode))
 
 
-def registers(mode: str = "highest", dense_P: bool = False) -> int:
-    """Registers a thread of the kernel's build for `mode` and `dense_P`
+def registers(mode: str = "highest", dense_P: bool = False,
+              build: str = "narrow") -> int:
+    """Registers a thread of the kernel's `build` for `mode` and `dense_P`
     (cudaFuncGetAttributes)."""
-    return _kernels.occupancy("admm_dense.cu", "admm_dense_registers",
+    source = {"narrow": "admm_dense", "wide": "admm_wide"}[build]
+    return _kernels.occupancy(f"{source}.cu", f"{source}_registers",
                               MODES.index(mode), int(dense_P))
 
 
@@ -391,14 +641,16 @@ def admm_iterations(Kinv, A, q, l, u, rho, x0, z0, y0, n_iters: int,
 
     Replaces the TPU kernel `pigeon_tpu/solver/pallas_admm.py:_kernel`
     (every mode, with its `dense_P` branch).  One block per instance
-    holds its K^-1 and A's nonzeros (and a dense PuD) in shared memory for
-    the call (`plan_smem` raises ValueError for shapes that do not fit),
-    and a tile is a thread block cluster; the kernel splits K^-1 and A
-    into their bf16 forms where it loads them, so `A_packed` is the same
-    in every mode.
+    holds its K^-1 and A's nonzeros (and, in the narrow build, a dense
+    PuD) in shared memory for the call (`block_smem` raises
+    ValueError for shapes that do not fit), and a tile is a thread block
+    cluster; the kernel splits K^-1 and A into their bf16 forms where it
+    loads them, so `A_packed` is the same in every mode.
     `pattern`: A's nonzero pattern (an `EllPattern` covering every nonzero
     of every instance; the pipeline passes its layout's); without one the
     union pattern of the batch is derived from A, with one host read.
+    The pattern's build (`plan_build` of its widths) is the kernel's:
+    `csrc/admm_dense.cu` or `csrc/admm_wide.cu`.
     `A_packed`: `pack(A, pattern)` when the caller has it already (the
     pipeline packs once per solve); else the wrapper packs, one gather.
     Both are used only on the card: the CPU runs the dense plain
@@ -437,21 +689,29 @@ def admm_iterations(Kinv, A, q, l, u, rho, x0, z0, y0, n_iters: int,
     if (pattern.m, pattern.n) != (m, n):
         raise ValueError(f"the pattern is of a {pattern.m} x {pattern.n} "
                          f"matrix, A of {m} x {n}")
-    plan_smem(n, m, pattern.row_width, pattern.col_width, dense_P, mode)
+    block_smem(pattern, dense_P, mode)
     if A_packed is None:
         A_packed = pack(A, pattern)
-    _kernels.check_same(A_packed=(A_packed, (B, m, pattern.row_width)),
+    _kernels.check_same(A_packed=(A_packed, pattern.packed_shape(B)),
                         q=(q, (B, n)))
     _kernels.check_cuda_f32(A_packed=A_packed,
                             **{k: v[0] for k, v in ops.items()})
     pat = pattern.tensors(q.device)
     x, z, y = x0.clone(), z0.clone(), y0.clone()
     stats = torch.empty((B, 8), dtype=q.dtype, device=q.device)
-    _kernels.KERNELS["admm_dense"].launch(
-        Kinv, A_packed, pat["row_code"], pat["col_slot"],
-        pat["col_row"], q, l, u, rho, x, z, y, E, PuD, qu, invDc, stats, B,
-        n, m, pattern.row_width, pattern.col_width, int(tile), int(n_iters),
-        int(dense_P), MODES.index(mode), m_eq, float(sigma), float(alpha),
-        int(check), float(eps_abs), float(eps_rel),
-        tag=mode + ("_dense_P" if dense_P else ""))
+    tail = (int(tile), int(n_iters), int(dense_P))
+    mode_args = (MODES.index(mode), m_eq, float(sigma), float(alpha),
+                 int(check), float(eps_abs), float(eps_rel))
+    tag = mode + ("_dense_P" if dense_P else "")
+    vectors = (q, l, u, rho, x, z, y, E, PuD, qu, invDc, stats)
+    if pattern.build == "wide":
+        _kernels.KERNELS["admm_wide"].launch(
+            Kinv, A_packed, pat["plan"], *vectors, B, n, m,
+            *pattern.slots, *pattern.lane_warps, *tail, *mode_args,
+            tag=tag)
+    else:
+        _kernels.KERNELS["admm_dense"].launch(
+            Kinv, A_packed, pat["row_code"], pat["col_slot"],
+            pat["col_row"], *vectors, B, n, m, pattern.row_width,
+            pattern.col_width, *tail, *mode_args, tag=tag)
     return x, z, y, stats

@@ -13,7 +13,10 @@ against the JAX package, 3 vehicles on the straight test path at horizon
   `simulate`, against the JAX package's, whose unbatched kernel call is
   run in interpret mode as the JAX package's own tests run it; that route
   runs mode "highest" whatever `pallas_precision` says, as the JAX
-  package's does."""
+  package's does;
+- the pipeline and `solve_qp` again at horizon (4, 8) (n=84, m=162), whose
+  layout pattern (rows up to 33 nonzeros, columns up to 64) the wrapper
+  gives the kernel's wide build on the card, as the live horizon's."""
 
 import dataclasses
 import functools
@@ -48,12 +51,14 @@ PALLAS = dict(max_iter=400, check_every=50, eps_abs=1e-3, eps_rel=1e-3,
 MIXEDK6 = dict(PALLAS, factor_method="ns", pallas_precision="mixedk6",
                max_iter=150, check_every=150)
 HZ = (2, 3)
+# a horizon whose layout pattern takes the dense ADMM kernel's wide build
+HZ_WIDE = (4, 8)
 
 
-def _configs(opts):
-    jcfg = JM.x1_coupled_config(hz=JHP(N_short=HZ[0], N_long=HZ[1]),
+def _configs(opts, hz=HZ):
+    jcfg = JM.x1_coupled_config(hz=JHP(N_short=hz[0], N_long=hz[1]),
                                 condensed=True, solver=JSO(**opts))
-    tcfg = TM.x1_coupled_config(hz=THP(N_short=HZ[0], N_long=HZ[1]),
+    tcfg = TM.x1_coupled_config(hz=THP(N_short=hz[0], N_long=hz[1]),
                                 condensed=True, solver=TSO(**opts))
     return jcfg, tcfg
 
@@ -80,9 +85,10 @@ def jax_unbatched_interpret(monkeypatch):
 # The batched pipeline at float32
 # ---------------------------------------------------------------------------
 
-def _pallas_solves(opts):
+def _pallas_solves(opts, hz=HZ):
     B = 3
-    jcfg, tcfg = _configs(opts)
+    jcfg, tcfg = _configs(opts, hz)
+    lay = TM._layout(tcfg)
     _, _, ttube, tcache = _tubes(torch.float32)
     q0, t0 = straight_fleet(B)
     f32 = lambda a: torch.as_tensor(np.asarray(a), dtype=torch.float32)
@@ -90,8 +96,8 @@ def _pallas_solves(opts):
     oc = f32(np.broadcast_to([1e4, 1e4, 0.0, 0.0], (B, 4)))
     qp, warm, aux = TM._pre_solve(tcfg, ttube, tcache, carry, f32(q0),
                                   f32(np.zeros((B, 3))), oc, f32(t0))
-    assert aux.w is None and qp.P_diag.shape == (B, 40, 40)
-    assert qp.A.shape == (B, 74, 40)
+    assert aux.w is None and qp.P_diag.shape == (B, lay.n, lay.n)
+    assert qp.A.shape == (B, lay.m, lay.n)
     tsol = TA.solve_qp_batched(qp, warm, tcfg.solver,
                                banded_plan=TM._banded_plan_for(tcfg),
                                eq_rows=TM._eq_rows_for(tcfg),
@@ -100,12 +106,18 @@ def _pallas_solves(opts):
     jsol = JA.solve_qp_batched(
         JA.QPData(*J(qp)), JA.QPWarmStart(*J(warm)), jcfg.solver,
         banded_plan=JM._banded_plan_for(jcfg), eq_rows=JM._eq_rows_for(jcfg))
-    return dict(qp=qp, tsol=tsol, jsol=jsol, opts=tcfg.solver)
+    return dict(qp=qp, tsol=tsol, jsol=jsol, opts=tcfg.solver,
+                pattern=TM._a_pattern_for(tcfg))
 
 
 @pytest.fixture(scope="module")
 def pallas_solves():
     return _pallas_solves(PALLAS)
+
+
+@pytest.fixture(scope="module")
+def pallas_solves_wide():
+    return _pallas_solves(PALLAS, HZ_WIDE)
 
 
 @pytest.fixture(scope="module")
@@ -122,8 +134,19 @@ def test_pallas_pipeline_matches_jax(pallas_solves):
     5) of the JAX one, and each of x, z, y no further from the float64
     solve (the "xla" backend on the same QPs) than three times the JAX
     pipeline's distance to it (plus 1e-4 of its scale)."""
-    t, j, qp = (pallas_solves["tsol"], pallas_solves["jsol"],
-                pallas_solves["qp"])
+    assert pallas_solves["pattern"].build == "narrow"
+    _pipeline_matches_jax(pallas_solves)
+
+
+def test_pallas_pipeline_matches_jax_wide_pattern(pallas_solves_wide):
+    """`test_pallas_pipeline_matches_jax` at horizon (4, 8), where the
+    pipeline hands the kernel a pattern of its wide build."""
+    assert pallas_solves_wide["pattern"].build == "wide"
+    _pipeline_matches_jax(pallas_solves_wide)
+
+
+def _pipeline_matches_jax(solves):
+    t, j, qp = solves["tsol"], solves["jsol"], solves["qp"]
     assert t.x.dtype == torch.float32
     np.testing.assert_array_equal(t.converged.numpy(),
                                   np.asarray(j.converged))
@@ -136,7 +159,7 @@ def test_pallas_pipeline_matches_jax(pallas_solves):
     d64 = lambda tup: type(tup)(*[x.double() for x in tup])
     exact = TA.solve_qp_batched(
         d64(qp), d64(TA.cold_start(qp)),
-        dataclasses.replace(pallas_solves["opts"], backend="xla"))
+        dataclasses.replace(solves["opts"], backend="xla"))
     assert exact.converged.all()
     for name in ("x", "z", "y"):
         e = getattr(exact, name).numpy()
@@ -152,6 +175,11 @@ def test_pallas_dense_P_stats_truthful(pallas_solves):
     bars of tests/test_condensed.py:105), and `converged` implies the
     OSQP test holds."""
     _dense_P_stats_truthful(pallas_solves)
+
+
+def test_pallas_dense_P_stats_truthful_wide_pattern(pallas_solves_wide):
+    """`test_pallas_dense_P_stats_truthful` at horizon (4, 8)."""
+    _dense_P_stats_truthful(pallas_solves_wide)
 
 
 def test_mixedk6_pipeline_matches_jax(mixedk6_solves):
@@ -223,8 +251,20 @@ def test_solve_qp_pallas_matches_jax(pallas_solves, jax_unbatched_interpret):
     leave the float32 iterates rounding-determined, so x, z, y each no
     further from the float64 solve (backend "xla") than three times the
     JAX route's distance to it, plus 1e-4 of its scale."""
-    _, tcfg = _configs(SINGLE)
-    qp = TA.QPData(*[t[1].double() for t in pallas_solves["qp"]])
+    _solve_qp_matches_jax(pallas_solves, HZ)
+
+
+def test_solve_qp_pallas_matches_jax_wide_pattern(pallas_solves_wide,
+                                                  jax_unbatched_interpret):
+    """`test_solve_qp_pallas_matches_jax` at horizon (4, 8), whose route
+    hands the kernel a pattern of its wide build."""
+    assert TM._a_pattern_for(_configs(SINGLE, HZ_WIDE)[1]).build == "wide"
+    _solve_qp_matches_jax(pallas_solves_wide, HZ_WIDE)
+
+
+def _solve_qp_matches_jax(solves, hz):
+    _, tcfg = _configs(SINGLE, hz)
+    qp = TA.QPData(*[t[1].double() for t in solves["qp"]])
     ts = TA.solve_qp(qp, None, tcfg.solver,
                      a_pattern=TM._a_pattern_for(tcfg))
     js = JA.solve_qp(JA.QPData(*[jnp.asarray(t.numpy()) for t in qp]), None,
