@@ -32,9 +32,14 @@ Phases (any failure raises, so the script exits non-zero):
    Cholesky inverse the Python plan must match the kernel's own); the two
    ADMM kernels and the Ruiz kernel launch as thread block clusters.  The
    ADMM kernels' bounds count A's nonzeros, not m n.  The dense ADMM
-   kernel has two builds, picked from A's widths (`pallas_admm.
-   plan_build`): the narrow one (`admm_dense`, the sparse fleet's) and
-   the wide one (`admm_wide`, the condensed QP's long rows and columns).
+   kernel has three builds, picked from A's widths and the mode
+   (`pallas_admm.plan_build`): the narrow one (`admm_dense`, the sparse
+   fleet's in "highest"), the wide one (`admm_wide`, the condensed QP's
+   long rows and columns) and the large one (`admm_large`, the sparse
+   fleet's in the split modes, one block filling an SM); each check of
+   the dense ADMM kernel prints its pipe floor (`pipe_floor_ms`, worked
+   out from the run's residency and executed iterations, not measured)
+   on its own record, not in the kernels line.
    The wide build's dense-P mode and the Ruiz kernel are held the same
    way on the inputs of the hard condensed fleet (a cold and a warm
    segment, a ragged batch, horizon (4, 8)), with the split of its
@@ -42,11 +47,14 @@ Phases (any failure raises, so the script exits non-zero):
    the wide build again at tile 1 on the calls of the unbatched condensed
    route (B=1, no check, identity scalings: the cold step's first segment
    and the second step's last, `check_admm_dense_tile1`, with its latency
-   floor); and the narrow build on the sparse fleet's as before.  Its
-   other precision modes
+   floor); the narrow build on the sparse fleet's as before; and the
+   large build on the inputs of the sparse fleet in mode "mixedk6" (its
+   cold and warm segment, a ragged batch, horizon (4, 8)), the statistics
+   held against their own iterates'.  Its other precision modes
    ("mixed", "mixedk6", "high", "bf16"; `check_admm_dense_modes`) are
    held the same way on the cold and the warm segment of both hard fleets
-   and on a ragged batch, each mode's build against its own float32 and
+   and on a ragged batch, in the build each mode takes (the sparse QP's
+   large one, the condensed QP's wide one), against its own float32 and
    float64 plain versions (on the fixed iterations before the float32
    plain version leaves float64's tenth of a scale or goes non-finite,
    where it does; the statistics against the kernel's own iterates'),
@@ -78,12 +86,14 @@ Phases (any failure raises, so the script exits non-zero):
    "mixedk6" (scripts/exp_conv.py's: the layout's 128 equality rows in
    float32, the other rows and the vectors in bf16 pairs, K^-1 in
    float32), one cold and 10 warm steps, each launching vanloan and ruiz
-   once, banded_chol once per factorization and admm_dense once per
-   segment, every launch its mixedk6 build (`_kernels.launches_by`);
+   once, banded_chol once per factorization and admm_large (the dense
+   ADMM kernel's large build) once per segment, every launch its mixedk6
+   instantiation (`_kernels.launches_by`), and no launch of the narrow
+   build;
 7. path "simulate": `mpc.simulate` for one vehicle on the card, 30
    closed-loop steps per soft formulation -- the unbatched route, dense
    linearization and `solve_qp` -- which launches expm_dense once per
-   step and no other kernel; then torch.profiler over 5 more steps; and
+   step and no other kernel; then torch.profiler over 2 more steps; and
    path "simulate_condensed": 10 steps of the hard condensed QP on
    backend "pallas", whose `solve_qp` runs each solver segment on the
    dense ADMM kernel's wide build at tile 1 (expm_dense once per step,
@@ -116,7 +126,8 @@ Phases (any failure raises, so the script exits non-zero):
    ahead); the sparse fleet in mode "mixedk6" by the sparse rule, with
    its controls; the precision ladder (`ladder_check`: 50 and 2 bf16
    iterations before the mixedk6 segments, three steps, the bulk's
-   iterations and convergence accounted);
+   iterations and convergence accounted, every launch the large build's
+   bf16 or mixedk6 instantiation);
    and the Monte-Carlo rollout's 8 scenarios of least start value, five
    steps (`reference_montecarlo`);
 10. B=1 latency: the coupled fleet path for one vehicle, 20 warm steps;
@@ -146,12 +157,12 @@ WARM_STEPS = {"coupled": 10, "decoupled": 20, "sparse": 10,
 B1_STEPS = 20
 SIM_STEPS = 30
 # the condensed QP's single-vehicle path: as many steps as its reference
-# check compares, and a shorter profile (the profiler's own cost a step
-# is most of these phases' time)
+# check compares
 SIM_STEPS_CONDENSED = 10
-SIM_PROFILE_STEPS_CONDENSED = 2
 SIM_REF_STEPS = 10   # steps of `simulate` also run on the CPU
-SIM_PROFILE_STEPS = 5
+# steps of each `simulate` profile (the profiler's own cost a step is most
+# of these phases' time: 6-10 s a step on the H100's host)
+SIM_PROFILE_STEPS = 2
 B_REF = 64
 B_RAGGED = 130   # kernel checks on a batch with a ragged last block
 # and on the inputs of a 12-stage horizon (soft QP n = 2 T = 24), which
@@ -242,19 +253,22 @@ PATH_KERNELS = {
     "decoupled": {"vanloan", "rollout", "chol_inverse", "admm_iterations"},
     "sparse": {"vanloan", "ruiz", "banded_chol", "admm_dense"},
     "condensed": {"vanloan", "ruiz", "admm_wide"},
-    "sparse_mixedk6": {"vanloan", "ruiz", "banded_chol", "admm_dense"},
+    "sparse_mixedk6": {"vanloan", "ruiz", "banded_chol", "admm_large"},
     "simulate": {"expm_dense"},
     "simulate_condensed": {"expm_dense", "admm_wide"},
     "montecarlo": {"vanloan", "chol_inverse", "admm_iterations"},
 }
 # The dense ADMM kernel's build each hard path must launch, and no other:
-# the narrow ("admm_dense") or the wide build ("admm_wide", the condensed
-# QP's widths; `pallas_admm.plan_build`), and its mode
-# (`_kernels.launches_by`: "_dense_P" added for the dense-P build)
-B8_KERNELS = ("admm_dense", "admm_wide")
+# the narrow ("admm_dense"), the wide ("admm_wide", the condensed QP's
+# widths) or the large build ("admm_large", the sparse QP's split modes;
+# `pallas_admm.plan_build`), and its mode (`_kernels.launches_by`:
+# "_dense_P" added for the dense-P build)
+B8_KERNELS = ("admm_dense", "admm_wide", "admm_large")
+B8_BUILD_OF = {"admm_dense": "narrow", "admm_wide": "wide",
+               "admm_large": "large"}
 PATH_B8_BUILD = {"sparse": ("admm_dense", "highest"),
                  "condensed": ("admm_wide", "highest_dense_P"),
-                 "sparse_mixedk6": ("admm_dense", "mixedk6"),
+                 "sparse_mixedk6": ("admm_large", "mixedk6"),
                  "simulate_condensed": ("admm_wide", "highest")}
 # bench.py's lane-solver iteration budget per formulation
 MAX_ITER = {"coupled": 150, "decoupled": 300}
@@ -303,7 +317,7 @@ PORT_KERNEL_FUNCTIONS = {"vanloan_kernel", "chol_inverse_kernel",
                          "admm_kernel", "rollout_kernel",
                          "expm_dense_kernel", "ruiz_kernel",
                          "banded_chol_kernel", "admm_dense_kernel",
-                         "admm_wide_kernel"}
+                         "admm_wide_kernel", "admm_large_kernel"}
 # The dense exponential's run-time build is swept over these d against
 # its plain version (the path's d, 19 and 17, take exact builds)
 EXPM_SWEEP_D = (1, 2, 7, 16, 18, 20, 32)
@@ -316,6 +330,9 @@ SMEM_LATENCY_CYCLES = 30
 # H100 SXM data-sheet peaks (dense): HBM bandwidth and non-tensor fp32
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_FLOPS = 67e12
+# bytes an SM's shared-memory pipe moves a clock (Hopper), for the dense
+# ADMM kernel's pipe floor (`pipe_floor_ms`)
+SMEM_BYTES_PER_CLOCK = 128
 # The Monte-Carlo path: scripts/exp_safety_ab.py's hammer_eps1.5 arm
 # (the soft coupled QP on the lane solver in 12 segments of 50
 # iterations, the HJI row and its override) on the finest value grid in
@@ -501,6 +518,22 @@ def capture_kernel_inputs(step, last=False):
         for (mod, attr), fn in functions.items():
             setattr(mod, attr, fn)
     return seen
+
+
+def cloned(torch, seen):
+    """`capture_kernel_inputs`' record with every tensor in it cloned (a
+    later step may reuse its storage)."""
+    def clone(v):
+        if isinstance(v, torch.Tensor):
+            return v.clone()
+        if isinstance(v, tuple) and hasattr(v, "_fields"):
+            return type(v)(*[clone(t) for t in v])
+        if isinstance(v, (tuple, list)):
+            return type(v)(clone(t) for t in v)
+        if isinstance(v, dict):
+            return {k: clone(t) for k, t in v.items()}
+        return v
+    return clone(seen)
 
 
 def cuda_ms(torch, fn, reps: int, sleep: bool = True) -> float:
@@ -1382,46 +1415,86 @@ def residency(torch, pattern, B, tile, dense_P, mode="highest") -> dict:
                 waves=-(-B // (clusters * tile)))
 
 
+def pipe_floor_ms(torch, pattern, res, tile, iterations) -> float:
+    """A dense ADMM segment's shared-memory pipe floor: every iteration of
+    every block reads its K^-1 once (n rows at the build's row stride: n
+    in the narrow build, `kld(n)` in the others) through its SM's pipe at
+    SMEM_BYTES_PER_CLOCK, the SM's resident blocks one after another and
+    the waves (`residency`) one after another, at the highest SM clock;
+    `iterations` the segment's mean executed count."""
+    from pigeon_tpu_torch.solver import pallas_admm as pa
+
+    n = pattern.n
+    ld = n if pattern.build == "narrow" else pa.kld(n)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    per_sm = -(-res["max_active_clusters"] * tile // sms)
+    clock_hz = float(nvidia_smi("clocks.max.sm").split()[0]) * 1e6
+    return (res["waves"] * per_sm * iterations * 4 * n * ld
+            / SMEM_BYTES_PER_CLOCK / clock_hz * 1e3)
+
+
+def b8_mode(kw, m) -> str:
+    """The dense ADMM kernel's mode of a captured call's options."""
+    from pigeon_tpu_torch.solver import pallas_admm as pa
+
+    return pa.mode_of(kw.get("precision", "highest"), kw.get("bf16", False),
+                      kw.get("m_eq", 0), m)
+
+
 def check_admm_dense(torch, args, kw, extra):
     """`args`: a hard fleet's first segment of its cold step (Kinv, A, q,
     l, u, rho, x, z, y, n_iters, sigma, alpha), the sparse fleet's
-    (diagonal P, the narrow build) or the condensed fleet's
-    (`kw["dense_P"]`, the wide build); `extra["warm"]`: the first segment
-    of a warm step, `extra["small"]`: the 12-stage horizon's call, held
-    in the main call's build whichever the plan gives its widths.
+    (diagonal P, the narrow build), the condensed fleet's
+    (`kw["dense_P"]`, the wide build) or the sparse fleet's in mode
+    "mixedk6" (the large build); `extra["warm"]`: the first segment of a
+    warm step, `extra["small"]`: the 12-stage horizon's call, held in the
+    main call's build whichever the plan gives its widths.
 
     On the cold step no tile converges within the segment, so the early
     exit per tile is held on the warm step's segment too, where most
-    tiles stop at a check before the segment's end."""
+    tiles stop at a check before the segment's end.  In a split mode the
+    statistics are held against their own iterates' (`stats_of_iterates`,
+    as `held_mode` holds them)."""
     from pigeon_tpu_torch.solver import pallas_admm as pa
 
     ops, (n_iters, sigma, alpha) = args[:9], args[9:12]
     kw = dict(kw, sigma=sigma, alpha=alpha)
     check = kw["check"]
+    n, m = ops[0].shape[-1], ops[1].shape[1]
+    mode = b8_mode(kw, m)
+    truth_of = ((lambda o, k: None) if mode == "highest" else
+                (lambda o, k: stats_of_iterates(torch, o, k)))
+    truth = truth_of(ops, kw)
     # the pipeline passes its layout's pattern and packed A on the card
-    pattern = kw.get("pattern") or pa.pattern_from(ops[1])
+    dense_P = kw.get("dense_P", False)
+    pattern = kw.get("pattern") or pa.pattern_from(
+        ops[1], mode, kw.get("m_eq", 0), dense_P)
     build = pattern.build
     kw.setdefault("A_packed", pa.pack(ops[1], pattern))
     k10, p10, e10 = three_ways(torch, ops, kw, 10, 0)
-    fixed = held_vs_f64(torch, k10, p10, e10, "(10 fixed)")
+    fixed = held_vs_f64(torch, k10, p10, e10, "(10 fixed)", truth=truth)
     # without a pattern the wrapper derives the union pattern of the batch
     # (one host read).  The narrow build skips only exact zeros, in the
     # same order, whichever pattern: the same bits as the layout's.  The
-    # wide build's order follows its pattern's lane plan, so the two
-    # patterns' calls differ by rounding: each is held to float64, and
+    # wide and large builds' order follows the pattern's lane plan, so the
+    # two patterns' calls differ by rounding: each is held to float64, and
     # they to each other within the bar a kernel keeps from float64
     derived = dense_admm(torch, ops, dict(kw, pattern=None, A_packed=None),
                          10, 0)
-    union = pa.pattern_from(ops[1])
+    union = pa.pattern_from(ops[1], mode, kw.get("m_eq", 0), dense_P)
     union_errs = None
-    if build == "wide":
+    if build != "narrow":
         union_errs = held_vs_f64(torch, derived, p10, e10,
-                                 "(10 fixed, the batch's union pattern)")
+                                 "(10 fixed, the batch's union pattern)",
+                                 truth=truth)
         lane = lambda o: [t.double().T for t in o]
         vs_layout = admm_errors(torch, lane(derived), lane(k10))
         bar = fixed["plain_vs_f64"]
+        # in a split mode each call's statistics are held to its own
+        # iterates' above (the split of y is discontinuous in y)
         bad = {k: (v, bar[k]) for k, v in vs_layout.items()
-               if not v <= 2.0 * bar[k] + ADMM_REL}
+               if not v <= 2.0 * bar[k] + ADMM_REL
+               and (truth is None or not k.startswith("stats"))}
         require(not bad, f"admm_dense (10 fixed) with the batch's union "
                 f"pattern vs the layout's: {bad}")
         union_errs["vs_layout"] = vs_layout
@@ -1430,11 +1503,13 @@ def check_admm_dense(torch, args, kw, extra):
                 "admm_dense with the batch's union pattern vs the layout's")
     # the main-path call (its executed counts give the bound's work)
     ok_, op_, cold_exits = held_segment(torch, ops, kw, n_iters, check,
-                                        "(cold segment)", some_early=False)
+                                        "(cold segment)", some_early=False,
+                                        truth=truth)
     w_args, w_kw = extra["warm"]
     w_ops, w_kw = w_args[:9], dict(w_kw, sigma=sigma, alpha=alpha)
     warm_exits = held_segment(torch, w_ops, w_kw, n_iters, check,
-                              "(warm segment)")[2]
+                              "(warm segment)",
+                              truth=truth_of(w_ops, w_kw))[2]
     # the ragged last tile (B_RAGGED = 32 tiles of 4 and one of 2), and
     # the run-time n, m build on the 12-stage horizon's operands
     cut = lambda ops_, kw_: (
@@ -1442,16 +1517,22 @@ def check_admm_dense(torch, args, kw, extra):
         dict(kw_, A_packed=None,
              scalings=tuple(t[:B_RAGGED].contiguous()
                             for t in kw_["scalings"])))
-    ragged = held_fixed(torch, *cut(ops, kw), 10, "(10 fixed, ragged)")
-    ragged_exits = held_segment(torch, *cut(w_ops, w_kw), n_iters, check,
-                                "(warm segment, ragged)",
-                                some_early=False)[2]
+    r_ops, r_kw = cut(ops, kw)
+    ragged = held_fixed(torch, r_ops, r_kw, 10, "(10 fixed, ragged)",
+                        truth=truth_of(r_ops, r_kw))
+    r_ops, r_kw = cut(w_ops, w_kw)
+    ragged_exits = held_segment(torch, r_ops, r_kw, n_iters, check,
+                                "(warm segment, ragged)", some_early=False,
+                                truth=truth_of(r_ops, r_kw))[2]
     s_args, s_kw = extra["small"]
-    s_pattern = (s_kw.get("pattern") or pa.pattern_from(s_args[1]))
+    s_pattern = (s_kw.get("pattern") or pa.pattern_from(
+        s_args[1], mode, s_kw.get("m_eq", 0), dense_P))
     s_kw = dict(s_kw, sigma=s_args[10], alpha=s_args[11],
-                pattern=s_pattern.as_build(build), A_packed=None)
+                pattern=s_pattern.as_build(build, s_pattern.m_split),
+                A_packed=None)
     small_errs = held_fixed(torch, s_args[:9], s_kw, 10,
-                            f"(10 fixed) at {tuple(s_args[1].shape)}")
+                            f"(10 fixed) at {tuple(s_args[1].shape)}",
+                            truth=truth_of(s_args[:9], s_kw))
     small_errs["plan_build"] = s_pattern.build
     ms = cuda_ms(torch, lambda: dense_admm(torch, ops, kw, n_iters, check), 5)
     warm_ms = cuda_ms(torch, lambda: dense_admm(torch, w_ops, w_kw, n_iters,
@@ -1463,17 +1544,17 @@ def check_admm_dense(torch, args, kw, extra):
         bytes=nbytes(ops[1], kw["A_packed"]))
     plain = cuda_ms(torch, lambda: dense_admm(torch, ops, kw, n_iters, check,
                                               plain=True), 2)
-    n, m = ops[0].shape[-1], ops[1].shape[1]
-    dense_P = kw.get("dense_P", False)
     executed = ok_[3][:, 6].double()
-    # a check's statistics: with a dense P, P x is 2 n^2 more
-    flops = admm_flops(torch, (ops[1] != 0).sum(dim=(1, 2)), executed, check,
-                       n, 10 * m + 5 * n,
-                       10 * m + 12 * n + (2 * n * n if dense_P else 0))
+    # a check's statistics: with a dense P, P x is 2 n^2 more; a split
+    # mode's terms as `mode_flops` counts them
+    flops = mode_flops(torch, ops[1], kw.get("m_eq", 0), mode, executed,
+                       check, n, dense_P)
     # the kernel's inputs, A as its static nonzeros (`a_bytes`)
     b_ms, b_by = bound(nbytes(ops[0], *ops[2:], *kw["scalings"], *ok_)
                        + a_bytes(pattern, ops[1].shape[0]), flops)
-    rec = dict(err=float((ok_[0] - op_[0]).abs().max()),
+    res = residency(torch, pattern, ops[1].shape[0], kw["tile"], dense_P,
+                    mode)
+    rec = dict(err=float((ok_[0] - op_[0]).abs().max()), mode=mode,
                rel=fixed["vs_plain"]["x"], fixed_errs=fixed,
                union_errs=union_errs,
                cold_exits=cold_exits, warm_exits=warm_exits,
@@ -1488,11 +1569,11 @@ def check_admm_dense(torch, args, kw, extra):
                             union_nonzeros=union.nnz,
                             a_nonzeros_mean=float((ops[1] != 0).sum(
                                 dim=(1, 2)).double().mean())),
-               **residency(torch, pattern, ops[1].shape[0], kw["tile"],
-                           dense_P),
+               **res, pipe_floor_ms=pipe_floor_ms(
+                   torch, pattern, res, kw["tile"], float(executed.mean())),
                dense_P=dense_P,
                shapes=[list(ops[0].shape), list(ops[1].shape)])
-    if build == "wide":
+    if build != "narrow":
         rec["lane_warps"] = list(pattern.lane_warps)
         rec["slots"] = list(pattern.slots)
     if dense_P:
@@ -1684,9 +1765,10 @@ def check_admm_dense_modes(torch, forms):
     and the warm segment and on a ragged batch (B_RAGGED instances of
     the warm one) against its float32 and float64 plain versions
     (`held_mode`), with its cold segment's time, plain time and bound
-    (`mode_flops`), registers, shared bytes, resident clusters and waves
-    in the build the pattern's widths give (the sparse QP's narrow, the
-    condensed QP's wide)."""
+    (`mode_flops`), pipe floor, registers, shared bytes, resident clusters
+    and waves in the build the pattern's widths and the mode give
+    (`EllPattern.for_mode`: the sparse QP's large build, the condensed
+    QP's wide)."""
     from pigeon_tpu_torch.solver import pallas_admm as pa
 
     out = {}
@@ -1694,14 +1776,16 @@ def check_admm_dense_modes(torch, forms):
         ops, (n_iters, sigma, alpha) = c_args[:9], c_args[9:12]
         w_ops = w_args[:9]
         dense_P = c_kw.get("dense_P", False)
-        pattern = c_kw.get("pattern") or pa.pattern_from(ops[1])
+        layout = c_kw.get("pattern") or pa.pattern_from(ops[1])
         n, m = ops[0].shape[-1], ops[1].shape[1]
         for mode in MODES_CHECKED:
             mkw = (dict(bf16=True) if mode == "bf16"
                    else dict(precision=mode))
-            kw = dict(c_kw, sigma=sigma, alpha=alpha, m_eq=m_eq, **mkw)
-            kw.setdefault("A_packed", pa.pack(ops[1], pattern))
-            wkw = dict(w_kw, sigma=sigma, alpha=alpha, m_eq=m_eq, **mkw)
+            pattern = layout.for_mode(mode, m_eq, dense_P)
+            kw = dict(c_kw, sigma=sigma, alpha=alpha, m_eq=m_eq, **mkw,
+                      pattern=pattern, A_packed=pa.pack(ops[1], pattern))
+            wkw = dict(w_kw, sigma=sigma, alpha=alpha, m_eq=m_eq, **mkw,
+                       pattern=pattern, A_packed=None)
             check = kw["check"]
             what = f"{mode}, {form}"
             cold = held_mode(torch, ops, kw, n_iters, check,
@@ -1723,12 +1807,15 @@ def check_admm_dense_modes(torch, forms):
                                n, dense_P)
             b_ms, b_by = bound(nbytes(ops[0], *ops[2:], *kw["scalings"], *k)
                                + a_bytes(pattern, ops[1].shape[0]), flops)
+            res = residency(torch, pattern, ops[1].shape[0], kw["tile"],
+                            dense_P, mode)
+            iters = float(k[3][:, 6].mean())
             rec = dict(mode=mode, form=form, dense_P=dense_P, ms=ms,
                        plain_ms=plain, library_ms=None, bound_ms=b_ms,
-                       bound_by=b_by, iters_mean=float(k[3][:, 6].mean()),
-                       finite=bool(torch.isfinite(k[0]).all()),
-                       **residency(torch, pattern, ops[1].shape[0],
-                                   kw["tile"], dense_P, mode),
+                       bound_by=b_by, iters_mean=iters,
+                       finite=bool(torch.isfinite(k[0]).all()), **res,
+                       pipe_floor_ms=pipe_floor_ms(torch, pattern, res,
+                                                   kw["tile"], iters),
                        cold=cold, warm=warm, ragged=ragged,
                        shapes=[list(ops[0].shape), list(ops[1].shape)])
             # x's largest difference from the float32 plain version,
@@ -1760,6 +1847,8 @@ KERNEL_META = {
                    "pigeon_tpu/solver/pallas_admm.py:38", check_admm_dense),
     "admm_wide": ("pigeon_tpu_torch/csrc/admm_wide.cu",
                   "pigeon_tpu/solver/pallas_admm.py:38", check_admm_dense),
+    "admm_large": ("pigeon_tpu_torch/csrc/admm_large.cu",
+                   "pigeon_tpu/solver/pallas_admm.py:38", check_admm_dense),
 }
 
 
@@ -2119,14 +2208,17 @@ def reference_check(torch, formulation="coupled", device="cuda",
     return dict(rule=rule, seeds=seeds)
 
 
-def ladder_check(torch, kernels, bulk, device="cuda"):
+def ladder_check(torch, kernels, bulk, device="cuda", seed=0,
+                 b8="admm_large"):
     """The precision ladder on the sparse step (`bulk` iterations in mode
     "bf16", then the "mixedk6" segments) for B_REF vehicles over
     LADDER_STEPS steps, each also run on the CPU at float32 and float64
     from the card's state and compared by REF_RULES["sparse_ladder"]
-    (`reference_verdict`).  On each card step:
+    (`reference_verdict`), on the placement `seed`.  On each card step:
     - the dense ADMM kernel runs first the bulk (bf16, `bulk` iterations,
-      its bf16 build), then only mixedk6 segments (that build);
+      the bf16 instantiation of the build `b8`, the large one on the
+      path), then only mixedk6 segments (its mixedk6 one), and launches
+      no other build;
     - each vehicle's iterations are `bulk` plus its executed segment
       iterations;
     - its converged flag is the last segment's convergence test, whatever
@@ -2137,7 +2229,8 @@ def ladder_check(torch, kernels, bulk, device="cuda"):
     from pigeon_tpu_torch.solver import pallas_admm as pa
 
     rule = REF_RULES["sparse_ladder"]
-    gpu = make_setup(torch, B_REF, device, formulation="sparse_mixedk6")
+    gpu = make_setup(torch, B_REF, device, formulation="sparse_mixedk6",
+                     seed=seed)
     opts = dataclasses.replace(gpu["cfg"].solver, bf16_bulk_iters=bulk)
     gpu["cfg"] = dataclasses.replace(gpu["cfg"], solver=opts)
     conv_of = lambda st, qu: (
@@ -2157,15 +2250,15 @@ def ladder_check(torch, kernels, bulk, device="cuda"):
                           args[9], out[3], kw["scalings"][4]))
             return out
 
-        before = kernels.launches_by("admm_dense")
+        before = {k: kernels.launches_by(k) for k in B8_KERNELS}
         pa.admm_iterations = spy
         try:
             card = closed_loop_step(torch, gpu)
         finally:
             pa.admm_iterations = original
-        after = kernels.launches_by("admm_dense")
-        grew = {k: v - before.get(k, 0) for k, v in after.items()
-                if v != before.get(k, 0)}
+        after = {k: kernels.launches_by(k) for k in B8_KERNELS}
+        grew = {(b, k): v - before[b].get(k, 0) for b in B8_KERNELS
+                for k, v in after[b].items() if v != before[b].get(k, 0)}
         fb_card = gpu["carry"].nan_fallback.cpu()
         cpu32 = closed_loop_step(torch, c32)
         u64, d64 = closed_loop_step(torch, c64)
@@ -2174,7 +2267,7 @@ def ladder_check(torch, kernels, bulk, device="cuda"):
         require(first[0] and first[2] == bulk and segs
                 and all(not c[0] and c[1] == "mixedk6"
                         and c[2] == opts.check_every for c in segs)
-                and grew == {"bf16": 1, "mixedk6": len(segs)},
+                and grew == {(b8, "bf16"): 1, (b8, "mixedk6"): len(segs)},
                 f"ladder step {i}: calls "
                 f"{[(c[0], c[1], c[2]) for c in calls]}, builds {grew}")
         executed = bulk + sum(c[3][:, 6] for c in segs)
@@ -2202,7 +2295,7 @@ def ladder_check(torch, kernels, bulk, device="cuda"):
         require(not broken and int((fb_card != fb64).sum()) <= 2,
                 f"ladder card vs CPU, step {i}: {broken} {rec}")
         steps.append(dict(step=i, **rec))
-    return dict(bulk=bulk, batch=B_REF, steps=steps)
+    return dict(bulk=bulk, batch=B_REF, seed=seed, steps=steps)
 
 
 # ---------------------------------------------------------------------------
@@ -2573,26 +2666,43 @@ def main() -> int:
         return capture_kernel_inputs(lambda: mpc.simulate(
             cfg, tube, cache, q0, n_steps=n_steps), last)
 
-    cap = capture_fleet("coupled")
-    cap_dec = capture_fleet("decoupled")
-    small = capture_fleet("coupled", B_SMALL, HZ_SMALL)
-    cap_sp = capture_fleet("sparse", B_SPARSE)
-    small_sp = capture_fleet("sparse", B_SMALL, HZ_SMALL)
-
-    def capture_warm(formulation):
-        """The fleet's second (warm) step, for B8's early exit."""
+    def capture_cold_warm(formulation):
+        """The hard fleet's first (cold) step, its inputs cloned, and its
+        second (warm) step, for B8's early exit."""
         st = make_setup(torch, B_SPARSE, "cuda", formulation=formulation)
-        closed_loop_step(torch, st)
-        return capture_kernel_inputs(lambda: closed_loop_step(torch, st))
+        cold = cloned(torch, capture_kernel_inputs(
+            lambda: closed_loop_step(torch, st)))
+        return cold, capture_kernel_inputs(lambda: closed_loop_step(torch,
+                                                                    st))
 
-    warm_sp = capture_warm("sparse")
-    cap_cd = capture_fleet("condensed", B_SPARSE)
-    small_cd = capture_fleet("condensed", B_SMALL, HZ_SMALL)
-    warm_cd = capture_warm("condensed")
+    def timed(name, fn, *args):
+        t = time.perf_counter()
+        out = fn(*args)
+        torch.cuda.synchronize()
+        log(phase="capture", name=name, seconds=time.perf_counter() - t)
+        return out
+
+    cap = timed("coupled", capture_fleet, "coupled")
+    cap_dec = timed("decoupled", capture_fleet, "decoupled")
+    small = timed("coupled_small", capture_fleet, "coupled", B_SMALL,
+                  HZ_SMALL)
+    cap_sp, warm_sp = timed("sparse_cold_warm", capture_cold_warm, "sparse")
+    small_sp = timed("sparse_small", capture_fleet, "sparse", B_SMALL,
+                     HZ_SMALL)
+    # the sparse fleet in mode "mixedk6": the large build's path
+    cap_mk, warm_mk = timed("sparse_mixedk6_cold_warm", capture_cold_warm,
+                            "sparse_mixedk6")
+    small_mk = timed("sparse_mixedk6_small", capture_fleet,
+                     "sparse_mixedk6", B_SMALL, HZ_SMALL)
+    cap_cd, warm_cd = timed("condensed_cold_warm", capture_cold_warm,
+                            "condensed")
+    small_cd = timed("condensed_small", capture_fleet, "condensed", B_SMALL,
+                     HZ_SMALL)
     # the unbatched condensed route's calls: the cold step's first
     # segment, the second step's last
-    sim_cd = [capture_step("condensed")["admm_dense"],
-              capture_step("condensed", 2, last=True)["admm_dense"]]
+    sim_cd = timed("simulate_condensed", lambda: [
+        capture_step("condensed")["admm_dense"],
+        capture_step("condensed", 2, last=True)["admm_dense"]])
     require(cap_cd["admm_dense"][0][1].shape == (B_SPARSE, 200, 103)
             and cap_cd["admm_dense"][1]["dense_P"]
             and cap_cd["admm_dense"][1]["scalings"][3].shape
@@ -2605,6 +2715,12 @@ def main() -> int:
             and small_sp["admm_dense"][0][1].shape == (B_SMALL, 234, 156)
             and small_sp["banded_chol"][0][0].shape[1] == 13,
             "the sparse fleet's QP and block sizes")
+    require(cap_mk["admm_dense"][1]["pattern"].build == "large"
+            and cap_mk["admm_dense"][1]["m_eq"] == 128
+            and small_mk["admm_dense"][0][1].shape == (B_SMALL, 234, 156)
+            and cap_sp["admm_dense"][1]["pattern"].build == "narrow",
+            "the sparse fleets' B8 builds: large in mixedk6, narrow in "
+            "highest")
     require(small["admm_iterations"][0][2].shape[0] == 2 * sum(HZ_SMALL),
             "the 12-stage horizon's QP size")
     require(cap_dec["admm_iterations"][0][1].shape[:2] == (180, 30)
@@ -2621,12 +2737,16 @@ def main() -> int:
                                 warm=warm_sp["admm_dense"]),
              "admm_wide": dict(small=small_cd["admm_dense"],
                                warm=warm_cd["admm_dense"]),
+             "admm_large": dict(small=small_mk["admm_dense"],
+                                warm=warm_mk["admm_dense"]),
              "banded_chol": dict(small=small_sp["banded_chol"],
                                  factor=cap_sp["factor_inv_banded"])}
     for kname in ("ruiz", "banded_chol", "admm_dense"):
         cap[kname] = cap_sp[kname]
     # the dense ADMM kernel's wide build at the condensed fleet's shapes
     cap["admm_wide"] = cap_cd["admm_dense"]
+    # and its large build at the mixedk6 sparse fleet's
+    cap["admm_large"] = cap_mk["admm_dense"]
     require(cap["expm_dense"][0][0].shape == (1, 15, 19, 19)
             and extra["expm_dense"]["decoupled"][0][0].shape
             == (1, 30, 17, 17), "the unbatched route's dense stacks")
@@ -2677,7 +2797,7 @@ def main() -> int:
         "condensed": (cap_cd["admm_dense"], warm_cd["admm_dense"],
                       m_eq["condensed"])})
     del cap, cap_dec, small, extra, cap_sp, small_sp, warm_sp
-    del cap_cd, small_cd, warm_cd, sim_cd
+    del cap_cd, small_cd, warm_cd, sim_cd, cap_mk, small_mk, warm_mk
 
     # ---- path: the coupled fleet ------------------------------------------
     launches, builds = {}, {}
@@ -2748,8 +2868,7 @@ def main() -> int:
     # the hard condensed QP's unbatched route: the dense ADMM kernel at
     # tile 1, once per solver segment
     rec, sim_logs["condensed"], prof = run_simulate(
-        torch, kernels, "condensed", SIM_STEPS_CONDENSED,
-        SIM_PROFILE_STEPS_CONDENSED)
+        torch, kernels, "condensed", SIM_STEPS_CONDENSED)
     launches["simulate_condensed"] = rec["launches"]
     builds["simulate_condensed"] = rec["b8_builds"]
     log(phase="simulate", **rec)
@@ -2833,8 +2952,8 @@ def main() -> int:
             out["launches_by_build"] = {ph: b[k] for ph, b in builds.items()}
             out["modes"] = {name: {q: o[q] for q in keys + (
                 "registers", "smem_bytes", "iters_mean", "waves")}
-                for name, o in modes.items() if o["build"] ==
-                {"admm_dense": "narrow", "admm_wide": "wide"}[k]}
+                for name, o in modes.items()
+                if o["build"] == B8_BUILD_OF[k]}
         return out
 
     print(json.dumps({"kernels": [entry(k) for k in KERNEL_META]}),

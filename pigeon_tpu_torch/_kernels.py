@@ -90,6 +90,9 @@ KERNELS = {
     "admm_wide": Kernel(
         "admm_wide_f32", "admm_wide.cu",
         [_P] * 15 + [_I] * 12 + [_F, _F, _I, _F, _F]),
+    "admm_large": Kernel(
+        "admm_large_f32", "admm_large.cu",
+        [_P] * 15 + [_I] * 12 + [_F, _F, _I, _F, _F]),
 }
 
 
@@ -119,7 +122,8 @@ def launches() -> dict:
 def launches_by(name: str) -> dict:
     """The launches of kernel `name` by build (the wrapper's tags: the
     dense ADMM kernel's mode, "_dense_P" added for its dense-P build, in
-    its narrow ("admm_dense") and wide ("admm_wide") build)."""
+    its narrow ("admm_dense"), wide ("admm_wide") and large
+    ("admm_large") build)."""
     return dict(KERNELS[name].launches_by)
 
 

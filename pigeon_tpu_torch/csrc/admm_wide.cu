@@ -4,7 +4,10 @@
 // instance, its K^-1 and A's nonzeros resident in shared memory for the
 // whole call, and the early-exit tile of `tile` instances one thread block
 // cluster.  Five precision modes, a diagonal or a dense P, as
-// csrc/admm_dense.cu (the narrow build, which the sparse QP keeps).
+// csrc/admm_dense.cu (the narrow build, which the sparse QP keeps in mode
+// "highest"); csrc/admm_large.cu (the large build) takes the sparse QP in
+// the split modes.  What the builds with a compact A share is in
+// csrc/admm_compact.cuh.
 //
 // Replaces the TPU kernel pigeon_tpu/solver/pallas_admm.py:_kernel in all
 // its modes.  The iteration, the statistics, the early exit per tile, the
@@ -88,82 +91,17 @@
 // K^-1 product in 8 row runs of 13 (half the chain) measured no faster
 // on the card, so the 4 runs stay.
 
-#include <cooperative_groups.h>
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-
-namespace cg = cooperative_groups;
+#include "admm_compact.cuh"
 
 namespace {
 
 constexpr int THREADS = 320;
 constexpr int WARPS = THREADS / 32;
-constexpr int TILE_MAX = 8;               // the portable cluster size
-constexpr int SMEM_MAX = 232448;          // 227 KB: a block's opt-in limit
-constexpr int SLOTS_MAX = 32767;          // int16 slots
-constexpr unsigned FULL = 0xffffffffu;
-// a lane's descriptor (pallas_admm.lane_plan): its segment (row or column;
-// LANE_IDLE for none), its place g in the segment's group, the group's
-// size G
-constexpr int LANE_SEG = 0xffff;
-constexpr int LANE_IDLE = 0xffff;
-constexpr int LANE_G_SHIFT = 16;
-constexpr int LANE_SIZE_SHIFT = 21;
 // the K^-1 product: a warp task's 8 lanes of columns, 4 parts each, two
 // columns (k and k + 8) a lane
 constexpr int K_COLS = 8;
 constexpr int K_PARTS = 4;
 constexpr int K_TASK = 2 * K_COLS;
-
-// the precision modes, in the order of the wrapper's pallas_admm.MODES
-enum Mode : int { HIGHEST = 0, MIXED = 1, MIXEDK6 = 2, HIGH = 3, BF16 = 4 };
-constexpr int N_MODES = 5;
-
-template <int MODE> struct Arith {
-  static constexpr bool VEC = MODE != HIGHEST;
-  static constexpr bool K_SPLIT = MODE == MIXED || MODE == HIGH;
-  static constexpr bool K_ROUND = MODE == BF16;
-  static constexpr bool A_MIXED = MODE == MIXED || MODE == MIXEDK6;
-  // the A products carry the split sums
-  static constexpr bool A_SPLIT = MODE == MIXED || MODE == MIXEDK6
-                                  || MODE == HIGH;
-};
-
-struct Args {
-  const float* __restrict__ Kinv;     // (B, n, n)
-  const float* __restrict__ Aval;     // (B, sr + sc): row slots, column slots
-  const int* __restrict__ plan;       // (plan_words) the pattern (`Smem`)
-  const float* __restrict__ q;        // (B, n)
-  const float* __restrict__ l;        // (B, m)
-  const float* __restrict__ u;        // (B, m)
-  const float* __restrict__ rho;      // (B, m)
-  float* __restrict__ x;              // (B, n) in/out
-  float* __restrict__ z;              // (B, m) in/out
-  float* __restrict__ y;              // (B, m) in/out
-  const float* __restrict__ E;        // (B, m)
-  const float* __restrict__ PuD;      // (B, n), or (B, n, n) if dense_P
-  const float* __restrict__ qu;       // (B, n)
-  const float* __restrict__ invDc;    // (B, n)
-  float* __restrict__ stats;          // (B, 8)
-  int B, n, m, sr, sc, rwarps, cwarps, tile, n_iters, check, dense_P,
-      m_eq;
-  float sigma, alpha, eps_abs, eps_rel;
-};
-
-// K^-1's row stride: n rounded up to 8 mod 32
-__host__ __device__ inline int kld(int n) { return n + ((8 - n) & 31); }
-
-__host__ __device__ inline int even(int v) { return (v + 1) & ~1; }
-
-// The pattern block (the wrapper's EllPattern.plan, one int32 tensor,
-// copied whole): ints the row lane plan's descriptors and runs (32 rwarps
-// each), the column lane plan's (32 cwarps each), then shorts rcol (sr
-// row slots), crow (sc column slots), each rounded up to an even count, so
-// every part is word aligned.
-__host__ __device__ inline int plan_words(int sr, int sc, int rwarps,
-                                          int cwarps) {
-  return 64 * (rwarps + cwarps) + (even(sr) + even(sc)) / 2;
-}
 
 // Shared memory of one block, in this order: floats v1, x, v2, q, PuD, qu,
 // invDc (n each), z, y, w, ax, rho, l, u, E (m each), st (8), K^-1 (n
@@ -225,125 +163,6 @@ __device__ Smem carve(float* sh, const Args& a, bool vec) {
   s.rcol = reinterpret_cast<short*>(s.cr + 32 * a.cwarps);
   s.crow = s.rcol + even(a.sr);
   return s;
-}
-
-__device__ __forceinline__ float nmax(float a, float b) {
-  return (a > b || a != a) ? a : b;
-}
-
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = nmax(v, __shfl_xor_sync(FULL, v, o));
-  return v;
-}
-
-// clip(v, lo, hi) that keeps a NaN v, as jnp.clip and torch do
-__device__ __forceinline__ float clip_keep_nan(float v, float lo, float hi) {
-  return (v != v) ? v : fminf(fmaxf(v, lo), hi);
-}
-
-__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
-  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d),
-               "l"(src));
-}
-
-// A bf16 pair in one word: hi = bf16(v) in the upper 16 bits, lo =
-// bf16(v - hi) in the lower (the TPU kernel's split, pallas_admm.py:131-132
-// and :335-339)
-__device__ __forceinline__ unsigned split_word(float v) {
-  const __nv_bfloat16 hi = __float2bfloat16_rn(v);
-  const __nv_bfloat16 lo = __float2bfloat16_rn(v - __bfloat162float(hi));
-  return ((unsigned)__bfloat16_as_ushort(hi) << 16)
-         | (unsigned)__bfloat16_as_ushort(lo);
-}
-
-__device__ __forceinline__ float hi_of(unsigned w) {
-  return __uint_as_float(w & 0xffff0000u);
-}
-
-__device__ __forceinline__ float lo_of(unsigned w) {
-  return __uint_as_float(w << 16);
-}
-
-__device__ __forceinline__ float bf16_round(float v) {
-  return __bfloat162float(__float2bfloat16_rn(v));
-}
-
-// a vector entry as the mode's products take it: the pair, or (BF16) the
-// rounded value as hi and lo 0
-template <int MODE>
-__device__ __forceinline__ unsigned vec_word(float v) {
-  if constexpr (MODE == BF16)
-    return (unsigned)__bfloat16_as_ushort(__float2bfloat16_rn(v)) << 16;
-  else
-    return split_word(v);
-}
-
-// whether row r of A is split in this mode
-template <int MODE>
-__device__ __forceinline__ bool split_row(const Args& a, int r) {
-  if constexpr (MODE == HIGH) return true;
-  else if constexpr (Arith<MODE>::A_MIXED) return r >= a.m_eq;
-  else return false;
-}
-
-// the vector operand of an unsplit term: v, or (BF16) its rounding
-template <int MODE>
-__device__ __forceinline__ float operand(const float* v, const unsigned* vw,
-                                         int i) {
-  if constexpr (MODE == BF16) return hi_of(vw[i]);
-  else return v[i];
-}
-
-// the three sums of a split product, one term at a time
-struct SplitSums {
-  float hh = 0.0f, hl = 0.0f, lh = 0.0f;
-  __device__ __forceinline__ void add(unsigned mw, unsigned vw) {
-    hh = hh + hi_of(vw) * hi_of(mw);
-    hl = hl + hi_of(vw) * lo_of(mw);
-    lh = lh + lo_of(vw) * hi_of(mw);
-  }
-  // the TPU kernel's order: (v_hi M_hi + v_hi M_lo) + v_lo M_hi
-  __device__ __forceinline__ float sum() const { return (hh + hl) + lh; }
-};
-
-// A lane's part of a segment: its segment (LANE_IDLE for none), its place
-// g in the segment's group and the group's size G
-struct Lane {
-  int seg, g, G;
-  __device__ __forceinline__ explicit Lane(int d)
-      : seg(d & LANE_SEG), g((d >> LANE_G_SHIFT) & 31),
-        G((d >> LANE_SIZE_SHIFT) & 63) {}
-  __device__ __forceinline__ bool idle() const { return seg == LANE_IDLE; }
-};
-
-// The group's sum in its lane g = 0: lane g adds lane g + d's partial sum
-// for d = 1, 2, 4, ... while g is a multiple of 2 d and g + d < G.  `span`
-// (uniform across the warp) bounds the warp's group sizes.
-__device__ __forceinline__ float group_sum(float v, const Lane& ln,
-                                           int span) {
-  for (int d = 1; d < span; d <<= 1) {
-    const float t = __shfl_down_sync(FULL, v, d);
-    if ((ln.g & (2 * d - 1)) == 0 && ln.g + d < ln.G) v = v + t;
-  }
-  return v;
-}
-
-__device__ __forceinline__ SplitSums group_sum(SplitSums sp, const Lane& ln,
-                                               int span) {
-  sp.hh = group_sum(sp.hh, ln, span);
-  sp.hl = group_sum(sp.hl, ln, span);
-  sp.lh = group_sum(sp.lh, ln, span);
-  return sp;
-}
-
-// A lane's run of its segment's nonzeros (the segment's g-th run of
-// ceil(len / G) consecutive nonzeros, none for an idle lane, planned by
-// the wrapper), from its run word p | count << 16: slots p, p + 32, ...
-__device__ __forceinline__ void lane_run(int run, int& p, int& end) {
-  p = run & 0xffff;
-  end = p + 32 * (run >> 16);
 }
 
 // out(j, sum_r A[r][j] v[r]) for every column j, by the column lane plan;
@@ -700,43 +519,9 @@ admm_wide_kernel(Args a) {
   const long long b = blockIdx.x;
   const bool active = b < a.B;               // uniform across the block
   if (active) load<DENSE_P, MODE>(a, s, b);
-
-  int executed;
-  if (0 < a.check && a.check < a.n_iters) {
-    const int n_blocks = (a.n_iters + a.check - 1) / a.check;
-    const int lane = threadIdx.x % 32;
-    int it = 0;
-    bool done = false;
-    while (!done && it < n_blocks) {         // uniform across the tile
-      const int k_len = min(a.check, a.n_iters - it * a.check);
-      bool conv = true;                      // blocks past B
-      if (active) {
-        for (int t = 0; t < k_len; ++t) iterate<MODE>(a, s);
-        conv = calc_stats<DENSE_P, MODE>(a, s, b);
-      }
-      if (a.tile > 1) {
-        cg::cluster_group cluster = cg::this_cluster();
-        if (threadIdx.x == 0) s.flags[it & 1] = conv;
-        cluster.sync();
-        int all = 1;
-        if (lane < a.tile)
-          all = *cluster.map_shared_rank(s.flags + (it & 1), lane);
-        done = __all_sync(FULL, all) != 0;
-      } else {
-        done = conv;
-      }
-      ++it;
-    }
-    executed = min(it * a.check, a.n_iters);
-    // no block leaves while another may still read its flags
-    if (a.tile > 1) cg::this_cluster().sync();
-  } else {
-    if (active) {
-      for (int t = 0; t < a.n_iters; ++t) iterate<MODE>(a, s);
-      calc_stats<DENSE_P, MODE>(a, s, b);
-    }
-    executed = a.n_iters;
-  }
+  const int executed = run_checks(
+      a, s.flags, active, [&](bool) { iterate<MODE>(a, s); },
+      [&] { return calc_stats<DENSE_P, MODE>(a, s, b); });
   if (!active) return;
   if (threadIdx.x == 0) s.st[6] = (float)executed;
   __syncthreads();
@@ -747,24 +532,6 @@ admm_wide_kernel(Args a) {
   }
   if (threadIdx.x < 8) a.stats[b * 8 + threadIdx.x] = s.st[threadIdx.x];
 }
-
-cudaLaunchConfig_t launch_config(int B, int tile, size_t shmem,
-                                 cudaLaunchAttribute* attr, void* stream) {
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3((unsigned)(((B + tile - 1) / tile) * tile));
-  cfg.blockDim = dim3(THREADS);
-  cfg.dynamicSmemBytes = shmem;
-  cfg.stream = (cudaStream_t)stream;
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = (unsigned)tile;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = tile > 1 ? 1 : 0;
-  return cfg;
-}
-
-using KernelFn = void (*)(Args);
 
 template <bool DENSE_P>
 KernelFn of_mode(int mode) {
@@ -778,60 +545,35 @@ KernelFn of_mode(int mode) {
   return nullptr;
 }
 
-KernelFn kernel_of(int dense_P, int mode) {
-  return dense_P ? of_mode<true>(mode) : of_mode<false>(mode);
-}
-
-// the mixed modes take 0 < m_eq <= m leading equality rows; the others
-// m_eq == 0
-bool valid_mode(int mode, int m_eq, int m) {
-  if (mode < 0 || mode >= N_MODES) return false;
-  return (mode == MIXED || mode == MIXEDK6) ? (0 < m_eq && m_eq <= m)
-                                            : m_eq == 0;
-}
-
-cudaError_t prepare(int n, int m, int sr, int sc, int rwarps, int cwarps,
-                    int tile, int dense_P, int mode, int m_eq,
-                    size_t* shmem) {
-  if (n < 1 || m < 1 || sr < 0 || sr > SLOTS_MAX || sc < 0
-      || sc > SLOTS_MAX || n >= LANE_IDLE
-      || m >= LANE_IDLE || rwarps < 1 || cwarps < 1 || tile < 1
-      || tile > TILE_MAX || (dense_P != 0 && dense_P != 1)
-      || !valid_mode(mode, m_eq, m))
-    return cudaErrorInvalidValue;
-  *shmem = smem_bytes(n, m, sr, sc, rwarps, cwarps, mode != HIGHEST);
-  if (*shmem > (size_t)SMEM_MAX) return cudaErrorInvalidValue;
-  return cudaFuncSetAttribute(kernel_of(dense_P, mode),
-                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              (int)*shmem);
-}
+// the build's traits (csrc/admm_compact.cuh's `prepare`)
+struct Wide {
+  static constexpr int BLOCK = THREADS;
+  static size_t smem(int n, int m, int sr, int sc, int rwarps, int cwarps,
+                     int vec) {
+    return smem_bytes(n, m, sr, sc, rwarps, cwarps, vec);
+  }
+  static KernelFn kernel(int dense_P, int mode) {
+    return dense_P ? of_mode<true>(mode) : of_mode<false>(mode);
+  }
+};
 
 }  // namespace
 
 // x, z and y are updated in place (the wrapper passes fresh copies).
-// PuD is (B, n), or (B, n, n) when dense_P is 1.  mode: `Mode`; m_eq the leading equality rows of the
-// mixed modes (0 for the others).
+// PuD is (B, n), or (B, n, n) when dense_P is 1.  mode: `Mode`; m_eq the
+// leading equality rows of the mixed modes (0 for the others).
 extern "C" int admm_wide_f32(
-    const float* Kinv, const float* Aval, const int* plan, const float* q, const float* l, const float* u, const float* rho,
-    float* x, float* z, float* y, const float* E, const float* PuD,
-    const float* qu, const float* invDc, float* stats, int B, int n, int m,
-    int sr, int sc, int rwarps, int cwarps, int tile, int n_iters,
-    int dense_P, int mode, int m_eq, float sigma, float alpha, int check,
-    float eps_abs, float eps_rel, void* stream) {
-  size_t shmem = 0;
-  cudaError_t err = prepare(n, m, sr, sc, rwarps, cwarps, tile, dense_P,
-                            mode, m_eq, &shmem);
-  if (err != cudaSuccess || n_iters < 0 || check < 0)
-    return (int)(err != cudaSuccess ? err : cudaErrorInvalidValue);
-  if (B <= 0) return 0;
-  Args a{Kinv, Aval, plan, q, l, u, rho, x, z, y, E, PuD, qu, invDc, stats,
-         B, n, m, sr, sc, rwarps, cwarps, tile, n_iters, check, dense_P,
-         m_eq, sigma, alpha, eps_abs, eps_rel};
-  cudaLaunchAttribute attr[1];
-  const cudaLaunchConfig_t cfg = launch_config(B, tile, shmem, attr, stream);
-  err = cudaLaunchKernelEx(&cfg, kernel_of(dense_P, mode), a);
-  if (err != cudaSuccess) return (int)err;
-  return (int)cudaGetLastError();
+    const float* Kinv, const float* Aval, const int* plan, const float* q,
+    const float* l, const float* u, const float* rho, float* x, float* z,
+    float* y, const float* E, const float* PuD, const float* qu,
+    const float* invDc, float* stats, int B, int n, int m, int sr, int sc,
+    int rwarps, int cwarps, int tile, int n_iters, int dense_P, int mode,
+    int m_eq, float sigma, float alpha, int check, float eps_abs,
+    float eps_rel, void* stream) {
+  const Args a{Kinv, Aval, plan, q, l, u, rho, x, z, y, E, PuD, qu, invDc,
+               stats, B, n, m, sr, sc, rwarps, cwarps, tile, n_iters, check,
+               dense_P, m_eq, sigma, alpha, eps_abs, eps_rel};
+  return launch<Wide>(a, mode, stream);
 }
 
 // How many clusters of `tile` blocks of this kernel the card holds at once
@@ -839,27 +581,12 @@ extern "C" int admm_wide_f32(
 extern "C" int admm_wide_max_clusters(int n, int m, int sr, int sc,
                                       int rwarps, int cwarps, int tile,
                                       int dense_P, int mode, int* out) {
-  const int m_eq = (mode == MIXED || mode == MIXEDK6) ? 1 : 0;
-  size_t shmem = 0;
-  cudaError_t err = prepare(n, m, sr, sc, rwarps, cwarps, tile, dense_P,
-                            mode, m_eq, &shmem);
-  if (err != cudaSuccess) return (int)err;
-  cudaLaunchAttribute attr[1];
-  cudaLaunchConfig_t cfg = launch_config(tile, tile, shmem, attr, nullptr);
-  cfg.numAttrs = 1;
-  return (int)cudaOccupancyMaxActiveClusters(out, kernel_of(dense_P, mode),
-                                             &cfg);
+  return max_clusters<Wide>(n, m, sr, sc, rwarps, cwarps, tile, dense_P,
+                            mode, out);
 }
 
 // The registers a thread of the build for `mode` and `dense_P` uses
 // (cudaFuncGetAttributes), into *out.
 extern "C" int admm_wide_registers(int mode, int dense_P, int* out) {
-  if (mode < 0 || mode >= N_MODES || (dense_P != 0 && dense_P != 1))
-    return (int)cudaErrorInvalidValue;
-  cudaFuncAttributes attr;
-  const cudaError_t err = cudaFuncGetAttributes(&attr,
-                                                kernel_of(dense_P, mode));
-  if (err != cudaSuccess) return (int)err;
-  *out = attr.numRegs;
-  return 0;
+  return registers<Wide>(mode, dense_P, out);
 }

@@ -357,16 +357,25 @@ def _kernel_segment(Ab, qb, lb, ub, opts: SolverOptions, a_pattern=None):
     return run
 
 
-def _ell_form(A, a_pattern=None) -> dict:
+def _ell_form(A, a_pattern=None, mode: str = "highest", m_eq: int = 0,
+              dense_P: bool = False, shared: dict = None) -> dict:
     """The dense ADMM kernel's A on the card: `a_pattern` (the pattern of
-    the batch A when None, one host read) and A packed into it once, as
-    keyword arguments of `pallas_admm.admm_iterations`; nothing for a CPU
-    tensor, whose plain version reads A dense."""
+    the batch A when None, one host read) in the build of `mode` and
+    `dense_P` (`EllPattern.for_mode`) and A packed into it once, as
+    keyword arguments of `pallas_admm.admm_iterations` (`shared`, another
+    mode's form of the same A, where its pattern is that build already);
+    nothing for a CPU tensor, whose plain version reads A dense."""
     from pigeon_tpu_torch.solver.pallas_admm import pack, pattern_from
 
     if A.device.type == "cpu":
         return {}
-    pattern = a_pattern if a_pattern is not None else pattern_from(A)
+    if shared:
+        pattern = shared["pattern"].for_mode(mode, m_eq, dense_P)
+        if pattern is shared["pattern"]:
+            return shared
+    else:
+        pattern = (a_pattern if a_pattern is not None
+                   else pattern_from(A)).for_mode(mode, m_eq, dense_P)
     return dict(pattern=pattern, A_packed=pack(A, pattern))
 
 
@@ -509,9 +518,11 @@ def _solve_qp_pallas_batched(qp: QPData, warm: QPWarmStart,
     of `check_every` iterations through `pallas_admm.admm_iterations`,
     each with the in-kernel early exit per tile of `opts.pallas_tile`
     instances, in the mode `opts.pallas_precision`.  On the card the scaled
-    A is packed into `a_pattern`'s ELL form once per solve (the pattern of
-    the batch when None).  The kernels compute in float32, the rest in the
-    QP's dtype.
+    A is packed once per solve into `a_pattern` (the pattern of the batch
+    when None) in the kernel build of that mode and P (`pallas_admm.
+    plan_build`: the sparse QP's narrow build in "highest", its large one
+    in the split modes), and the bf16 bulk's in its own.  The kernels
+    compute in float32, the rest in the QP's dtype.
 
     A dense P (the condensed QP, JAX admm.py:446-463): the Ruiz kernel
     scales from the row maxima of |P| in place of the diagonal, the
@@ -566,10 +577,13 @@ def _solve_qp_pallas_batched(qp: QPData, warm: QPWarmStart,
     rows = (lambda t: t) if perm is None else (lambda t: t[:, perm])
     kernel_ops = [f32(rows(Ab)), f32(qb), f32(rows(lb)), f32(rows(ub))]
     scalings = tuple(f32(t) for t in (D, rows(E), c, qp.P_diag, qp.q))
-    # a permuted A takes the pattern of its own nonzeros
-    ell = _ell_form(kernel_ops[0], a_pattern if perm is None else None)
+    # a permuted A takes the pattern of its own nonzeros, in the build of
+    # the segments' mode; the bf16 bulk's build is its own mode's, and it
+    # shares the segments' packed A where that is its build
+    ell = _ell_form(kernel_ops[0], a_pattern if perm is None else None,
+                    opts.pallas_precision, m_eq, dense_P)
 
-    def run(n_iters, **mode):
+    def run(n_iters, ell=ell, **mode):
         def go(fac, x, z, y):
             x, z, y, st = admm_iterations(
                 fac[0], *kernel_ops, rows(fac[1]), x, rows(z), rows(y),
@@ -584,7 +598,10 @@ def _solve_qp_pallas_batched(qp: QPData, warm: QPWarmStart,
         return go
 
     bulk = (None if opts.bf16_bulk_iters <= 0 else
-            (opts.bf16_bulk_iters, run(opts.bf16_bulk_iters, bf16=True)))
+            (opts.bf16_bulk_iters, run(
+                opts.bf16_bulk_iters, bf16=True, ell=_ell_form(
+                    kernel_ops[0], mode="bf16", dense_P=dense_P,
+                    shared=ell))))
     return run_segments(qp, warm, opts, D, E, c, factor,
                         run(opts.check_every,
                             precision=opts.pallas_precision),

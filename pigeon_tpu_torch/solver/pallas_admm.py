@@ -15,11 +15,14 @@ bf16 split v M ~ (v_hi M_hi + v_hi M_lo) + v_lo M_hi of every product;
 The kernel holds each instance's K^-1 and the nonzeros of its A in one
 block's shared memory.  `EllPattern` is A's static nonzero pattern (shared
 by every instance; the layout gives it, see `layout_pattern`) and `pack`
-gathers an A's values into it.  It has two builds, picked from the
-pattern's widths by `plan_build`: the narrow one (`csrc/admm_dense.cu`, A
-in an ELL form, the sparse QP's) and the wide one (`csrc/admm_wide.cu`, A
-compact in row and column order, the condensed QP's long rows and
-columns split over lanes by `lane_plan`).
+gathers an A's values into it.  It has three builds, picked from the
+pattern's widths and the mode by `plan_build`: the narrow one
+(`csrc/admm_dense.cu`, A in an ELL form, the sparse QP in "highest"), the
+wide one (`csrc/admm_wide.cu`, A compact in row and column order, the
+condensed QP's long rows and columns split over lanes by `lane_plan`) and
+the large one (`csrc/admm_large.cu`: the wide build's compact A, one block
+of LARGE_WARPS warps filling an SM, the sparse QP in the split modes with
+a diagonal P; `class_lane_plan`).
 """
 
 from __future__ import annotations
@@ -55,16 +58,28 @@ CODE_MERGE_SHIFT, CODE_FIRST, CODE_LAST = 16, 1 << 19, 1 << 20
 # and 15 keep the narrow build and its first design's sums).
 NARROW_WIDTH_MAX = 32
 # the wide build's warps a block, and a lane descriptor of its lane plans
-# (csrc/admm_wide.cu): segment, place in the group, group size
+# (csrc/admm_wide.cu): segment, place in the group, group size, and (the
+# large build's) whether the lane's run is of split rows
 WIDE_WARPS = 10
 LANE_IDLE, LANE_G_SHIFT, LANE_SIZE_SHIFT = 0xFFFF, 16, 21
+LANE_SPLIT = 1 << 27
+# the large build's warps a block (csrc/admm_large.cu's L_THREADS / 32),
+# and its K^-1 product: 8 parts of a column's rows, 16 columns a warp, 4 a
+# lane
+LARGE_WARPS = 16
+LARGE_K_PARTS, LARGE_K_TASK, LARGE_K_COLS = 8, 16, 4
 
 
-def plan_build(row_width: int, col_width: int) -> str:
-    """The dense ADMM kernel's build for a pattern of these widths:
-    "wide" past NARROW_WIDTH_MAX, else "narrow"."""
-    return ("wide" if max(row_width, col_width) > NARROW_WIDTH_MAX
-            else "narrow")
+def plan_build(row_width: int, col_width: int, mode: str = "highest",
+               dense_P: bool = False) -> str:
+    """The dense ADMM kernel's build for a pattern of these widths in
+    `mode`: "wide" past NARROW_WIDTH_MAX; within it "large" for a
+    diagonal P in the split modes ("mixed", "mixedk6", "high", "bf16"),
+    else "narrow" (`EllPattern.for_mode` also keeps the narrow build
+    where the large one's block does not fit)."""
+    if max(row_width, col_width) > NARROW_WIDTH_MAX:
+        return "wide"
+    return "narrow" if mode == "highest" or dense_P else "large"
 
 
 def kld(n: int) -> int:
@@ -73,12 +88,22 @@ def kld(n: int) -> int:
     return n + (8 - n) % 32
 
 
-def _pack_groups(size) -> list:
-    """Groups of `size[s]` contiguous lanes into 32-lane warps, first fit
-    by decreasing size (ties by segment): a list of each warp's
-    segments."""
+def large_k_run(n: int) -> int:
+    """The large build's rows of a K^-1 part (csrc/admm_large.cu's
+    `lk_run`): ceil(n / 8) rounded up to 2 mod 4, so that at the row
+    stride `kld(n)` (8 mod 32) a quarter warp's two parts read 16 banks
+    apart."""
+    r = -(-n // LARGE_K_PARTS)
+    return r + (2 - r) % 4
+
+
+def _pack_groups(size, segs=None) -> list:
+    """Groups of `size[s]` contiguous lanes (of the segments `segs`, all
+    if None) into 32-lane warps, first fit by decreasing size (ties by
+    segment): a list of each warp's segments."""
+    segs = np.arange(size.size) if segs is None else np.asarray(segs)
     warps, room = [], []
-    for seg in np.lexsort((np.arange(size.size), -size)):
+    for seg in segs[np.lexsort((segs, -size[segs]))]:
         g = int(size[seg])
         for w, r in enumerate(room):
             if r >= g:
@@ -154,14 +179,30 @@ def _merges(keys) -> list:
     return out
 
 
+def _slots(first, count) -> tuple:
+    """The slots of lane runs (csrc/admm_wide.cu): lane l of lane warp w
+    reads `count[l]` consecutive positions from `first[l]` at slots base_w
+    + l, + 32, ..., base_w the slots of the lane warps before w, 32 times
+    the longest run of each.  Returns each lane's run word (its first slot
+    | its count << 16) and the position read at each slot (-1 for a pad,
+    never read)."""
+    longest = count.reshape(-1, 32).max(axis=1)
+    base = np.concatenate([[0], np.cumsum(32 * longest)[:-1]])
+    slot0 = np.repeat(base, 32) + np.arange(count.size) % 32
+    pos = np.full(32 * int(longest.sum()), -1, np.int64)
+    lane = np.repeat(np.arange(count.size), count)
+    i = np.arange(lane.size) - np.repeat(np.cumsum(count) - count, count)
+    pos[slot0[lane] + 32 * i] = first[lane] + i
+    if pos.size > SLOTS_MAX:
+        raise ValueError(f"{pos.size} slots exceed the wide build's 16-bit "
+                         f"slots")
+    return (slot0 | (count << 16)).astype(np.int32), pos
+
+
 def _slices(desc, starts) -> tuple:
-    """The slots of a lane plan's runs (csrc/admm_wide.cu): lane l of lane
-    warp w reads its segment's g-th run of ceil(len / G) consecutive
-    positions (from the segment starts `starts`; none for an idle lane)
-    at slots base_w + l, + 32, ..., base_w the slots of the lane warps
-    before w, 32 times the longest run of each.  Returns each lane's run
-    word (its first slot | its count << 16) and the position read at each
-    slot (-1 for a pad, never read)."""
+    """`_slots` of a lane plan: lane g of a segment's group of G reads
+    its g-th run of ceil(len / G) consecutive positions (from the segment
+    starts `starts`; none for an idle lane)."""
     desc = desc.astype(np.int64)
     seg = desc & 0xFFFF
     idle = seg == LANE_IDLE
@@ -171,17 +212,72 @@ def _slices(desc, starts) -> tuple:
     run = -(-(s1 - s0) // size)
     p = np.minimum(s0 + g * run, s1)
     count = np.where(idle, 0, np.minimum(p + run, s1) - p)
-    longest = count.reshape(-1, 32).max(axis=1)
-    base = np.concatenate([[0], np.cumsum(32 * longest)[:-1]])
-    first = np.repeat(base, 32) + np.arange(desc.size) % 32
-    pos = np.full(32 * int(longest.sum()), -1, np.int64)
-    lane = np.repeat(np.arange(desc.size), count)
-    i = np.arange(lane.size) - np.repeat(np.cumsum(count) - count, count)
-    pos[first[lane] + 32 * i] = p[lane] + i
-    if pos.size > SLOTS_MAX:
-        raise ValueError(f"{pos.size} slots exceed the wide build's 16-bit "
-                         f"slots")
-    return (first | (count << 16)).astype(np.int32), pos
+    return _slots(p, count)
+
+
+def class_lane_plan(eq_lengths, split_lengths, starts,
+                    warps: int = LARGE_WARPS, parts: bool = False) -> tuple:
+    """The large build's lanes for segments (rows or columns of A) whose
+    first `eq_lengths` positions (from `starts[seg]`) are of equality rows
+    and the next `split_lengths` of split rows: G_e = ceil(le / L) lanes on
+    runs of a segment's equality part and G_s = ceil(ls / L) (class bit
+    LANE_SPLIT) on runs of its split part, so that no run mixes the two,
+    L, the chain length, as `lane_plan` picks it for groups of G_e + G_s
+    lanes.  The groups are packed into lane warps of one class each: a
+    segment of one class (a row) is one group; with `parts` (the columns)
+    each part with positions is a group of its own (an empty part takes
+    no lane), both named by the segment.  Returns the descriptors (int32,
+    32 a lane warp) and each lane's first position and count."""
+    le = np.asarray(eq_lengths, np.int64)
+    ls = np.asarray(split_lengths, np.int64)
+    longest = max(1, int(max(le.max(initial=0), ls.max(initial=0))))
+    best = None
+    for L in range(1, longest + 1):
+        ge, gs = -(-le // L), -(-ls // L)
+        size = np.maximum(ge + gs, 1)
+        if size.max() > 32:
+            continue
+        packed = _pack_groups(size)
+        steps = int(np.ceil(np.log2(size.max())))
+        cost = (-(-len(packed) // warps) * (32 + L + 8 * steps), len(packed))
+        if best is None or cost < best[0]:
+            best = cost, ge, gs
+    _, ge, gs = best
+    S = le.size
+    if parts:
+        # group k < S: segment k's equality part; S + k: its split part
+        size = np.concatenate([ge, gs])
+        seg_of, split = np.tile(np.arange(S), 2), np.repeat([0, 1], S)
+        s0 = np.concatenate([starts[:S], starts[:S] + le])
+        length = np.concatenate([le, ls])
+        groups = np.flatnonzero(size > 0)
+    else:
+        size = np.maximum(ge + gs, 1)
+        seg_of, split = np.arange(S), ((le == 0) & (ls > 0)).astype(np.int64)
+        s0, length = starts[:S] + np.where(split, le, 0), le + ls
+        groups = np.arange(S)
+    packed = (_pack_groups(size, groups[split[groups] == 0])
+              + _pack_groups(size, groups[split[groups] == 1]))
+    idle = LANE_IDLE | (1 << LANE_SIZE_SHIFT)
+    desc = np.full((len(packed), 32), idle, np.int64)
+    first = np.zeros((len(packed), 32), np.int64)
+    count = np.zeros((len(packed), 32), np.int64)
+    for w, grps in enumerate(packed):
+        lane = 0
+        for k in grps:
+            G = int(size[k])
+            g = np.arange(G)
+            desc[w, lane:lane + G] = (seg_of[k] | (g << LANE_G_SHIFT)
+                                      | (G << LANE_SIZE_SHIFT)
+                                      | split[k] * LANE_SPLIT)
+            run = -(-length[k] // G)
+            p = np.minimum(s0[k] + g * run, s0[k] + length[k])
+            first[w, lane:lane + G] = p
+            count[w, lane:lane + G] = np.minimum(p + run,
+                                                 s0[k] + length[k]) - p
+            lane += G
+    return (desc.reshape(-1).astype(np.int32), first.reshape(-1),
+            count.reshape(-1))
 
 
 class EllPattern:
@@ -216,9 +312,15 @@ class EllPattern:
     position in row (column) order each slot reads (`row_pos`, `col_pos`,
     -1 pads; `_slices`); and `plan`, the lane plans, the runs and each
     slot's column (row) in one int32 block, as the kernel copies it
-    (csrc/admm_wide.cu's `plan_words`)."""
+    (csrc/admm_wide.cu's `plan_words`).
 
-    def __init__(self, rows, cols, m: int, n: int, build: str = None):
+    The large build's: the wide build's forms, its lane plans from
+    `class_lane_plan` with the rows before `m_split` (the mixed modes'
+    equality rows; 0 for the other modes) apart from the others, so that
+    no lane's run mixes the two."""
+
+    def __init__(self, rows, cols, m: int, n: int, build: str = None,
+                 m_split: int = 0):
         rows = np.asarray(rows, np.int64)
         cols = np.asarray(cols, np.int64)
         key = np.unique(rows * n + cols)
@@ -230,19 +332,23 @@ class EllPattern:
         self.row_width = max(1, int(per_row.max(initial=0)))
         self.col_width = max(1, int(per_col.max(initial=0)))
         self.build = build or plan_build(self.row_width, self.col_width)
+        self.m_split = int(m_split) if self.build == "large" else 0
         self._on = {}
-        if self.build == "wide":
-            self._wide(rows, cols, per_row, per_col)
+        self._forms = {}
+        if self.build in ("wide", "large"):
+            self._compact(rows, cols, per_row, per_col)
         elif self.build == "narrow":
             self._narrow(rows, cols)
         else:
             raise ValueError(f"unknown build {build!r}")
 
-    def _wide(self, rows, cols, per_row, per_col):
+    def _compact(self, rows, cols, per_row, per_col):
         if max(self.nnz, self.m, self.n) > SLOTS_MAX:
             raise ValueError(f"{self.nnz} nonzeros of a {self.m} x "
                              f"{self.n} matrix exceed the wide build's "
                              f"16-bit positions")
+        if not 0 <= self.m_split <= self.m:
+            raise ValueError(f"m_split={self.m_split} outside 0..{self.m}")
         starts = lambda per: np.concatenate([[0], np.cumsum(per)])
         self.csr_flat = self._key
         self.csr_col = cols
@@ -251,10 +357,31 @@ class EllPattern:
         self.csc_flat = self._key[by_col]
         self.csc_row = rows[by_col]
         self.csc_start = starts(per_col)
-        self.row_lanes = lane_plan(per_row)
-        self.col_lanes = lane_plan(per_col)
-        self.row_runs, self.row_pos = _slices(self.row_lanes, self.csr_start)
-        self.col_runs, self.col_pos = _slices(self.col_lanes, self.csc_start)
+        if self.build == "wide":
+            self.row_lanes = lane_plan(per_row)
+            self.col_lanes = lane_plan(per_col)
+            self.row_runs, self.row_pos = _slices(self.row_lanes,
+                                                  self.csr_start)
+            self.col_runs, self.col_pos = _slices(self.col_lanes,
+                                                  self.csc_start)
+        else:
+            # the rows, each of one class; the columns, each a group for
+            # its part of equality rows (first in its ascending rows) and
+            # one for its part of split rows
+            eq_row = np.arange(self.m) < self.m_split
+            per_col_eq = np.bincount(cols[rows < self.m_split],
+                                     minlength=self.n)
+            for name, le, ls, start in (
+                    ("row", np.where(eq_row, per_row, 0),
+                     np.where(eq_row, 0, per_row), self.csr_start),
+                    ("col", per_col_eq, per_col - per_col_eq,
+                     self.csc_start)):
+                lanes, first, count = class_lane_plan(
+                    le, ls, start, parts=name == "col")
+                runs, pos = _slots(first, count)
+                setattr(self, f"{name}_lanes", lanes)
+                setattr(self, f"{name}_runs", runs)
+                setattr(self, f"{name}_pos", pos)
         # a pad slot reads entry 0 of A and of the vector, and is never read
         at = lambda a, pos: np.where(pos >= 0, a[np.maximum(pos, 0)], 0)
         even = lambda a: np.concatenate([a, np.zeros(a.size % 2, a.dtype)])
@@ -306,25 +433,51 @@ class EllPattern:
         self.col_slot[cols[by_col], cpos] = slot[by_col]
         self.col_row[cols[by_col], cpos] = rows[by_col]
 
-    def as_build(self, build: str) -> "EllPattern":
-        """The same positions in the forms of `build`."""
-        return EllPattern(self._key // self.n, self._key % self.n, self.m,
-                          self.n, build)
+    def as_build(self, build: str, m_split: int = 0) -> "EllPattern":
+        """The same positions in the forms of `build` (the large build's
+        rows split at `m_split`), made once per pattern."""
+        key = (build, int(m_split) if build == "large" else 0)
+        if key not in self._forms:
+            self._forms[key] = EllPattern(self._key // self.n,
+                                          self._key % self.n, self.m,
+                                          self.n, *key)
+        return self._forms[key]
+
+    def for_mode(self, mode: str, m_eq: int = 0,
+                 dense_P: bool = False) -> "EllPattern":
+        """The pattern in the build `plan_build` gives its widths, `mode`
+        and `dense_P` (the large build's rows split at the mixed modes'
+        `m_eq`), the narrow build where the large one's block does not
+        fit: itself if it is that form already (a large pattern split
+        anywhere serves "high" and "bf16", which read no row's class)."""
+        build = plan_build(self.row_width, self.col_width, mode, dense_P)
+        if build != "large":
+            return self if build == self.build else self.as_build(build)
+        mixed = mode in MIXED_MODES
+        if self.build == "large" and (not mixed or self.m_split == m_eq):
+            large = self
+        else:
+            large = self.as_build("large", m_eq if mixed else 0)
+        if smem_bytes_large(self.n, self.m, large.slots, large.lane_warps,
+                            mode) > SMEM_MAX:
+            return self if self.build == "narrow" else self.as_build(
+                "narrow")
+        return large
 
     @property
     def lane_warps(self) -> tuple:
-        """The wide build's lane warps: (rows, columns)."""
+        """The wide (and large) build's lane warps: (rows, columns)."""
         return self.row_lanes.size // 32, self.col_lanes.size // 32
 
     @property
     def slots(self) -> tuple:
-        """The wide build's slots: (rows, columns)."""
+        """The wide (and large) build's slots: (rows, columns)."""
         return self.row_pos.size, self.col_pos.size
 
     def packed_shape(self, B: int) -> tuple:
         """The shape of `pack`'s values for B instances: the row-ELL's (B,
-        m, row_width), or the wide build's (B, row slots + column
-        slots)."""
+        m, row_width), or the wide and large builds' (B, row slots +
+        column slots)."""
         return ((B, self.m, self.row_width) if self.build == "narrow"
                 else (B, sum(self.slots)))
 
@@ -353,12 +506,15 @@ def layout_pattern(layout) -> EllPattern:
     return EllPattern(layout._row_cat, layout._col_cat, layout.m, layout.n)
 
 
-def pattern_from(A) -> EllPattern:
+def pattern_from(A, mode: str = "highest", m_eq: int = 0,
+                 dense_P: bool = False) -> EllPattern:
     """The union pattern of a batch A (B, m, n): every position nonzero (or
-    NaN) in some instance.  One host read (the positions)."""
+    NaN) in some instance, in the build of `mode` and `dense_P`
+    (`EllPattern.for_mode`).  One host read (the positions)."""
     _, m, n = A.shape
     nz = (A != 0).any(dim=0).nonzero().cpu().numpy()
-    return EllPattern(nz[:, 0], nz[:, 1], m, n)
+    return EllPattern(nz[:, 0], nz[:, 1], m, n).for_mode(mode, m_eq,
+                                                         dense_P)
 
 
 def pack(A, pattern: EllPattern):
@@ -433,15 +589,58 @@ def plan_smem_wide(n: int, m: int, slots: tuple, lane_warps: tuple,
     return need
 
 
+def smem_bytes_large(n: int, m: int, slots: tuple, lane_warps: tuple,
+                     mode: str = "highest") -> int:
+    """Shared memory of one block of the large build (`smem_bytes_large`
+    in csrc/admm_large.cu): K^-1 at row stride `kld(n)`, the vectors (a
+    column's two parts of A'v, no A x: the checks reduce it where it is
+    made), the warps' maxima, A's values in both slot orders, in every
+    mode but "highest" five vectors' words (x's too, made where x is),
+    and the pattern block."""
+    sr, sc = slots
+    even = lambda v: v + v % 2
+    plan = 64 * sum(lane_warps) + (even(sr) + even(sc)) // 2
+    words = (n * kld(n) + 9 * n + 7 * m + 8 + 8 * LARGE_WARPS + 4 + sr + sc
+             + (0 if mode == "highest" else 3 * n + 2 * m) + 2 + plan)
+    return 4 * words
+
+
+def plan_smem_large(n: int, m: int, slots: tuple, lane_warps: tuple,
+                    mode: str = "highest", dense_P: bool = False) -> int:
+    """`smem_bytes_large`, or ValueError for a dense P (the large build
+    takes a diagonal one) or a shape that does not fit one block."""
+    if dense_P:
+        raise ValueError("the dense ADMM kernel's large build takes a "
+                         "diagonal P; a dense P takes the wide build")
+    need = smem_bytes_large(n, m, slots, lane_warps, mode)
+    if need > SMEM_MAX:
+        raise ValueError(
+            f"the dense ADMM kernel's large build holds K^-1 and A's "
+            f"nonzeros in one block's shared memory: n={n}, m={m}, "
+            f"{sum(slots)} slots need {need} B of the {SMEM_MAX} B a block "
+            f"may use")
+    return need
+
+
 def block_smem(pattern: EllPattern, dense_P: bool = False,
                mode: str = "highest") -> int:
-    """Shared memory of one block of the pattern's build (`plan_smem` or
-    `plan_smem_wide`; ValueError where it does not fit)."""
+    """Shared memory of one block of the pattern's build (`plan_smem`,
+    `plan_smem_wide` or `plan_smem_large`; ValueError where it does not
+    fit)."""
     if pattern.build == "narrow":
         return plan_smem(pattern.n, pattern.m, pattern.row_width,
                          pattern.col_width, dense_P, mode)
+    if pattern.build == "large":
+        return plan_smem_large(pattern.n, pattern.m, pattern.slots,
+                               pattern.lane_warps, mode, dense_P)
     return plan_smem_wide(pattern.n, pattern.m, pattern.slots,
                           pattern.lane_warps, mode)
+
+
+# each build's kernel (`_kernels.KERNELS`) and source
+BUILD_KERNELS = {"narrow": ("admm_dense", "admm_dense.cu"),
+                 "wide": ("admm_wide", "admm_wide.cu"),
+                 "large": ("admm_large", "admm_large.cu")}
 
 
 def max_active_clusters(pattern: EllPattern, tile: int,
@@ -453,8 +652,9 @@ def max_active_clusters(pattern: EllPattern, tile: int,
             "admm_dense.cu", "admm_dense_max_clusters", pattern.n,
             pattern.m, pattern.row_width, pattern.col_width, int(tile),
             int(dense_P), MODES.index(mode))
+    kernel, source = BUILD_KERNELS[pattern.build]
     return _kernels.occupancy(
-        "admm_wide.cu", "admm_wide_max_clusters", pattern.n, pattern.m,
+        source, f"{kernel}_max_clusters", pattern.n, pattern.m,
         *pattern.slots, *pattern.lane_warps, int(tile), int(dense_P),
         MODES.index(mode))
 
@@ -463,8 +663,8 @@ def registers(mode: str = "highest", dense_P: bool = False,
               build: str = "narrow") -> int:
     """Registers a thread of the kernel's `build` for `mode` and `dense_P`
     (cudaFuncGetAttributes)."""
-    source = {"narrow": "admm_dense", "wide": "admm_wide"}[build]
-    return _kernels.occupancy(f"{source}.cu", f"{source}_registers",
+    kernel, source = BUILD_KERNELS[build]
+    return _kernels.occupancy(source, f"{kernel}_registers",
                               MODES.index(mode), int(dense_P))
 
 
@@ -647,10 +847,13 @@ def admm_iterations(Kinv, A, q, l, u, rho, x0, z0, y0, n_iters: int,
     cluster; the kernel splits K^-1 and A into their bf16 forms where it
     loads them, so `A_packed` is the same in every mode.
     `pattern`: A's nonzero pattern (an `EllPattern` covering every nonzero
-    of every instance; the pipeline passes its layout's); without one the
-    union pattern of the batch is derived from A, with one host read.
-    The pattern's build (`plan_build` of its widths) is the kernel's:
-    `csrc/admm_dense.cu` or `csrc/admm_wide.cu`.
+    of every instance; the pipeline passes its layout's in the build of
+    its mode); without one the union pattern of the batch is derived from
+    A, with one host read, in the build `plan_build` gives its widths and
+    the mode.  The pattern's build is the kernel's: the narrow one
+    (`csrc/admm_dense.cu`), the wide one (`csrc/admm_wide.cu`) or the
+    large one (`csrc/admm_large.cu`), which takes a diagonal P and in a
+    mixed mode its rows split at `m_eq` (ValueError otherwise).
     `A_packed`: `pack(A, pattern)` when the caller has it already (the
     pipeline packs once per solve); else the wrapper packs, one gather.
     Both are used only on the card: the CPU runs the dense plain
@@ -685,10 +888,15 @@ def admm_iterations(Kinv, A, q, l, u, rho, x0, z0, y0, n_iters: int,
         raise ValueError(f"the CUDA kernel takes 1 <= tile <= {TILE_MAX} "
                          f"(a cluster of `tile` blocks); got tile={tile}")
     if pattern is None:
-        pattern = pattern_from(A)
+        pattern = pattern_from(A, mode, m_eq, dense_P)
     if (pattern.m, pattern.n) != (m, n):
         raise ValueError(f"the pattern is of a {pattern.m} x {pattern.n} "
                          f"matrix, A of {m} x {n}")
+    if (pattern.build == "large" and mode in MIXED_MODES
+            and pattern.m_split != m_eq):
+        raise ValueError(f"the large build's pattern splits its rows at "
+                         f"{pattern.m_split}, the mode's equality rows end "
+                         f"at {m_eq}")
     block_smem(pattern, dense_P, mode)
     if A_packed is None:
         A_packed = pack(A, pattern)
@@ -704,8 +912,8 @@ def admm_iterations(Kinv, A, q, l, u, rho, x0, z0, y0, n_iters: int,
                  int(check), float(eps_abs), float(eps_rel))
     tag = mode + ("_dense_P" if dense_P else "")
     vectors = (q, l, u, rho, x, z, y, E, PuD, qu, invDc, stats)
-    if pattern.build == "wide":
-        _kernels.KERNELS["admm_wide"].launch(
+    if pattern.build in ("wide", "large"):
+        _kernels.KERNELS[BUILD_KERNELS[pattern.build][0]].launch(
             Kinv, A_packed, pat["plan"], *vectors, B, n, m,
             *pattern.slots, *pattern.lane_warps, *tail, *mode_args,
             tag=tag)
