@@ -5,8 +5,9 @@
 Phases (any failure raises, so the script exits non-zero):
 
 1. the card's name and power limit (nvidia-smi), torch and CUDA versions;
-2. build the nine CUDA kernels from `pigeon_tpu_torch/csrc/` (one nvcc
-   per source, in parallel) and print the build time and register use;
+2. build the nine CUDA kernels (B8 in four builds, the pair build in the
+   large build's source) from `pigeon_tpu_torch/csrc/` (one nvcc per
+   source, in parallel) and print the build time and register use;
 3. kernel checks: capture each kernel's inputs at the shapes its path
    gives it (float32) -- one cold step of the coupled and the decoupled
    fleet at B=8192 and of the sparse fleet at B=2048, one `mpc_step` of
@@ -58,7 +59,13 @@ Phases (any failure raises, so the script exits non-zero):
    float64 plain versions (on the fixed iterations before the float32
    plain version leaves float64's tenth of a scale or goes non-finite,
    where it does; the statistics against the kernel's own iterates'),
-   with each build's time, bound, registers and shared memory;
+   with each build's time, bound, registers and shared memory.  The
+   large build's pair form (`admm_pair`: an instance on two blocks, each
+   holding half of K^-1's columns) is held the same way on the sparse
+   decoupled fleet's cold and warm segments (B=2048, n=245, m=395), a
+   ragged batch, horizon (4, 8) and at tile 1; the Ruiz kernel on that
+   fleet's A, and the dense exponential on its two stacks a step
+   (20,480 matrices of 11 x 11, 40,960 of 17 x 17);
 4. path "fleet": the coupled soft MPC for a fleet of 8192 vehicles on an
    oval (x1_coupled_config(soft=True), N_short=5, N_long=10, the lane
    solver with bench.py's options), one cold step and 10 warm closed-loop
@@ -68,7 +75,7 @@ Phases (any failure raises, so the script exits non-zero):
    on the last step at least 0.99; then torch.profiler over one more warm
    step (device busy time, idle share, largest kernels);
 5. path "fleet_decoupled": the same for x1_decoupled_config(soft=True)
-   (N_short=10, N_long=20, QPs of n=30, m=180), 20 warm steps; its steps
+   (N_short=10, N_long=20, QPs of n=30, m=180), 10 warm steps; its steps
    launch vanloan, rollout, chol_inverse and admm_iterations;
 6. path "fleet_sparse": the sparse coupled MPC (x1_coupled_config() as
    it comes, N_short=5, N_long=10, QPs of n=193, m=290) for 2048 vehicles
@@ -90,14 +97,26 @@ Phases (any failure raises, so the script exits non-zero):
    ADMM kernel's large build) once per segment, every launch its mixedk6
    instantiation (`_kernels.launches_by`), and no launch of the narrow
    build;
-7. path "simulate": `mpc.simulate` for one vehicle on the card, 30
+   path "fleet_decoupled_sparse": the sparse decoupled MPC
+   (x1_decoupled_config() as it comes, N_short=10, N_long=20, QPs of
+   n=245, m=395) for 2048 vehicles on the sparse fleet's solver options
+   (no banded plan: the dense Cholesky), one cold and 10 warm steps, each
+   launching expm_dense twice, ruiz once and admm_pair (the pair build)
+   once per segment; its converged share on one more step held against
+   the same step with B8's plain version on the card
+   (`convergence_witness`; its float32 solve leaves about a fifth of the
+   fleet unconverged at this budget, in the JAX package too);
+7. path "simulate": `mpc.simulate` for one vehicle on the card, 20
    closed-loop steps per soft formulation -- the unbatched route, dense
    linearization and `solve_qp` -- which launches expm_dense once per
-   step and no other kernel; then torch.profiler over 2 more steps; and
+   step and no other kernel; then torch.profiler over 1 more step; and
    path "simulate_condensed": 10 steps of the hard condensed QP on
    backend "pallas", whose `solve_qp` runs each solver segment on the
    dense ADMM kernel's wide build at tile 1 (expm_dense once per step,
-   admm_wide once per segment), profiled over 2 more;
+   admm_wide once per segment), profiled over 1 more; and 30 steps of
+   the sparse decoupled QP (x1_decoupled_config() as it comes, the
+   runtime's path controller: expm_dense twice a step, plain `solve_qp`),
+   profiled over 1 more;
 8. path "montecarlo": `montecarlo.run_dynamic_obstacle`, the HJI safety
    filter's Monte-Carlo study, at scripts/exp_safety_ab.py's
    hammer_eps1.5 arm (the soft coupled QP with the HJI row and its
@@ -112,16 +131,17 @@ Phases (any failure raises, so the script exits non-zero):
    against their plain versions on the inputs of a step that refactors
    with active HJI rows (`run_montecarlo`);
 9. reference checks: for each formulation (coupled, decoupled, sparse,
-   condensed) a 64-vehicle fleet stepped on the card, each step also run
-   on the CPU (plain versions) from the card's state at float64 and
-   float32, commands compared by each formulation's rule (REF_RULES,
-   `reference_check`; the hard QPs' bars are fleet-wide, their float32
-   solves being rounding-determined, and the condensed one's also
-   covers the float64 path's own exit noise), on three placements for
-   the hard QPs, which also record the card's QPs solved on the CPU; the
-   card's `simulate` commands against the CPU `simulate` at float64 and
-   float32 (`simulate_reference_check`, both unbatched formulations and
-   the condensed one); the coupled, the sparse and the condensed check
+   condensed, decoupled_sparse) a 64-vehicle fleet stepped on the card,
+   each step also run on the CPU (plain versions) from the card's state
+   at float64 and float32, commands compared by each formulation's rule
+   (REF_RULES, `reference_check`; the hard QPs' bars are fleet-wide,
+   their float32 solves being rounding-determined, the condensed one's
+   also covers the float64 path's own exit noise, and the sparse
+   decoupled one's converged counts the float32 path's own), on three
+   placements for the hard QPs, which also record the card's QPs solved
+   on the CPU; the card's `simulate` commands against the CPU `simulate`
+   at float64 and float32 (`simulate_reference_check`, both unbatched
+   soft formulations, the condensed and the sparse decoupled one); the coupled, the sparse and the condensed check
    once more with active HJI rows (the mid grid, the other car 3-15 m
    ahead); the sparse fleet in mode "mixedk6" by the sparse rule, with
    its controls; the precision ladder (`ladder_check`: 50 and 2 bf16
@@ -152,17 +172,19 @@ import numpy as np
 
 B_FLEET = 8192
 B_SPARSE = 2048
-WARM_STEPS = {"coupled": 10, "decoupled": 20, "sparse": 10,
-              "condensed": 10, "sparse_mixedk6": 10}
+WARM_STEPS = {"coupled": 10, "decoupled": 10, "sparse": 10,
+              "condensed": 10, "sparse_mixedk6": 10, "decoupled_sparse": 10}
 B1_STEPS = 20
-SIM_STEPS = 30
+SIM_STEPS = 20
 # the condensed QP's single-vehicle path: as many steps as its reference
-# check compares
+# check compares; the sparse decoupled QP's, the runtime's path
+# controller, 30
 SIM_STEPS_CONDENSED = 10
+SIM_STEPS_DECOUPLED_SPARSE = 30
 SIM_REF_STEPS = 10   # steps of `simulate` also run on the CPU
 # steps of each `simulate` profile (the profiler's own cost a step is most
 # of these phases' time: 6-10 s a step on the H100's host)
-SIM_PROFILE_STEPS = 2
+SIM_PROFILE_STEPS = 1
 B_REF = 64
 B_RAGGED = 130   # kernel checks on a batch with a ragged last block
 # and on the inputs of a 12-stage horizon (soft QP n = 2 T = 24), which
@@ -209,7 +231,17 @@ EXIT_NOISE = 1e-7
 #   unconverged keeps every vehicle of its batch in the segment loop, at
 #   least a check period more each segment (the mixedk6 sparse fleet:
 #   63 of 64 converged on the card against 64 on the CPU gave means of
-#   163.1 and 93.8 iterations on one step).
+#   163.1 and 93.8 iterations on one step);
+# - conv_slack: how far the fleet-wide converged counts may differ (2
+#   where not given).  The sparse decoupled fleet's float32 solve leaves
+#   a fifth of its vehicles unconverged at the tolerance's edge, where
+#   the exit is rounding-determined: on the H100 over placements 0-2,
+#   three steps each, the card's counts and the CPU float32 path's
+#   differed by 2 to 7 of 64 (commands within 0.31 bars of the float64
+#   path's); its slack is twice the largest, 14.  Its controls are
+#   rejected by the iteration means and the commands, each on every
+#   step, and `convergence_witness` holds the fleet's share at B = 2048
+#   to its plain version's within CONV_WITNESS_SLACK.
 REF_RULES = {
     "coupled": dict(seeds=(0,), fleet_wide=False, exit_draws=0,
                     outside_from_cpu="active"),
@@ -226,6 +258,9 @@ REF_RULES = {
                           outside_from_cpu="always", segments=True),
     "condensed": dict(seeds=(0, 1, 2), fleet_wide=True, exit_draws=3,
                       outside_from_cpu="always"),
+    "decoupled_sparse": dict(seeds=(0, 1, 2), fleet_wide=True, exit_draws=0,
+                             outside_from_cpu="never", segments=True,
+                             conv_slack=14),
 }
 # The fleet-wide rules' controls: wrong solver options, each run on the
 # card from the same state as the step it is compared with, and whether
@@ -254,22 +289,37 @@ PATH_KERNELS = {
     "sparse": {"vanloan", "ruiz", "banded_chol", "admm_dense"},
     "condensed": {"vanloan", "ruiz", "admm_wide"},
     "sparse_mixedk6": {"vanloan", "ruiz", "banded_chol", "admm_large"},
+    "decoupled_sparse": {"expm_dense", "ruiz", "admm_pair"},
     "simulate": {"expm_dense"},
     "simulate_condensed": {"expm_dense", "admm_wide"},
     "montecarlo": {"vanloan", "chol_inverse", "admm_iterations"},
 }
 # The dense ADMM kernel's build each hard path must launch, and no other:
 # the narrow ("admm_dense"), the wide ("admm_wide", the condensed QP's
-# widths) or the large build ("admm_large", the sparse QP's split modes;
-# `pallas_admm.plan_build`), and its mode (`_kernels.launches_by`:
-# "_dense_P" added for the dense-P build)
-B8_KERNELS = ("admm_dense", "admm_wide", "admm_large")
+# widths), the large build ("admm_large", the sparse QP's split modes;
+# `pallas_admm.plan_build`) or its pair build ("admm_pair", the sparse
+# decoupled QP, whose K^-1 no one block holds), and its mode
+# (`_kernels.launches_by`: "_dense_P" added for the dense-P build)
+B8_KERNELS = ("admm_dense", "admm_wide", "admm_large", "admm_pair")
 B8_BUILD_OF = {"admm_dense": "narrow", "admm_wide": "wide",
-               "admm_large": "large"}
+               "admm_large": "large", "admm_pair": "pair"}
 PATH_B8_BUILD = {"sparse": ("admm_dense", "highest"),
                  "condensed": ("admm_wide", "highest_dense_P"),
                  "sparse_mixedk6": ("admm_large", "mixedk6"),
+                 "decoupled_sparse": ("admm_pair", "highest"),
                  "simulate_condensed": ("admm_wide", "highest")}
+# Every step of the sparse decoupled fleet launches the dense exponential
+# twice (the ZOH stages' 11 x 11 stack, then the FOH stages' 17 x 17) and
+# the Ruiz kernel once
+DECOUPLED_SPARSE_STEP_LAUNCHES = {"expm_dense": 2, "ruiz": 1}
+# The sparse decoupled fleet's convergence gate.  At SPARSE_SOLVER's
+# budget its float32 solve leaves 15-30% of the oval fleet unconverged on
+# a step, in either package (its 155 stiff equality rows; at float64
+# every vehicle converges: tests/test_torch_decoupled_sparse_f32.py), so
+# the gate is the plain version's share on the same state
+# (`convergence_witness`, two float32 roundings of one step): the
+# kernel's share may fall short of it by at most this much
+CONV_WITNESS_SLACK = 0.02
 # bench.py's lane-solver iteration budget per formulation
 MAX_ITER = {"coupled": 150, "decoupled": 300}
 # The dense ADMM kernel's other precision modes, held on the "highest"
@@ -305,7 +355,8 @@ LADDER_BULKS = (50, 2)
 LADDER_STEPS = 3
 HARD_SOLVER = {
     "sparse": SPARSE_SOLVER, "condensed": SPARSE_SOLVER,
-    "sparse_mixedk6": dict(SPARSE_SOLVER, pallas_precision="mixedk6")}
+    "sparse_mixedk6": dict(SPARSE_SOLVER, pallas_precision="mixedk6"),
+    "decoupled_sparse": SPARSE_SOLVER}
 # The hard condensed QP's fleet takes SPARSE_SOLVER as it is: its dense P
 # has no banded form, so "banded" falls through to the dense Cholesky, as
 # a user who sets condensed=True gets.  Its single-vehicle route
@@ -318,6 +369,8 @@ PORT_KERNEL_FUNCTIONS = {"vanloan_kernel", "chol_inverse_kernel",
                          "expm_dense_kernel", "ruiz_kernel",
                          "banded_chol_kernel", "admm_dense_kernel",
                          "admm_wide_kernel", "admm_large_kernel"}
+# the pair build's instantiations of admm_large_kernel (<MODE, true>)
+PAIR_KERNEL = re.compile(r"admm_large_kernel<\d+, true>")
 # The dense exponential's run-time build is swept over these d against
 # its plain version (the path's d, 19 and 17, take exact builds)
 EXPM_SWEEP_D = (1, 2, 7, 16, 18, 20, 32)
@@ -390,12 +443,16 @@ def fleet_config(formulation: str, hz=None):
     with bench.py's options, or ("sparse") x1_coupled_config() as it comes
     on the pallas solver with SPARSE_SOLVER, or ("condensed")
     x1_coupled_config(condensed=True) with the same options, or
-    ("sparse_mixedk6") the sparse QP in mode "mixedk6"; `hz` =
-    (N_short, N_long) overrides the horizon."""
+    ("sparse_mixedk6") the sparse QP in mode "mixedk6", or
+    ("decoupled_sparse") x1_decoupled_config() as it comes with
+    SPARSE_SOLVER; `hz` = (N_short, N_long) overrides the horizon."""
     from pigeon_tpu_torch import mpc
     from pigeon_tpu_torch.config import SolverOptions
 
-    if formulation in HARD_SOLVER:
+    if formulation == "decoupled_sparse":
+        cfg = mpc.x1_decoupled_config(
+            solver=SolverOptions(**HARD_SOLVER[formulation]))
+    elif formulation in HARD_SOLVER:
         cfg = mpc.x1_coupled_config(
             condensed=formulation == "condensed",
             solver=SolverOptions(**HARD_SOLVER[formulation]))
@@ -483,7 +540,8 @@ def closed_loop_step(torch, st):
 
 def capture_kernel_inputs(step, last=False):
     """Record the first call (`last`: the last call) of each kernel
-    wrapper during `step()`."""
+    wrapper during `step()`, and the last call of `expm_dense` also as
+    "expm_dense_last"."""
     from pigeon_tpu_torch import discretize as dz
     from pigeon_tpu_torch.qp import decoupled as qd
     from pigeon_tpu_torch.solver import banded as bd
@@ -507,6 +565,9 @@ def capture_kernel_inputs(step, last=False):
         def inner(*args, **kw):
             if last or name not in seen:
                 seen[name] = (args, kw)
+            if name == "expm_dense":
+                # the sparse decoupled step's second stack (FOH)
+                seen["expm_dense_last"] = (args, kw)
             return fn(*args, **kw)
         return inner
 
@@ -960,9 +1021,12 @@ def check_expm_dense(torch, args, kw, extra):
     """`args`: the coupled `mpc_step`'s call (15 matrices of 19 x 19), the
     entry of the kernels line.  `extra`: the decoupled `mpc_step`'s call
     and the coupled fleet's structured-exponential inputs, from which the
-    stack of all its 122,880 dense stage matrices is built.  Every call
-    also runs the run-time build, which must give the exact build's
-    bits; the run-time build is also swept over d against plain."""
+    stack of all its 122,880 dense stage matrices is built; and
+    ("decoupled_sparse") the sparse decoupled fleet's two calls of a step,
+    its ZOH stages' stack of 11 x 11 matrices and its FOH stages' of 17 x
+    17 (the run-time build and the exact build 17).  Every call also runs
+    the run-time build, which must give the exact build's bits; the
+    run-time build is also swept over d against plain."""
     from pigeon_tpu_torch import discretize as dz
 
     M, sq, order = args
@@ -971,6 +1035,13 @@ def check_expm_dense(torch, args, kw, extra):
     r["decoupled_step"] = expm_case(torch, Md, sq_d, order_d, (50, 20))
     stack = dense_stage_matrices(torch, *extra["fleet_vanloan"][:4])
     r["fleet_stack"] = expm_case(torch, stack, sq, order, (10, 3))
+    for name, (a, kw) in zip(("zoh", "foh"), extra["decoupled_sparse"]):
+        # linearize_affine_zoh / _foh call expm_dense(M) at its defaults
+        ms = (a[0], kw.get("squarings", 8), kw.get("order", 8))
+        r[f"decoupled_sparse_{name}"] = expm_case(torch, *ms, (10, 3))
+    require([r[f"decoupled_sparse_{k}"]["shapes"][0][1:]
+             for k in ("zoh", "foh")] == [[11, 11], [17, 17]],
+            "expm_dense: the sparse decoupled fleet's stacks")
     require(r["build"] == 19 and r["decoupled_step"]["build"] == 17,
             "expm_dense: the path shapes take the exact builds")
     # a ragged count, and other orders and squarings (run-time arguments)
@@ -1403,8 +1474,9 @@ def a_bytes(pattern, B: int) -> int:
 
 
 def residency(torch, pattern, B, tile, dense_P, mode="highest") -> dict:
-    """A build's shared bytes a block, registers, resident clusters and
-    waves for B instances."""
+    """A build's shared bytes a block, registers, resident clusters (of a
+    tile: `tile` blocks, 2 `tile` in the pair build) and waves for B
+    instances."""
     from pigeon_tpu_torch.solver import pallas_admm as pa
 
     clusters = pa.max_active_clusters(pattern, tile, dense_P, mode)
@@ -1418,16 +1490,18 @@ def residency(torch, pattern, B, tile, dense_P, mode="highest") -> dict:
 def pipe_floor_ms(torch, pattern, res, tile, iterations) -> float:
     """A dense ADMM segment's shared-memory pipe floor: every iteration of
     every block reads its K^-1 once (n rows at the build's row stride: n
-    in the narrow build, `kld(n)` in the others) through its SM's pipe at
-    SMEM_BYTES_PER_CLOCK, the SM's resident blocks one after another and
-    the waves (`residency`) one after another, at the highest SM clock;
-    `iterations` the segment's mean executed count."""
+    in the narrow build, `kld(n)` in the wide and large ones, a half's
+    columns at `pair_ld(n)` in each block of a pair) through its SM's pipe
+    at SMEM_BYTES_PER_CLOCK, the SM's resident blocks one after another
+    and the waves (`residency`) one after another, at the highest SM
+    clock; `iterations` the segment's mean executed count."""
     from pigeon_tpu_torch.solver import pallas_admm as pa
 
     n = pattern.n
-    ld = n if pattern.build == "narrow" else pa.kld(n)
+    ld = {"narrow": n, "pair": pa.pair_ld(n)}.get(pattern.build, pa.kld(n))
+    pairs = 2 if pattern.build == "pair" else 1
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    per_sm = -(-res["max_active_clusters"] * tile // sms)
+    per_sm = -(-res["max_active_clusters"] * tile * pairs // sms)
     clock_hz = float(nvidia_smi("clocks.max.sm").split()[0]) * 1e6
     return (res["waves"] * per_sm * iterations * 4 * n * ld
             / SMEM_BYTES_PER_CLOCK / clock_hz * 1e3)
@@ -1452,9 +1526,16 @@ def check_admm_dense(torch, args, kw, extra):
 
     On the cold step no tile converges within the segment, so the early
     exit per tile is held on the warm step's segment too, where most
-    tiles stop at a check before the segment's end.  In a split mode the
-    statistics are held against their own iterates' (`stats_of_iterates`,
-    as `held_mode` holds them)."""
+    tiles stop at a check before the segment's end.  In a split mode, and
+    in the pair build, the statistics are held against their own
+    iterates' (`stats_of_iterates`, as `held_mode` holds them): the sparse
+    decoupled QP's 155 stiff equality rows make |Ax - z| a cancellation
+    that follows each run's own rounding of x (on a warm segment's
+    130-instance cut the kernel's came 4.2e-4 of its scale from float64's
+    against the float32 plain version's 8.2e-5, and 1.3e-5 against 2.2e-5
+    on another step).  The pair build is also held bit-equal to the large
+    build on the sparse coupled fleet's calls (`extra["large_calls"]`,
+    `pair_vs_large`), which both builds take."""
     from pigeon_tpu_torch.solver import pallas_admm as pa
 
     ops, (n_iters, sigma, alpha) = args[:9], args[9:12]
@@ -1462,14 +1543,14 @@ def check_admm_dense(torch, args, kw, extra):
     check = kw["check"]
     n, m = ops[0].shape[-1], ops[1].shape[1]
     mode = b8_mode(kw, m)
-    truth_of = ((lambda o, k: None) if mode == "highest" else
-                (lambda o, k: stats_of_iterates(torch, o, k)))
-    truth = truth_of(ops, kw)
     # the pipeline passes its layout's pattern and packed A on the card
     dense_P = kw.get("dense_P", False)
     pattern = kw.get("pattern") or pa.pattern_from(
         ops[1], mode, kw.get("m_eq", 0), dense_P)
     build = pattern.build
+    truth_of = ((lambda o, k: None) if mode == "highest" and build != "pair"
+                else (lambda o, k: stats_of_iterates(torch, o, k)))
+    truth = truth_of(ops, kw)
     kw.setdefault("A_packed", pa.pack(ops[1], pattern))
     k10, p10, e10 = three_ways(torch, ops, kw, 10, 0)
     fixed = held_vs_f64(torch, k10, p10, e10, "(10 fixed)", truth=truth)
@@ -1524,6 +1605,13 @@ def check_admm_dense(torch, args, kw, extra):
     ragged_exits = held_segment(torch, r_ops, r_kw, n_iters, check,
                                 "(warm segment, ragged)", some_early=False,
                                 truth=truth_of(r_ops, r_kw))[2]
+    # the pair build at tile 1, a cluster of one pair: each instance of
+    # the warm segment exits on its own
+    tile1_exits = None
+    if build == "pair":
+        tile1_exits = held_segment(torch, w_ops, dict(w_kw, tile=1),
+                                   n_iters, check, "(warm segment, tile 1)",
+                                   truth=truth_of(w_ops, w_kw))[2]
     s_args, s_kw = extra["small"]
     s_pattern = (s_kw.get("pattern") or pa.pattern_from(
         s_args[1], mode, s_kw.get("m_eq", 0), dense_P))
@@ -1559,7 +1647,7 @@ def check_admm_dense(torch, args, kw, extra):
                union_errs=union_errs,
                cold_exits=cold_exits, warm_exits=warm_exits,
                ragged_errs=ragged, ragged_exits=ragged_exits,
-               small_horizon_errs=small_errs,
+               tile1_exits=tile1_exits, small_horizon_errs=small_errs,
                iters_mean=float(executed.mean()), ms=ms, plain_ms=plain,
                library_ms=None, bound_ms=b_ms, bound_by=b_by,
                warm_ms=warm_ms,
@@ -1578,7 +1666,39 @@ def check_admm_dense(torch, args, kw, extra):
         rec["slots"] = list(pattern.slots)
     if dense_P:
         rec["dense_p_split"] = dense_p_split(torch, ops, kw, n_iters, check)
+    if build == "pair":
+        rec["pair_vs_large"] = {
+            name: pair_vs_large(torch, *call)
+            for name, call in extra["large_calls"].items()}
     return rec
+
+
+def pair_vs_large(torch, args, kw):
+    """A call the large build takes (the sparse coupled fleet's first
+    segment, n = 193) run in the large build and in its pair form on the
+    same operands: the pair's blocks compute each column of xt with the
+    large build's sums, so the outputs must be the same bits."""
+    from pigeon_tpu_torch.solver import pallas_admm as pa
+
+    ops, (n_iters, sigma, alpha) = args[:9], args[9:12]
+    m_split = kw.get("m_eq", 0) if b8_mode(kw, ops[1].shape[1]) in \
+        pa.MIXED_MODES else 0
+    outs, ms = {}, {}
+    for build in ("large", "pair"):
+        pattern = kw["pattern"].as_build(build, m_split)
+        kb = dict(kw, sigma=sigma, alpha=alpha, pattern=pattern,
+                  A_packed=pa.pack(ops[1], pattern))
+        outs[build] = dense_admm(torch, ops, kb, n_iters, kw["check"])
+        ms[build] = cuda_ms(torch, lambda: dense_admm(
+            torch, ops, kb, n_iters, kw["check"]), 3)
+    same = all(torch.equal(a, b) for a, b in zip(outs["large"],
+                                                 outs["pair"]))
+    diffs = [float((a - b).abs().max())
+             for a, b in zip(outs["large"], outs["pair"])]
+    require(same, f"admm_pair differs from admm_large at "
+                  f"{tuple(ops[1].shape)}: {diffs}")
+    return dict(bit_equal=same, ms=ms, mode=b8_mode(kw, ops[1].shape[1]),
+                shapes=[list(ops[1].shape)])
 
 
 def wide_chain_links(pattern) -> int:
@@ -1849,6 +1969,8 @@ KERNEL_META = {
                   "pigeon_tpu/solver/pallas_admm.py:38", check_admm_dense),
     "admm_large": ("pigeon_tpu_torch/csrc/admm_large.cu",
                    "pigeon_tpu/solver/pallas_admm.py:38", check_admm_dense),
+    "admm_pair": ("pigeon_tpu_torch/csrc/admm_large.cu",
+                  "pigeon_tpu/solver/pallas_admm.py:38", check_admm_dense),
 }
 
 
@@ -1883,6 +2005,39 @@ def run_fleet(torch, B: int, steps: int, kernels, formulation="coupled"):
                          iters=float(diag.iterations.float().mean()),
                          launches={k: v for k, v in grew.items() if v}))
     return recs, st
+
+
+def plain_b8(torch, *args, pattern=None, A_packed=None, **kw):
+    """`pallas_admm.admm_iterations` as its plain version computes it, on
+    the tensors' own device (the card's here): the same arguments, the
+    pattern and packed A unused."""
+    n_iters, sigma, alpha = args[9:12]
+    opts = dict(kw, sigma=sigma, alpha=alpha, tile=kw.get("tile", 1))
+    return dense_admm(torch, args[:9], opts, n_iters, kw.get("check", 0),
+                      plain=True)
+
+
+def convergence_witness(torch, st):
+    """One more closed-loop step of a "pallas" fleet from its state `st`
+    (left as it is), on the path (the kernels) and with the dense ADMM
+    kernel's plain version in its place on the card (the same QPs, the
+    same Ruiz and factor): both runs' converged shares."""
+    from pigeon_tpu_torch.solver import pallas_admm as pa
+
+    device = st["q"].device
+    kernel = closed_loop_step(torch, copy_state(torch, st, device,
+                                                torch.float32))[1]
+    original = pa.admm_iterations
+    pa.admm_iterations = lambda *a, **kw: plain_b8(torch, *a, **kw)
+    try:
+        plain = closed_loop_step(torch, copy_state(torch, st, device,
+                                                   torch.float32))[1]
+    finally:
+        pa.admm_iterations = original
+    share = lambda d: float(d.converged.float().mean())
+    return dict(converged_kernel=share(kernel), converged_plain=share(plain),
+                iters_kernel=float(kernel.iterations.float().mean()),
+                iters_plain=float(plain.iterations.float().mean()))
 
 
 def cache_to(cache, device):
@@ -1939,7 +2094,9 @@ def profile_call(torch, fn, steps: int = 1):
     for name, us in by_name.items():
         fn = re.search(r"::(\w+)[<(]", name)
         if fn and fn.group(1) in PORT_KERNEL_FUNCTIONS:
-            port[fn.group(1)] = port.get(fn.group(1), 0.0) + us / 1e3 / steps
+            key = ("admm_pair (admm_large_kernel)" if PAIR_KERNEL.search(name)
+                   else fn.group(1))
+            port[key] = port.get(key, 0.0) + us / 1e3 / steps
     return dict(wall_ms=wall_us / 1e3 / steps,
                 device_busy_ms=busy_us / 1e3 / steps,
                 idle_share=1.0 - busy_us / wall_us,
@@ -1954,15 +2111,16 @@ def profile_step(torch, st):
 
 
 def reference_verdict(torch, fleet_wide, check, card, c32, u64, exit64=(),
-                      outside_from_cpu=False, inner=0):
+                      outside_from_cpu=False, inner=0, conv_slack=2):
     """One step of `reference_check`'s rule: `card` and `c32` are the
     (commands, diagnostics) of the card and of the CPU float32 path, `u64`
     the CPU float64 commands, `exit64` the CPU float64 commands from the
     states moved by EXIT_NOISE.  `fleet_wide` and `outside_from_cpu` as
     in REF_RULES; `inner` (REF_RULES' "segments"): the in-kernel check
     period, by which the fleet-wide iteration bar grows for each segment
-    one run's batch went on with after the other's stopped.  Returns the
-    record and the rules broken."""
+    one run's batch went on with after the other's stopped; `conv_slack`:
+    how far the fleet-wide converged counts may differ (REF_RULES).
+    Returns the record and the rules broken."""
     (ug, dg_), (u32, d32) = card, c32
     bar = torch.tensor([2e-4, 2.0, 2.0], dtype=torch.float64)
     dg = (ug.cpu().double() - u64).abs()
@@ -1997,7 +2155,8 @@ def reference_verdict(torch, fleet_wide, check, card, c32, u64, exit64=(),
         # each run's segments: its slowest vehicle's count in segments
         segs = lambda it: math.ceil(float(it.max()) / check)
         rec["iters_allowed"] = check + inner * abs(segs(it_g) - segs(it_c))
-        same = (abs(int(conv_g.sum()) - int(conv_c.sum())) <= 2
+        rec["conv_allowed"] = conv_slack
+        same = (abs(int(conv_g.sum()) - int(conv_c.sum())) <= conv_slack
                 and abs(float(it_g.mean() - it_c.mean()))
                 <= rec["iters_allowed"])
     else:
@@ -2158,6 +2317,7 @@ def reference_check(torch, formulation="coupled", device="cuda",
             cpu32 = closed_loop_step(torch, c32)
             u64, d64 = closed_loop_step(torch, c64)
             exit64 = [closed_loop_step(torch, st)[0] for st in moved]
+            conv_slack = rule.get("conv_slack", 2)
             u_cq = (None if on_cpu is None
                     else cpu_solve_step(torch, on_cpu)[0].cpu().double())
             flags, ug = {}, card[0]
@@ -2173,7 +2333,7 @@ def reference_check(torch, formulation="coupled", device="cuda",
             inner = solver.pallas_check_inner if rule.get("segments") else 0
             rec, broken = reference_verdict(torch, fleet_wide, check, card,
                                             cpu32, u64, exit64, outside,
-                                            inner)
+                                            inner, conv_slack)
             rec.update(flags)
             if fleet_wide:
                 rec["per_vehicle_rule_broken"] = reference_verdict(
@@ -2191,7 +2351,7 @@ def reference_check(torch, formulation="coupled", device="cuda",
                 same_bits[name] &= bool(torch.equal(u_c, ug))
                 crec, cbroken = reference_verdict(
                     torch, fleet_wide, check, (u_c, d_c), cpu32, u64, exit64,
-                    outside, inner)
+                    outside, inner, conv_slack)
                 rec[f"control_{name}"] = dict(
                     broken=cbroken, err_bars=crec["err_bars"],
                     max_excess=crec["max_excess"],
@@ -2304,7 +2464,8 @@ def ladder_check(torch, kernels, bulk, device="cuda", seed=0,
 
 def simulate_setup(torch, formulation: str, device, dtype):
     """`mpc.simulate`'s arguments for one vehicle near the oval's start,
-    with the formulation's default solver options (the soft ones), or
+    with the formulation's default solver options (the soft ones, and
+    "decoupled_sparse": `x1_decoupled_config()` as it comes), or
     ("condensed") the hard condensed QP on SIM_CONDENSED_SOLVER."""
     from pigeon_tpu_torch import hji, mpc, trajectory
     from pigeon_tpu_torch.config import SolverOptions
@@ -2313,6 +2474,8 @@ def simulate_setup(torch, formulation: str, device, dtype):
     if formulation == "condensed":
         cfg = mpc.x1_coupled_config(
             condensed=True, solver=SolverOptions(**SIM_CONDENSED_SOLVER))
+    elif formulation == "decoupled_sparse":
+        cfg = mpc.x1_decoupled_config()
     else:
         cfg = {"coupled": mpc.x1_coupled_config,
                "decoupled": mpc.x1_decoupled_config}[formulation](soft=True)
@@ -2335,11 +2498,12 @@ def b8_builds(kernel: str, tag: str, count: int) -> dict:
 def run_simulate(torch, kernels, formulation: str, steps: int = SIM_STEPS,
                  profile_steps: int = SIM_PROFILE_STEPS):
     """`steps` closed-loop steps of one vehicle on the card through
-    `mpc.simulate`.  The route must launch expm_dense once per step and no
-    other kernel but, for "condensed", the dense ADMM kernel's wide build
-    once per solver segment (the log's iterations over `check_every`).  Returns the record, the
-    log, and torch.profiler's per-step reading of `profile_steps` more
-    steps from the same start."""
+    `mpc.simulate`.  The route must launch expm_dense once per step (twice
+    for "decoupled_sparse": its ZOH and its FOH stack) and no other kernel
+    but, for "condensed", the dense ADMM kernel's wide build once per
+    solver segment (the log's iterations over `check_every`).  Returns
+    the record, the log, and torch.profiler's per-step reading of
+    `profile_steps` more steps from the same start."""
     from pigeon_tpu_torch import mpc
 
     cfg, tube, cache, q0 = simulate_setup(torch, formulation, "cuda",
@@ -2353,7 +2517,8 @@ def run_simulate(torch, kernels, formulation: str, steps: int = SIM_STEPS,
     wall = time.perf_counter() - t0
     launched = kernels.launches()
     expect = dict.fromkeys(launched, 0)
-    expect["expm_dense"] = steps
+    expect["expm_dense"] = steps * (2 if formulation == "decoupled_sparse"
+                                    else 1)
     builds = {k: kernels.launches_by(k) for k in B8_KERNELS}
     if formulation == "condensed":
         b8, tag = PATH_B8_BUILD["simulate_condensed"]
@@ -2698,6 +2863,22 @@ def main() -> int:
                             "condensed")
     small_cd = timed("condensed_small", capture_fleet, "condensed", B_SMALL,
                      HZ_SMALL)
+    # the sparse decoupled fleet: B8's pair build, and the two exponential
+    # stacks of a step (its first call the ZOH stages', its last the FOH
+    # stages')
+    cap_ds, warm_ds = timed("decoupled_sparse_cold_warm", capture_cold_warm,
+                            "decoupled_sparse")
+    small_ds = timed("decoupled_sparse_small", capture_fleet,
+                     "decoupled_sparse", B_SMALL, HZ_SMALL)
+    require(cap_ds["admm_dense"][0][1].shape == (B_SPARSE, 395, 245)
+            and cap_ds["admm_dense"][1]["pattern"].build == "pair"
+            and cap_ds["admm_dense"][1]["tile"] == 4
+            and not {"vanloan", "banded_chol"} & set(cap_ds)
+            and cap_ds["expm_dense"][0][0].shape == (B_SPARSE * 10, 11, 11)
+            and cap_ds["expm_dense_last"][0][0].shape
+            == (B_SPARSE * 20, 17, 17)
+            and small_ds["admm_dense"][0][1].shape == (B_SMALL, 161, 101),
+            "the sparse decoupled fleet's QP sizes, stacks and B8 build")
     # the unbatched condensed route's calls: the cold step's first
     # segment, the second step's last
     sim_cd = timed("simulate_condensed", lambda: [
@@ -2731,7 +2912,9 @@ def main() -> int:
     extra = {"rollout": None,
              "expm_dense": dict(
                  decoupled=capture_step("decoupled")["expm_dense"],
-                 fleet_vanloan=cap["vanloan"][0]),
+                 fleet_vanloan=cap["vanloan"][0],
+                 decoupled_sparse=(cap_ds["expm_dense"],
+                                   cap_ds["expm_dense_last"])),
              "ruiz": small_sp["ruiz"],
              "admm_dense": dict(small=small_sp["admm_dense"],
                                 warm=warm_sp["admm_dense"]),
@@ -2739,14 +2922,21 @@ def main() -> int:
                                warm=warm_cd["admm_dense"]),
              "admm_large": dict(small=small_mk["admm_dense"],
                                 warm=warm_mk["admm_dense"]),
+             "admm_pair": dict(small=small_ds["admm_dense"],
+                               warm=warm_ds["admm_dense"],
+                               large_calls=dict(
+                                   sparse=cap_sp["admm_dense"],
+                                   sparse_mixedk6=cap_mk["admm_dense"])),
              "banded_chol": dict(small=small_sp["banded_chol"],
                                  factor=cap_sp["factor_inv_banded"])}
     for kname in ("ruiz", "banded_chol", "admm_dense"):
         cap[kname] = cap_sp[kname]
     # the dense ADMM kernel's wide build at the condensed fleet's shapes
     cap["admm_wide"] = cap_cd["admm_dense"]
-    # and its large build at the mixedk6 sparse fleet's
+    # its large build at the mixedk6 sparse fleet's, and its pair build at
+    # the sparse decoupled fleet's
     cap["admm_large"] = cap_mk["admm_dense"]
+    cap["admm_pair"] = cap_ds["admm_dense"]
     require(cap["expm_dense"][0][0].shape == (1, 15, 19, 19)
             and extra["expm_dense"]["decoupled"][0][0].shape
             == (1, 30, 17, 17), "the unbatched route's dense stacks")
@@ -2780,6 +2970,11 @@ def main() -> int:
     second["ruiz_condensed"] = check_ruiz(torch, *cap_cd["ruiz"],
                                           small_cd["ruiz"])
     log_check("ruiz", second["ruiz_condensed"], path="fleet_condensed")
+    # and at the sparse decoupled fleet's, A (2048, 395, 245)
+    second["ruiz_decoupled_sparse"] = check_ruiz(torch, *cap_ds["ruiz"],
+                                                 small_ds["ruiz"])
+    log_check("ruiz", second["ruiz_decoupled_sparse"],
+              path="fleet_decoupled_sparse")
     # the wide build at tile 1, B = 1, as the unbatched condensed route
     # launches it
     second["admm_wide_simulate_condensed"] = check_admm_dense_tile1(
@@ -2798,6 +2993,7 @@ def main() -> int:
                       m_eq["condensed"])})
     del cap, cap_dec, small, extra, cap_sp, small_sp, warm_sp
     del cap_cd, small_cd, warm_cd, sim_cd, cap_mk, small_mk, warm_mk
+    del cap_ds, warm_ds, small_ds
 
     # ---- path: the coupled fleet ------------------------------------------
     launches, builds = {}, {}
@@ -2810,13 +3006,24 @@ def main() -> int:
         builds[phase] = {k: kernels.launches_by(k) for k in B8_KERNELS}
         warm_ms = [r["ms"] for r in recs[1:]]
         last = recs[-1]
+        witness = None
+        if formulation == "decoupled_sparse":
+            witness = convergence_witness(torch, st)
         log(phase=phase, batch=B, cold_ms=recs[0]["ms"],
             warm_ms_median=float(np.median(warm_ms)),
             solves_per_s=B / (float(np.median(warm_ms)) / 1e3),
             iters_mean_last=last["iters"], converged_last=last["conv"],
             launches=launches[phase], b8_builds=builds[phase],
-            steps=recs)
-        require(last["conv"] >= 0.99, f"converged fraction {last['conv']}")
+            convergence_witness=witness, steps=recs)
+        if witness is None:
+            require(last["conv"] >= 0.99,
+                    f"converged fraction {last['conv']}")
+        else:
+            require(witness["converged_kernel"]
+                    >= witness["converged_plain"] - CONV_WITNESS_SLACK
+                    and last["conv"] > 0.0,
+                    f"{phase}: converged {witness}, last step "
+                    f"{last['conv']}")
         if formulation in PATH_B8_BUILD:
             # every launch of the dense ADMM kernel was the path's build
             b8, tag = PATH_B8_BUILD[formulation]
@@ -2826,6 +3033,18 @@ def main() -> int:
         if formulation == "sparse":
             require(all(r["launches"] == SPARSE_STEP_LAUNCHES for r in recs),
                     f"sparse step launches {[r['launches'] for r in recs]}")
+        if formulation == "decoupled_sparse":
+            # the two exponential stacks and Ruiz once, B8's pair build
+            # once per segment of the budget (fewer only on a step where
+            # every vehicle converged)
+            n_seg = SPARSE_SOLVER["max_iter"] // SPARSE_SOLVER["check_every"]
+            require(all({k: r["launches"].get(k) for k in
+                         DECOUPLED_SPARSE_STEP_LAUNCHES}
+                        == DECOUPLED_SPARSE_STEP_LAUNCHES
+                        and 1 <= r["launches"]["admm_pair"] <= n_seg
+                        and (r["launches"]["admm_pair"] == n_seg
+                             or r["conv"] == 1) for r in recs),
+                    f"{phase} step launches {[r['launches'] for r in recs]}")
         if formulation in ("condensed", "sparse_mixedk6"):
             # vanloan and ruiz once, B8 once per segment of the
             # budget: fewer only on a step where every vehicle converged;
@@ -2853,6 +3072,8 @@ def main() -> int:
     fleet_phase("sparse_mixedk6", "fleet_sparse_mixedk6", B_SPARSE)
     # ---- path: the hard condensed coupled fleet ---------------------------
     fleet_phase("condensed", "fleet_condensed", B_SPARSE)
+    # ---- path: the sparse decoupled fleet ---------------------------------
+    fleet_phase("decoupled_sparse", "fleet_decoupled_sparse", B_SPARSE)
 
     # ---- path: the unbatched closed loop ----------------------------------
     sim_logs = {}
@@ -2874,6 +3095,15 @@ def main() -> int:
     log(phase="simulate", **rec)
     log(phase="profile", path="simulate", formulation="condensed", batch=1,
         **prof)
+    # the sparse decoupled QP's unbatched route (the runtime's path
+    # controller): the default solver in plain PyTorch, both exponential
+    # stacks of a step on the dense expm kernel
+    rec, sim_logs["decoupled_sparse"], prof = run_simulate(
+        torch, kernels, "decoupled_sparse", SIM_STEPS_DECOUPLED_SPARSE)
+    launches["simulate_decoupled_sparse"] = rec["launches"]
+    log(phase="simulate", **rec)
+    log(phase="profile", path="simulate", formulation="decoupled_sparse",
+        batch=1, **prof)
 
     # ---- path: the Monte-Carlo safety study ------------------------------
     mc_rec, mc_ctx = run_montecarlo(torch, kernels)
@@ -2896,7 +3126,7 @@ def main() -> int:
 
     # ---- reference checks -------------------------------------------------
     for formulation in ("coupled", "decoupled", "sparse", "condensed",
-                        "sparse_mixedk6"):
+                        "sparse_mixedk6", "decoupled_sparse"):
         log(phase="reference", formulation=formulation, batch=B_REF,
             **reference_check(torch, formulation))
     for bulk in LADDER_BULKS:
@@ -2939,6 +3169,10 @@ def main() -> int:
         others = dict(fleet_decoupled=second.get(k),
                       fleet_sparse=second.get(f"{k}_sparse"),
                       fleet_condensed=second.get(f"{k}_condensed"),
+                      fleet_decoupled_sparse=second.get(
+                          f"{k}_decoupled_sparse"),
+                      decoupled_sparse_zoh=r.get("decoupled_sparse_zoh"),
+                      decoupled_sparse_foh=r.get("decoupled_sparse_foh"),
                       simulate_condensed=second.get(
                           f"{k}_simulate_condensed"),
                       montecarlo=second.get(f"{k}_montecarlo"),

@@ -93,6 +93,9 @@ KERNELS = {
     "admm_large": Kernel(
         "admm_large_f32", "admm_large.cu",
         [_P] * 15 + [_I] * 12 + [_F, _F, _I, _F, _F]),
+    "admm_pair": Kernel(
+        "admm_pair_f32", "admm_large.cu",
+        [_P] * 15 + [_I] * 12 + [_F, _F, _I, _F, _F]),
 }
 
 
@@ -122,8 +125,8 @@ def launches() -> dict:
 def launches_by(name: str) -> dict:
     """The launches of kernel `name` by build (the wrapper's tags: the
     dense ADMM kernel's mode, "_dense_P" added for its dense-P build, in
-    its narrow ("admm_dense"), wide ("admm_wide") and large
-    ("admm_large") build)."""
+    its narrow ("admm_dense"), wide ("admm_wide"), large ("admm_large")
+    and pair ("admm_pair") build)."""
     return dict(KERNELS[name].launches_by)
 
 

@@ -1,16 +1,18 @@
-// The code shared by the dense ADMM kernel's two builds with A compact:
+// The code shared by the dense ADMM kernel's builds with A compact:
 // csrc/admm_wide.cu (the wide build: the condensed QP's long rows and
 // columns, a diagonal or a dense P) and csrc/admm_large.cu (the large
-// build: the sparse QP in the split modes, one block filling an SM).  Both
-// replace the TPU kernel pigeon_tpu/solver/pallas_admm.py:_kernel and
-// store A's static nonzeros once in row and once in column slot order,
-// read by lane plans (the wrapper's `pallas_admm.EllPattern`).  Shared
-// here: the precision modes' arithmetic (Arith, the bf16 pair in one
-// 32-bit word, SplitSums), the NaN handling (clip_keep_nan, nmax), a
-// lane's run and its group's sum, the check blocks with the early exit per
-// tile (run_checks), and the host side of a launch for a build's traits
-// (`prepare`, `launch`, `max_clusters`, `registers`).  Each build is a
-// source of its own, so that the two compile in parallel (one nvcc each).
+// build: the sparse coupled QP in the split modes, one block filling an
+// SM; and its pair build: the sparse decoupled QP, an instance on two
+// blocks).  All replace the TPU kernel
+// pigeon_tpu/solver/pallas_admm.py:_kernel and store A's static nonzeros
+// once in row and once in column slot order, read by lane plans (the
+// wrapper's `pallas_admm.EllPattern`).  Shared here: the precision modes'
+// arithmetic (Arith, the bf16 pair in one 32-bit word, SplitSums), the
+// NaN handling (clip_keep_nan, nmax), a lane's run and its group's sum,
+// the check blocks with the early exit per tile (run_checks), and the host
+// side of a launch for a build's traits (`prepare`, `launch`,
+// `max_clusters`, `registers`).  The two sources compile in parallel (one
+// nvcc each).
 
 #pragma once
 
@@ -203,18 +205,18 @@ __device__ __forceinline__ void lane_run(int run, int& p, int& end) {
   end = p + 32 * (run >> 16);
 }
 
-// The check blocks of a call, shared by both builds: `iter(last)` runs
+// The check blocks of a call, shared by the builds: `iter(last)` runs
 // one iteration (`last`: the last before a check), `stats()` the check
 // (uniform across the block).  Every `check` iterations (0 < check <
-// n_iters) the tile (a cluster of `tile` blocks) stops once all its blocks
-// have converged (blocks past B count as converged); the last check block
-// runs only the remainder, so the executed count is exact.  check == 0
-// (or >= n_iters) runs n_iters and one check.  Returns the executed
-// iterations.
+// n_iters) the tile (a cluster of `blocks` blocks: `tile`, or 2 `tile`
+// in the pair build) stops once all its blocks have converged (blocks past
+// B count as converged); the last check block runs only the remainder, so
+// the executed count is exact.  check == 0 (or >= n_iters) runs n_iters
+// and one check.  Returns the executed iterations.
 template <class Iter, class Stats>
 __device__ __forceinline__ int run_checks(const Args& a, int* flags,
                                           bool active, Iter iter,
-                                          Stats stats) {
+                                          Stats stats, int blocks) {
   if (!(0 < a.check && a.check < a.n_iters)) {
     if (active) {
       for (int t = 0; t < a.n_iters; ++t) iter(t + 1 == a.n_iters);
@@ -233,12 +235,12 @@ __device__ __forceinline__ int run_checks(const Args& a, int* flags,
       for (int t = 0; t < k_len; ++t) iter(t + 1 == k_len);
       conv = stats();
     }
-    if (a.tile > 1) {
+    if (blocks > 1) {
       cg::cluster_group cluster = cg::this_cluster();
       if (threadIdx.x == 0) flags[it & 1] = conv;
       cluster.sync();
       int all = 1;
-      if (lane < a.tile)
+      if (lane < blocks)
         all = *cluster.map_shared_rank(flags + (it & 1), lane);
       done = __all_sync(FULL, all) != 0;
     } else {
@@ -247,26 +249,29 @@ __device__ __forceinline__ int run_checks(const Args& a, int* flags,
     ++it;
   }
   // no block leaves while another may still read its flags
-  if (a.tile > 1) cg::this_cluster().sync();
+  if (blocks > 1) cg::this_cluster().sync();
   return min(it * a.check, a.n_iters);
 }
 
 using KernelFn = void (*)(Args);
 
+// `pairs` blocks an instance (2 in the pair build), so a tile is a cluster
+// of pairs * tile blocks
 cudaLaunchConfig_t launch_config(int B, int tile, size_t shmem,
                                  cudaLaunchAttribute* attr, void* stream,
-                                 int threads) {
+                                 int threads, int pairs) {
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3((unsigned)(((B + tile - 1) / tile) * tile));
+  const int blocks = tile * pairs;          // a cluster
+  cfg.gridDim = dim3((unsigned)(((B + tile - 1) / tile) * blocks));
   cfg.blockDim = dim3(threads);
   cfg.dynamicSmemBytes = shmem;
   cfg.stream = (cudaStream_t)stream;
   attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = (unsigned)tile;
+  attr[0].val.clusterDim.x = (unsigned)blocks;
   attr[0].val.clusterDim.y = 1;
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
-  cfg.numAttrs = tile > 1 ? 1 : 0;
+  cfg.numAttrs = blocks > 1 ? 1 : 0;
   return cfg;
 }
 
@@ -279,10 +284,10 @@ bool valid_mode(int mode, int m_eq, int m) {
 }
 
 // The host side of a build `Build`: Build::BLOCK (threads a block),
-// Build::smem(n, m, sr, sc, rwarps, cwarps, vec) (a block's shared bytes)
-// and Build::kernel(dense_P, mode) (its kernel; nullptr where the build
-// takes no such call).  `prepare` checks the arguments and the block's
-// shared memory and sets its opt-in.
+// Build::PAIRS (blocks an instance), Build::smem(n, m, sr, sc, rwarps,
+// cwarps, vec) (a block's shared bytes) and Build::kernel(dense_P, mode)
+// (its kernel; nullptr where the build takes no such call).  `prepare`
+// checks the arguments and the block's shared memory and sets its opt-in.
 template <class Build>
 cudaError_t prepare(int n, int m, int sr, int sc, int rwarps, int cwarps,
                     int tile, int dense_P, int mode, int m_eq,
@@ -290,7 +295,7 @@ cudaError_t prepare(int n, int m, int sr, int sc, int rwarps, int cwarps,
   if (n < 1 || m < 1 || sr < 0 || sr > SLOTS_MAX || sc < 0
       || sc > SLOTS_MAX || n >= LANE_IDLE
       || m >= LANE_IDLE || rwarps < 1 || cwarps < 1 || tile < 1
-      || tile > TILE_MAX || (dense_P != 0 && dense_P != 1)
+      || tile * Build::PAIRS > TILE_MAX || (dense_P != 0 && dense_P != 1)
       || !valid_mode(mode, m_eq, m) || !Build::kernel(dense_P, mode))
     return cudaErrorInvalidValue;
   *shmem = Build::smem(n, m, sr, sc, rwarps, cwarps, mode != HIGHEST);
@@ -311,13 +316,15 @@ int launch(const Args& a, int mode, void* stream) {
   if (a.B <= 0) return 0;
   cudaLaunchAttribute attr[1];
   const cudaLaunchConfig_t cfg = launch_config(a.B, a.tile, shmem, attr,
-                                               stream, Build::BLOCK);
+                                               stream, Build::BLOCK,
+                                               Build::PAIRS);
   err = cudaLaunchKernelEx(&cfg, Build::kernel(a.dense_P, mode), a);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 
-// How many clusters of `tile` blocks the card holds at once
+// How many clusters of a `tile` (Build::PAIRS tile blocks) the card holds
+// at once
 // (cudaOccupancyMaxActiveClusters), into *out
 template <class Build>
 int max_clusters(int n, int m, int sr, int sc, int rwarps, int cwarps,
@@ -329,7 +336,7 @@ int max_clusters(int n, int m, int sr, int sc, int rwarps, int cwarps,
   if (err != cudaSuccess) return (int)err;
   cudaLaunchAttribute attr[1];
   cudaLaunchConfig_t cfg = launch_config(tile, tile, shmem, attr, nullptr,
-                                         Build::BLOCK);
+                                         Build::BLOCK, Build::PAIRS);
   cfg.numAttrs = 1;
   return (int)cudaOccupancyMaxActiveClusters(
       out, Build::kernel(dense_P, mode), &cfg);

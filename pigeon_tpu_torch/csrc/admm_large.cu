@@ -63,6 +63,24 @@
 //               there; made by the iteration before and reduced over all
 //               warps here (LSmem's vnx and wmax against Smem's ax).
 //
+// The pair build (kernel "admm_pair"): an instance whose K^-1 does not fit
+// one large block (the sparse decoupled QP: n = 245, m = 395, K^-1 258,720
+// B at row stride kld(n)) runs on a pair of blocks, one an SM, in a cluster
+// of 2 `tile` blocks (the tile's pairs).  K^-1 is symmetric, so block r of
+// the pair holds the columns of its half of x (`KGeom`: a whole number of
+// the product's 16-column tasks, block 0 half of them rounded up) over all
+// n rows, at the row stride `pair_ld(n)` (8 mod 32, as kld).  Each block
+// runs the whole iteration redundantly (A'w, the right-hand side, A x, the
+// z and y updates, the checks), which makes the two blocks' vectors the
+// same bits, and only its half of xt = rhs' K^-1; it stores that half in
+// its own and its partner's exchange buffer (`xh`, distributed shared
+// memory, double-buffered by the iteration's parity), and after a cluster
+// barrier both relax all of x from the full xt.  So a check's statistics
+// are the same in both blocks, and block 0 writes the outputs.  Blocks past
+// B keep to the cluster barriers.  A column's sum is the large build's
+// (the same row parts and order), so the pair gives the bits the large
+// build would give if its block held the whole K^-1.
+//
 // Bound on the card (H100 SXM): the larger of the call's bytes (K^-1 and
 // A's static nonzeros read once) and its operations (a split term's three
 // FMAs): 0.136 ms, by operations, for the sparse fleet's 2048-instance
@@ -110,16 +128,51 @@ __host__ __device__ inline int lk_tasks(int n) {
   return (n + LK_TASK - 1) / LK_TASK;
 }
 
+// The pair build's K^-1 columns: block 0 the first pair_cols0(n), a whole
+// number of LK_TASK-column tasks (half of them rounded up), block 1 the
+// rest, each at the row stride pair_ld(n), pair_cols0(n) rounded up to 8
+// mod 32
+__host__ __device__ inline int pair_cols0(int n) {
+  return (lk_tasks(n) + 1) / 2 * LK_TASK;
+}
+
+__host__ __device__ inline int pair_ld(int n) { return kld(pair_cols0(n)); }
+
+// A block's columns of K^-1: from c0, `cols` of them, at row stride ld
+struct KGeom {
+  int c0, cols, ld;
+};
+
+template <bool PAIR>
+__host__ __device__ inline KGeom k_geom(int n, int half) {
+  if constexpr (PAIR) {
+    const int c1 = min(pair_cols0(n), n);    // block 0's columns end
+    return half == 0 ? KGeom{0, c1, pair_ld(n)}
+                     : KGeom{c1, n - c1, pair_ld(n)};
+  } else {
+    return {0, n, kld(n)};
+  }
+}
+
+// K^-1's words in a block's shared memory: all of it at row stride
+// kld(n), or (`pair`) a half's columns at pair_ld(n) and the exchange
+// buffers xh (2 n)
+__host__ __device__ inline size_t k_words(int n, int pair) {
+  return pair ? (size_t)n * pair_ld(n) + 2 * (size_t)n
+              : (size_t)n * kld(n);
+}
+
 // Shared memory of one block, in this order: K^-1 (n kld(n), first, so
-// that its rows are 16-byte aligned); floats v1, x, v2, q, PuD, qu, invDc,
-// ae, as (n each), z, y, w, rho, l, u, E (m each), st (8), the warps'
-// maxima (8 a warp), aqu (4), vr (sr slots), vc (sc slots); with `vec`
-// the words vn1, vn2, vnx (n each), vm1, vm2 (m each); ints flags (2);
-// the pattern block.
+// that its rows are 16-byte aligned; in the pair build its columns and
+// xh, `k_words`); floats v1, x, v2, q, PuD, qu, invDc, ae, as (n each), z,
+// y, w, rho, l, u, E (m each), st (8), the warps' maxima (8 a warp), aqu
+// (4), vr (sr slots), vc (sc slots); with `vec` the words vn1, vn2, vnx (n
+// each), vm1, vm2 (m each); ints flags (2); the pattern block.
 __host__ __device__ inline size_t smem_bytes_large(int n, int m, int sr,
                                                    int sc, int rwarps,
-                                                   int cwarps, int vec) {
-  const size_t words = (size_t)n * kld(n) + 9 * (size_t)n + 7 * (size_t)m
+                                                   int cwarps, int vec,
+                                                   int pair) {
+  const size_t words = k_words(n, pair) + 9 * (size_t)n + 7 * (size_t)m
                        + 8 + 8 * L_WARPS + 4 + (size_t)sr + sc
                        + (vec ? 3 * (size_t)n + 2 * (size_t)m : 0) + 2
                        + plan_words(sr, sc, rwarps, cwarps);
@@ -127,8 +180,9 @@ __host__ __device__ inline size_t smem_bytes_large(int n, int m, int sr,
 }
 
 struct LSmem {
-  // ae, as: a column's equality and split sums of A'v (the mixed modes)
-  float *K, *v1, *x, *v2, *q, *PuD, *qu, *invDc, *ae, *as;
+  // ae, as: a column's equality and split sums of A'v (the mixed modes);
+  // xh: the pair build's exchange buffers of xt (2 n)
+  float *K, *xh, *v1, *x, *v2, *q, *PuD, *qu, *invDc, *ae, *as;
   float *z, *y, *w, *rho, *l, *u, *E, *st, *wmax, *aqu, *vr, *vc;
   // the words of rhs (vn1), xt (vn2), x at a check (vnx), w (vm1) and y
   // at a check (vm2)
@@ -137,11 +191,13 @@ struct LSmem {
   short *rcol, *crow;
 };
 
-__device__ LSmem carve_large(float* sh, const Args& a, bool vec) {
+__device__ LSmem carve_large(float* sh, const Args& a, bool vec,
+                             bool pair) {
   const int n = a.n, m = a.m;
   LSmem s;
   s.K = sh;
-  s.v1 = s.K + n * kld(n);
+  s.xh = s.K + n * pair_ld(n);
+  s.v1 = s.K + k_words(n, pair);
   s.x = s.v1 + n;
   s.v2 = s.x + n;
   s.q = s.v2 + n;
@@ -293,31 +349,33 @@ struct LKLane {
 
 template <int MODE>
 __device__ __forceinline__ void load_kcache(const Args& a, const LSmem& s,
+                                            const KGeom& kg,
                                             KCache<MODE>& kc) {
-  const int n = a.n, ld4 = kld(n) / 4, t = threadIdx.x >> 5;
+  const int n = a.n, ld4 = kg.ld / 4, t = threadIdx.x >> 5;
   const LKLane lk(n);
   const uint4* K4 = reinterpret_cast<const uint4*>(s.K + lk.k0(t));
 #pragma unroll
   for (int i = 0; i < kreg<MODE>(); ++i)
-    kc.w[i] = (t < lk_tasks(n) && lk.j0 + i < lk.j1)
+    kc.w[i] = (t < lk_tasks(kg.cols) && lk.j0 + i < lk.j1)
                   ? K4[(lk.j0 + i) * ld4] : make_uint4(0u, 0u, 0u, 0u);
 }
 
-// xt = rhs' K^-1 in the mode's arithmetic, then out(k, xt[k]): warp t
-// takes columns LK_TASK t onwards, a lane four of them over its part's
-// rows ascending (the first kreg<MODE>() from registers on the warp's
-// first task), the parts added by `parts_sum_large`; the lanes of parts
-// 0..3 put the four columns (columns past n read the row's next words,
-// and are dropped).
+// xt = rhs' K^-1 in the mode's arithmetic for the block's columns `kg`,
+// then out(k, xt[k]): warp t takes columns LK_TASK t onwards, a lane four
+// of them over its part's rows ascending (the first kreg<MODE>() from
+// registers on the warp's first task), the parts added by
+// `parts_sum_large`; the lanes of parts 0..3 put the four columns (columns
+// past the block's read the row's next words, and are dropped).
 template <int MODE, class Out>
 __device__ __forceinline__ void large_k_products(const Args& a,
                                                  const LSmem& s,
+                                                 const KGeom& kg,
                                                  const KCache<MODE>& kc,
                                                  Out out) {
   using M = Arith<MODE>;
-  const int n = a.n, ld4 = kld(n) / 4, warp = threadIdx.x >> 5;
+  const int n = a.n, ld4 = kg.ld / 4, warp = threadIdx.x >> 5;
   const LKLane lk(n);
-  for (int t = warp; t < lk_tasks(n); t += L_WARPS) {
+  for (int t = warp; t < lk_tasks(kg.cols); t += L_WARPS) {
     const int k0 = lk.k0(t);
     const uint4* K4 = reinterpret_cast<const uint4*>(s.K + k0);
     int j = lk.j0;
@@ -372,17 +430,37 @@ __device__ __forceinline__ void large_k_products(const Args& a,
     }
     const int p = lk.part;
     const float xt = p == 0 ? c[0] : p == 1 ? c[1] : p == 2 ? c[2] : c[3];
-    if (p < LK_COLS && k0 + p < n) out(k0 + p, xt);
+    if (p < LK_COLS && k0 + p < kg.cols) out(kg.c0 + k0 + p, xt);
+  }
+}
+
+// x's relaxation from xt[k], and in the modes with vector words those of
+// xt and (`last`) of x
+template <int MODE>
+__device__ __forceinline__ void relax(const Args& a, const LSmem& s, int k,
+                                      float xt, bool last) {
+  const float al = a.alpha, om = 1.0f - a.alpha;
+  s.v2[k] = xt;
+  const float x = al * xt + om * s.x[k];
+  s.x[k] = x;
+  if constexpr (Arith<MODE>::VEC) {
+    s.vn2[k] = vec_word<MODE>(xt);
+    if (last) s.vnx[k] = vec_word<MODE>(x);
   }
 }
 
 // One iteration of the large build; s.w holds w on entry and on exit (and,
 // in every mode but HIGHEST, s.vm1 its words).  `last`: the last iteration
 // before a check, which also makes the words of x and y for its products.
-template <int MODE>
+// PAIR: the block's half of xt goes to its own and its partner's
+// exchange buffer of parity `par` (`xh_peer`, the partner's xh), and after
+// the cluster barrier the block relaxes all of x.
+template <int MODE, bool PAIR>
 __device__ __forceinline__ void iterate_large(const Args& a, const LSmem& s,
+                                              const KGeom& kg,
                                               const KCache<MODE>& kc,
-                                              bool last) {
+                                              bool last, int par,
+                                              float* xh_peer) {
   using M = Arith<MODE>;
   // a column's parts, then its sum, as the TPU kernel's matA adds them
   large_products<MODE, false>(a.cwarps, s.cl, s.cr, s.vc, s.crow, s.w, s.vm1,
@@ -398,15 +476,19 @@ __device__ __forceinline__ void iterate_large(const Args& a, const LSmem& s,
   __syncthreads();
   // xt = rhs' K^-1, and x's relaxation
   const float al = a.alpha, om = 1.0f - a.alpha;
-  large_k_products<MODE>(a, s, kc, [&](int k, float xt) {
-    s.v2[k] = xt;
-    const float x = al * xt + om * s.x[k];
-    s.x[k] = x;
-    if constexpr (M::VEC) {
-      s.vn2[k] = vec_word<MODE>(xt);
-      if (last) s.vnx[k] = vec_word<MODE>(x);
+  large_k_products<MODE>(a, s, kg, kc, [&](int k, float xt) {
+    if constexpr (PAIR) {
+      s.xh[par * a.n + k] = xt;
+      xh_peer[par * a.n + k] = xt;
+    } else {
+      relax<MODE>(a, s, k, xt, last);
     }
   });
+  if constexpr (PAIR) {
+    cg::this_cluster().sync();
+    for (int k = threadIdx.x; k < a.n; k += L_THREADS)
+      relax<MODE>(a, s, k, s.xh[par * a.n + k], last);
+  }
   __syncthreads();
   // zt = A xt, and in the same lane the row's z, y and next w
   large_products<MODE, true>(a.rwarps, s.rl, s.rr, s.vr, s.rcol, s.v2, s.vn2,
@@ -487,14 +569,18 @@ __device__ bool calc_stats_large(const Args& a, const LSmem& s) {
   return __syncthreads_and(conv) != 0;
 }
 
+// Loads the block's instance b: its columns `kg` of K^-1 (all of it but
+// in the pair build), A's values, the pattern block and the vectors.
 template <int MODE>
-__device__ void load_large(const Args& a, const LSmem& s, long long b) {
+__device__ void load_large(const Args& a, const LSmem& s, const KGeom& kg,
+                           long long b) {
   using M = Arith<MODE>;
-  const int n = a.n, m = a.m, ld = kld(n);
-  const float* Kb = a.Kinv + b * n * n;
-  for (int e = threadIdx.x; e < n * n; e += L_THREADS) {
-    const int i = e / n;
-    cp_async4(s.K + i * ld + (e - i * n), Kb + e);
+  const int n = a.n, m = a.m, ld = kg.ld, nc = kg.cols;
+  const float* Kb = a.Kinv + b * n * n + kg.c0;
+  for (int e = threadIdx.x; e < n * nc; e += L_THREADS) {
+    const int i = e / nc;
+    cp_async4(s.K + i * ld + (e - i * nc), Kb + (long long)i * n
+                                              + (e - i * nc));
   }
   const float* Vb = a.Aval + b * (a.sr + a.sc);
   for (int e = threadIdx.x; e < a.sr + a.sc; e += L_THREADS)
@@ -523,8 +609,8 @@ __device__ void load_large(const Args& a, const LSmem& s, long long b) {
   // the mode's forms of K^-1 and A (a slot's class is its lane's; the
   // pads' forms are never read)
   if constexpr (M::K_SPLIT || M::K_ROUND) {
-    for (int e = threadIdx.x; e < n * n; e += L_THREADS) {
-      float* k = s.K + (e / n) * ld + e % n;
+    for (int e = threadIdx.x; e < n * nc; e += L_THREADS) {
+      float* k = s.K + (e / nc) * ld + e % nc;
       *k = M::K_SPLIT ? __uint_as_float(split_word(*k)) : bf16_round(*k);
     }
   }
@@ -566,25 +652,43 @@ __device__ void load_large(const Args& a, const LSmem& s, long long b) {
   __syncthreads();
 }
 
-// MODE: the precision mode (`Mode`); a diagonal P
-template <int MODE>
+// MODE: the precision mode (`Mode`); a diagonal P.  PAIR: the pair build,
+// blocks 2 b and 2 b + 1 (ranks r and r ^ 1 of the cluster) on instance b
+template <int MODE, bool PAIR>
 __global__ void __launch_bounds__(L_THREADS, 1)
 admm_large_kernel(Args a) {
   extern __shared__ float4 sh4[];
   const LSmem s = carve_large(reinterpret_cast<float*>(sh4), a,
-                              Arith<MODE>::VEC);
-  const long long b = blockIdx.x;
-  const bool active = b < a.B;               // uniform across the block
+                              Arith<MODE>::VEC, PAIR);
+  const long long b = PAIR ? blockIdx.x / 2 : blockIdx.x;
+  const int half = PAIR ? blockIdx.x % 2 : 0;
+  const KGeom kg = k_geom<PAIR>(a.n, half);
+  const bool active = b < a.B;               // uniform across the pair
   KCache<MODE> kc;
   if (active) {
-    load_large<MODE>(a, s, b);
-    load_kcache<MODE>(a, s, kc);
+    load_large<MODE>(a, s, kg, b);
+    load_kcache<MODE>(a, s, kg, kc);
   }
+  float* xh_peer = nullptr;
+  if constexpr (PAIR) {
+    // every block of the cluster has started before the first remote store
+    cg::cluster_group cluster = cg::this_cluster();
+    xh_peer = cluster.map_shared_rank(s.xh, (int)(cluster.block_rank() ^ 1));
+    cluster.sync();
+  }
+  int par = 0;
+  // a pair past B keeps to the iterations' cluster barriers
   const int executed = run_checks(
-      a, s.flags, active,
-      [&](bool last) { iterate_large<MODE>(a, s, kc, last); },
-      [&] { return calc_stats_large<MODE>(a, s); });
-  if (!active) return;
+      a, s.flags, PAIR || active,
+      [&](bool last) {
+        if (active) iterate_large<MODE, PAIR>(a, s, kg, kc, last, par,
+                                              xh_peer);
+        else if (PAIR) cg::this_cluster().sync();
+        par ^= 1;
+      },
+      [&] { return !active || calc_stats_large<MODE>(a, s); },
+      PAIR ? 2 * a.tile : a.tile);
+  if (!active || half != 0) return;
   if (threadIdx.x == 0) s.st[6] = (float)executed;
   __syncthreads();
   for (int j = threadIdx.x; j < a.n; j += L_THREADS)
@@ -596,31 +700,35 @@ admm_large_kernel(Args a) {
   if (threadIdx.x < 8) a.stats[b * 8 + threadIdx.x] = s.st[threadIdx.x];
 }
 
-template <int MODE>
+template <int MODE, bool PAIR>
 constexpr KernelFn of_mode() {
-  return &admm_large_kernel<MODE>;
+  return &admm_large_kernel<MODE, PAIR>;
 }
 
-// the build's traits (csrc/admm_compact.cuh's `prepare`): a diagonal P
-// only
-struct Large {
+// the builds' traits (csrc/admm_compact.cuh's `prepare`): a diagonal P
+// only; an instance a block (Large) or a pair of blocks (Pair)
+template <bool PAIR>
+struct LargeBuild {
   static constexpr int BLOCK = L_THREADS;
+  static constexpr int PAIRS = PAIR ? 2 : 1;
   static size_t smem(int n, int m, int sr, int sc, int rwarps, int cwarps,
                      int vec) {
-    return smem_bytes_large(n, m, sr, sc, rwarps, cwarps, vec);
+    return smem_bytes_large(n, m, sr, sc, rwarps, cwarps, vec, PAIR);
   }
   static KernelFn kernel(int dense_P, int mode) {
     if (dense_P) return nullptr;
     switch (mode) {
-      case HIGHEST: return of_mode<HIGHEST>();
-      case MIXED: return of_mode<MIXED>();
-      case MIXEDK6: return of_mode<MIXEDK6>();
-      case HIGH: return of_mode<HIGH>();
-      case BF16: return of_mode<BF16>();
+      case HIGHEST: return of_mode<HIGHEST, PAIR>();
+      case MIXED: return of_mode<MIXED, PAIR>();
+      case MIXEDK6: return of_mode<MIXEDK6, PAIR>();
+      case HIGH: return of_mode<HIGH, PAIR>();
+      case BF16: return of_mode<BF16, PAIR>();
     }
     return nullptr;
   }
 };
+using Large = LargeBuild<false>;
+using Pair = LargeBuild<true>;
 
 }  // namespace
 
@@ -654,4 +762,33 @@ extern "C" int admm_large_max_clusters(int n, int m, int sr, int sc,
 // (cudaFuncGetAttributes), into *out.
 extern "C" int admm_large_registers(int mode, int dense_P, int* out) {
   return registers<Large>(mode, dense_P, out);
+}
+
+// The pair build: the same arguments, an instance on a pair of blocks, a
+// tile of at most TILE_MAX / 2 instances.
+extern "C" int admm_pair_f32(
+    const float* Kinv, const float* Aval, const int* plan, const float* q,
+    const float* l, const float* u, const float* rho, float* x, float* z,
+    float* y, const float* E, const float* PuD, const float* qu,
+    const float* invDc, float* stats, int B, int n, int m, int sr, int sc,
+    int rwarps, int cwarps, int tile, int n_iters, int dense_P, int mode,
+    int m_eq, float sigma, float alpha, int check, float eps_abs,
+    float eps_rel, void* stream) {
+  const Args a{Kinv, Aval, plan, q, l, u, rho, x, z, y, E, PuD, qu, invDc,
+               stats, B, n, m, sr, sc, rwarps, cwarps, tile, n_iters, check,
+               dense_P, m_eq, sigma, alpha, eps_abs, eps_rel};
+  return launch<Pair>(a, mode, stream);
+}
+
+// How many clusters of a `tile` (2 tile blocks) of the pair build the card
+// holds at once, into *out.
+extern "C" int admm_pair_max_clusters(int n, int m, int sr, int sc,
+                                      int rwarps, int cwarps, int tile,
+                                      int dense_P, int mode, int* out) {
+  return max_clusters<Pair>(n, m, sr, sc, rwarps, cwarps, tile, dense_P,
+                            mode, out);
+}
+
+extern "C" int admm_pair_registers(int mode, int dense_P, int* out) {
+  return registers<Pair>(mode, dense_P, out);
 }

@@ -521,7 +521,7 @@ admm_wide_kernel(Args a) {
   if (active) load<DENSE_P, MODE>(a, s, b);
   const int executed = run_checks(
       a, s.flags, active, [&](bool) { iterate<MODE>(a, s); },
-      [&] { return calc_stats<DENSE_P, MODE>(a, s, b); });
+      [&] { return calc_stats<DENSE_P, MODE>(a, s, b); }, a.tile);
   if (!active) return;
   if (threadIdx.x == 0) s.st[6] = (float)executed;
   __syncthreads();
@@ -548,6 +548,7 @@ KernelFn of_mode(int mode) {
 // the build's traits (csrc/admm_compact.cuh's `prepare`)
 struct Wide {
   static constexpr int BLOCK = THREADS;
+  static constexpr int PAIRS = 1;
   static size_t smem(int n, int m, int sr, int sc, int rwarps, int cwarps,
                      int vec) {
     return smem_bytes(n, m, sr, sc, rwarps, cwarps, vec);

@@ -4,7 +4,10 @@
 the fused ZOH/FOH horizon linearization.  Its Van Loan exponential takes
 one of two routes, as in the JAX package: the structured form
 (`csrc/vanloan.cu`) for a fleet, the dense stage matrix through
-`expm_dense` for the unbatched controller.
+`expm_dense` for the unbatched controller.  The sparse decoupled QP
+linearizes each stage on its own (`linearize_affine_zoh`, `_foh`), on
+`expm_dense` for a fleet and for one vehicle alike, as the JAX package's
+`vmap` of them does.
 
 Dynamics callables have signature f(q, ur) -> qdot with the trailing `ur`
 the stacked [u2; p4] input and broadcast over leading dimensions; `n_keep`
@@ -58,7 +61,8 @@ def expm_fixed(M, squarings: int = 8, order: int = 8):
 
 # The dense kernel: a block a matrix, a thread an entry, so d <= 32; exact
 # builds for the stage matrices of the two formulations (n + 2 m + 1 = 19
-# coupled, 17 decoupled), the run-time build 0 for every other d.
+# coupled, 17 decoupled), the run-time build 0 for every other d (the
+# sparse decoupled QP's 11 x 11 ZOH stages among them).
 EXPM_D_MAX = 32
 EXPM_BUILDS = (19, 17)
 
@@ -271,6 +275,62 @@ def batched_jacobians(f, q, u):
     return Jq, Ju
 
 
+def continuous_affine(f, q, ur):
+    """Continuous linearization qdot ~= Jq q + Ju ur + ct at each row of
+    q (K, n), ur (K, m): Jq (K, n, n), Ju (K, n, m), ct (K, n)
+    (`pigeon_tpu.discretize._continuous_affine`, batched)."""
+    Jq, Ju = batched_jacobians(f, q, ur)
+    ct = (f(q, ur) - torch.einsum("kij,kj->ki", Jq, q)
+          - torch.einsum("kij,kj->ki", Ju, ur))
+    return Jq, Ju, ct
+
+
+def linearize_affine_zoh(f, q, ur, dt, n_keep: int):
+    """Continuous-linearize, then discretize exactly with the input held
+    over the step (the decoupled QP's short stages): q (K, n), ur (K, m),
+    dt (K,) -> A (K, n, n), B (K, n, n_keep), c (K, n), the input's other
+    columns folded into c.  One `expm_dense` of the (n + m + 1)^2
+    augmented matrices, at the JAX package's 8 squarings and order 8."""
+    n, m = q.shape[-1], ur.shape[-1]
+    Jq, Ju, ct = continuous_affine(f, q, ur)
+    M = torch.zeros((q.shape[0], n + m + 1, n + m + 1), dtype=q.dtype,
+                    device=q.device)
+    M[:, :n, :n] = Jq
+    M[:, :n, n:n + m] = Ju
+    M[:, :n, -1] = ct
+    E = expm_dense((M * dt[:, None, None]).contiguous())
+    B_full = E[:, :n, n:n + m]
+    c = E[:, :n, -1] + torch.einsum("kij,kj->ki", B_full[..., n_keep:],
+                                    ur[:, n_keep:])
+    return E[:, :n, :n], B_full[..., :n_keep], c
+
+
+def linearize_affine_foh(f, q, ur0, urf, dt, n_keep: int):
+    """Continuous-linearize at (q, ur0), then discretize exactly with the
+    input ramping from ur0 to urf over the step (the decoupled QP's long
+    stages): the augmented state [q; u; v; 1] with udot = v, vdot = 0,
+    whose (n + 2 m + 1)^2 exponential gives A = Phi_qq, Bf = Phi_qv / dt,
+    B0 = Phi_qu - Bf, c = Phi_q1 plus the other input columns.  Returns A
+    (K, n, n), B0, Bf (K, n, n_keep), c (K, n)."""
+    n, m = q.shape[-1], ur0.shape[-1]
+    Jq, Ju, ct = continuous_affine(f, q, ur0)
+    dim = n + 2 * m + 1
+    M = torch.zeros((q.shape[0], dim, dim), dtype=q.dtype, device=q.device)
+    M[:, :n, :n] = Jq
+    M[:, :n, n:n + m] = Ju
+    M[:, :n, -1] = ct
+    M[:, n:n + m, n + m:n + 2 * m] = torch.eye(m, dtype=q.dtype,
+                                               device=q.device)
+    E = expm_dense((M * dt[:, None, None]).contiguous())
+    Phi_qv = E[:, :n, n + m:n + 2 * m]
+    Bf_full = Phi_qv / dt[:, None, None]
+    B0_full = E[:, :n, n:n + m] - Bf_full
+    c = (E[:, :n, -1]
+         + torch.einsum("kij,kj->ki", B0_full[..., n_keep:], ur0[:, n_keep:])
+         + torch.einsum("kij,kj->ki", Bf_full[..., n_keep:], urf[:, n_keep:]))
+    return E[:, :n, :n], B0_full[..., :n_keep], Bf_full[..., :n_keep], c
+
+
 def linearize_horizon_fused(f, qs, urs, dts, S: int, n_keep: int,
                             squarings: int = 8, order: int = 8,
                             dense: bool = False):
@@ -288,9 +348,7 @@ def linearize_horizon_fused(f, qs, urs, dts, S: int, n_keep: int,
     m = urs.shape[-1]
     q = qs[:, :T].reshape(Bn * T, n)
     u = urs[:, :T].reshape(Bn * T, m)
-    Jq, Ju = batched_jacobians(f, q, u)
-    ct = (f(q, u) - torch.einsum("kij,kj->ki", Jq, q)
-          - torch.einsum("kij,kj->ki", Ju, u))
+    Jq, Ju, ct = continuous_affine(f, q, u)
     Jq = Jq.reshape(Bn, T, n, n)
     Ju = Ju.reshape(Bn, T, n, m)
     ct = ct.reshape(Bn, T, n)

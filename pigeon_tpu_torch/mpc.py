@@ -4,12 +4,12 @@ batched control step `mpc_step_batched`, the single-vehicle `mpc_step`
 and the closed-loop `simulate`.
 
 Counterpart of `pigeon_tpu/mpc.py` for the soft condensed formulations,
-coupled and decoupled, and the two hard-constraint coupled formulations,
-sparse and condensed: path projection, node seeding, HJI constraint, exact
-linearization and QP assembly, the ADMM solve, control extraction,
-clamping, NaN fallback and the HJI override.  Every tensor carries a leading
-batch dimension where the JAX package used `vmap`, and each `lax.scan`
-over stages is a Python loop.
+coupled and decoupled, the two hard-constraint coupled formulations,
+sparse and condensed, and the sparse decoupled one: path projection, node
+seeding, HJI constraint, exact linearization and QP assembly, the ADMM
+solve, control extraction, clamping, NaN fallback and the HJI override.
+Every tensor carries a leading batch dimension where the JAX package used
+`vmap`, and each `lax.scan` over stages is a Python loop.
 
 Two routes, as in the JAX package.  `mpc_step_batched` (a fleet)
 linearizes through the structured Van Loan kernel and solves with
@@ -18,7 +18,9 @@ linearizes through the structured Van Loan kernel and solves with
 backend (the hard QPs) one per solver segment but the last.  `mpc_step`
 (one vehicle) linearizes through the dense stage matrix on the dense
 expm kernel and solves with the single-instance `solve_qp` (on the
-"pallas" backend one dense ADMM kernel launch per segment).
+"pallas" backend one dense ADMM kernel launch per segment).  The sparse
+decoupled QP linearizes each stage on the dense expm kernel on both
+routes, as the JAX package does.
 """
 
 from __future__ import annotations
@@ -49,10 +51,11 @@ from pigeon_tpu_torch.solver.admm import (QPData, QPSolution, QPWarmStart,
 class MPCConfig:
     """Static controller configuration, the same fields as
     `pigeon_tpu.mpc.MPCConfig`.  The port runs the soft condensed
-    formulations, coupled and decoupled, the sparse coupled one
-    (`soft=False, condensed=False`, the JAX package's default) and the
-    hard condensed coupled one (`soft=False, condensed=True`);
-    `_check_supported` rejects the options it has not ported."""
+    formulations, coupled and decoupled, the sparse ones (`soft=False`,
+    the JAX package's default: coupled with `condensed=False`, and
+    decoupled) and the hard condensed coupled one (`soft=False,
+    condensed=True`); `_check_supported` rejects the options it has not
+    ported."""
 
     veh: VehicleParams
     hz: HorizonParams
@@ -90,8 +93,6 @@ def _check_supported(cfg: MPCConfig):
     unsupported = []
     if cfg.formulation not in ("coupled", "decoupled"):
         unsupported.append(f"unknown formulation {cfg.formulation!r}")
-    if not cfg.soft and cfg.formulation == "decoupled":
-        unsupported.append("the sparse decoupled QP is not ported")
     if cfg.lin_method != "expm":
         unsupported.append("only lin_method='expm' is ported")
     if cfg.lin_substeps != 1:
@@ -163,7 +164,14 @@ def _sparse(cfg: MPCConfig) -> bool:
     return _hard(cfg) and not cfg.condensed
 
 
+def _sparse_decoupled(cfg: MPCConfig) -> bool:
+    """The sparse (hard-constraint) decoupled QP."""
+    return cfg.formulation == "decoupled" and not cfg.soft
+
+
 def _layout(cfg: MPCConfig):
+    if _sparse_decoupled(cfg):
+        return qp_decoupled.get_layout(cfg.hz)
     if _sparse(cfg):
         return qp_coupled.get_layout(cfg.hz, cfg.coupled.use_walls)
     if _hard(cfg):
@@ -187,14 +195,17 @@ def _banded_plan_for(cfg: MPCConfig):
 def _a_pattern_for(cfg: MPCConfig):
     """A hard QP's static nonzero pattern of A, for the "pallas"
     pipeline's dense ADMM kernel."""
-    if cfg.solver.backend == "pallas" and _hard(cfg):
+    if cfg.solver.backend == "pallas" and (_hard(cfg)
+                                           or _sparse_decoupled(cfg)):
         from pigeon_tpu_torch.solver.pallas_admm import layout_pattern
         return layout_pattern(_layout(cfg).lay)
     return None
 
 
 def _eq_rows_for(cfg: MPCConfig):
-    """The statically known equality rows of a hard coupled QP."""
+    """The statically known equality rows of a hard coupled QP (none for
+    the sparse decoupled QP, as in the JAX package: its rows with l == u
+    get the stiff rho at run time, and the mixed modes raise there)."""
     return _layout(cfg).eq_rows if _hard(cfg) else None
 
 
@@ -413,12 +424,13 @@ def _pre_solve(cfg: MPCConfig, tube, cache, carry: MPCCarry, q0, u0,
     assembly.  Coupled: both node sets are computed and selected per
     vehicle by `carry.solved` (the JAX package's "auto" branch; equal to
     its warm-only branch when every carry is warm), so no host sync.
-    Decoupled: always the trim-seeded nodes, no HJI row.  The coupled
-    QP is the soft condensed one or, with `cfg.soft` False, the sparse
-    one (`qp/coupled.py`) or with `cfg.condensed` the hard condensed one
-    (`qp/condensed.py`).  `unbatched`
-    (set by `mpc_step`) takes the single-vehicle route of the assembly:
-    dense linearization, sequential rollout."""
+    Decoupled: always the trim-seeded nodes, no HJI row; the soft QP
+    or, with `cfg.soft` False, the sparse one.  The coupled QP is the
+    soft condensed one or, with `cfg.soft` False, the sparse one
+    (`qp/coupled.py`) or with `cfg.condensed` the hard condensed one
+    (`qp/condensed.py`).  `unbatched` (set by `mpc_step`) takes the
+    single-vehicle route of the assembly: dense linearization, sequential
+    rollout."""
     veh, hz = cfg.veh, cfg.hz
     ts, dt = compute_time_steps(hz, t)
     s0, e0, _ = trj.path_coordinates(tube, q0[:, :2])
@@ -431,6 +443,9 @@ def _pre_solve(cfg: MPCConfig, tube, cache, carry: MPCCarry, q0, u0,
     if cfg.formulation == "decoupled":
         qs, us, ps = _nodes_decoupled(cfg, tube, q0, u0, ts, dt, s0, e0)
         data = qp_decoupled.DecoupledStageData(dt=dt, qs=qs, us=us, ps=ps)
+        if not cfg.soft:
+            qp = qp_decoupled.build_qp(veh, cfg.decoupled, hz, data)
+            return _pack_pre(carry, qp, ts, s0, e0, *no_hji, x_rel, us, qs)
         sqp = qp_decoupled.build_qp_soft(veh, cfg.decoupled, hz, data,
                                          unbatched=unbatched)
         return _pack_pre(carry, QPData(*sqp[:5]), ts, s0, e0, *no_hji,
@@ -514,6 +529,9 @@ def _post_solve(cfg: MPCConfig, carry: MPCCarry, q0, sol: QPSolution,
         u2 = qp_condensed.extract_control(veh, hz, sol.x)
         q_sol, u_sol = qp_condensed.extract_trajectory(hz, sol.x, veh, aux.G,
                                                        aux.g)
+    elif _sparse_decoupled(cfg):
+        u2 = qp_decoupled.extract_control(hz, sol.x, aux.us)
+        q_sol, u_sol = qp_decoupled.extract_trajectory(hz, sol.x, aux.us)
     elif cfg.formulation == "coupled":
         u2 = qp_condensed.extract_control_soft(veh, hz, sol.x)
         q_sol, u_sol = qp_condensed.extract_trajectory_soft(

@@ -1,17 +1,26 @@
-"""Soft condensed decoupled (lateral-only) tracking QP, batched over
-instances.
+"""Decoupled (lateral-only) tracking QPs, batched over instances.
 
-Counterpart of the soft part of `pigeon_tpu/qp/decoupled.py`
-(decoupled.py:175-354): 4-state LTV lateral dynamics (Uy, r, dpsi, e)
-with steering the single decision control; the longitudinal force is the
-feedforward of the node seeding.  As in the coupled soft QP
-(`qp/condensed.py`) the states are eliminated through the horizon
-dynamics, the q0 / delta0 pins are substituted, the envelope slacks
-become exact L1 penalties and the slew variables fold into the Hessian.
-For the decoupled horizon (N_short=10, N_long=20): n = 30 steering
-variables, m = 180 rows, no equality rows.
+Counterpart of `pigeon_tpu/qp/decoupled.py`: 4-state LTV lateral dynamics
+(Uy, r, dpsi, e) with steering the single decision control; the
+longitudinal force is the feedforward of the node seeding.  Two
+formulations:
 
-Row order: delta (T, hard) | envelope (4T, soft) | rate (T, hard).
+- the sparse QP (decoupled.py:35-172), the JAX package's default for
+  `x1_decoupled_config()`: states, steering, envelope slacks and slews as
+  variables, the dynamics as equality rows from the exact ZOH (short
+  stages) and FOH (long stages) discretization of each stage.  For the
+  decoupled horizon (N_short=10, N_long=20): n = 245, m = 395, 155 rows
+  with l == u, not leading.  Variable layout (N knots, T = N-1 stages):
+      q[t, 0:4]   lateral state (Uy, r, dpsi, e), t in [0, N)
+      d[t]        steering angle (rad),            t in [0, N)
+      sig[t, 0:2] envelope slacks,                 t in [0, T)
+      dd[t]       steering slew,                   t in [0, T)
+- the soft condensed QP (decoupled.py:175-354): as in the coupled soft QP
+  (`qp/condensed.py`) the states are eliminated through the horizon
+  dynamics, the q0 / delta0 pins are substituted, the envelope slacks
+  become exact L1 penalties and the slew variables fold into the Hessian:
+  n = 30 steering variables, m = 180 rows, no equality rows.  Row order:
+  delta (T, hard) | envelope (4T, soft) | rate (T, hard).
 """
 
 from __future__ import annotations
@@ -28,7 +37,58 @@ from pigeon_tpu_torch.config import (DecoupledControlParams, HorizonParams,
                                      VehicleParams)
 from pigeon_tpu_torch.qp.condensed import (SoftQP, rollout_affine,
                                             rollout_affine_unroll)
-from pigeon_tpu_torch.qp.structure import INF
+from pigeon_tpu_torch.qp.structure import INF, QPLayout
+from pigeon_tpu_torch.solver.admm import QPData
+
+
+class DecoupledLayout:
+    """Static sparsity plan of the sparse QP for one horizon shape: the
+    variable blocks and the rows in `build_qp`'s order (the JAX package's
+    `DecoupledLayout`)."""
+
+    def __init__(self, hz: HorizonParams):
+        S, Lg = hz.N_short, hz.N_long
+        N, T = hz.N, S + Lg
+        self.hz = hz
+        lay = QPLayout()
+        self.q = lay.add_vars((N, 4))
+        self.d = lay.add_vars((N,))
+        self.sig = lay.add_vars((T, 2))
+        self.dd = lay.add_vars((T,))
+
+        r = lay.add_rows(2 * T)                     # sig >= 0
+        lay.entry(r, self.sig.ravel())
+        r = lay.add_rows(T)                         # diff(delta) == dd
+        lay.entry(r, self.d[1:]); lay.entry(r, self.d[:-1])
+        lay.entry(r, self.dd)
+        r = lay.add_rows(4)                         # q[0] == q_curr
+        lay.entry(r, self.q[0])
+        r = lay.add_rows(1)                         # d[0] == delta_curr
+        lay.entry(r, self.d[:1])
+        r = lay.add_rows(4 * S).reshape(S, 4)       # ZOH dynamics
+        lay.entry(r[:, :, None], self.q[:S][:, None, :])        # A_t
+        lay.entry(r, np.broadcast_to(self.d[:S, None], (S, 4)))  # B_t
+        lay.entry(r, self.q[1:S + 1])                           # -I
+        r = lay.add_rows(4 * Lg).reshape(Lg, 4)     # FOH dynamics
+        lay.entry(r[:, :, None], self.q[S:S + Lg][:, None, :])
+        lay.entry(r, np.broadcast_to(self.d[S:S + Lg, None], (Lg, 4)))
+        lay.entry(r, np.broadcast_to(self.d[S + 1:N, None], (Lg, 4)))
+        lay.entry(r, self.q[S + 1:])
+        r = lay.add_rows(T)                         # delta bounds on t+1
+        lay.entry(r, self.d[1:])
+        r = lay.add_rows(4 * T).reshape(T, 4)       # envelope on (Uy, r)
+        lay.entry(r[:, :, None], self.q[1:, 0:2][:, None, :])
+        lay.entry(r, self.sig[:, [0, 0, 1, 1]])
+        r = lay.add_rows(T)                         # slew bounds
+        lay.entry(r, self.dd)
+        lay.finalize()
+        self.lay = lay
+        self.n, self.m = lay.n, lay.m
+
+
+@functools.lru_cache(maxsize=None)
+def get_layout(hz: HorizonParams) -> DecoupledLayout:
+    return DecoupledLayout(hz)
 
 
 class SoftDecoupledLayout:
@@ -71,6 +131,104 @@ class DecoupledStageData(NamedTuple):
     qs: torch.Tensor        # (B, N, 4) lateral states at the nodes
     us: torch.Tensor        # (B, N, 2) (delta, Fx) at the nodes (physical)
     ps: torch.Tensor        # (B, N, 4) (Ux, kappa, 0, 0)
+
+
+def build_qp(veh: VehicleParams, ctl: DecoupledControlParams,
+             hz: HorizonParams, data: DecoupledStageData) -> QPData:
+    """Linearize each stage exactly (ZOH on the N_short short stages, FOH
+    on the long ones, each through `discretize.expm_dense` of its
+    augmented matrix) and assemble the sparse QPs of a batch (the JAX
+    package's `build_qp`, whose `vmap` over stages this batches over
+    stages and vehicles alike: one exponential stack of B S 11 x 11 and
+    one of B N_long 17 x 17)."""
+    S, Lg, N = hz.N_short, hz.N_long, hz.N
+    T = S + Lg
+    L = get_layout(hz)
+    dt, qs, us, ps = data.dt, data.qs, data.us, data.ps
+    Bn = qs.shape[0]
+    kw = dict(dtype=qs.dtype, device=qs.device)
+
+    def f(q, ur):
+        return dyn.vehicle_ode(veh, "lateral", q, ur[..., :2], ur[..., 2:])
+
+    ur = torch.cat([us, ps], dim=-1)                       # (B, N, 6)
+    flat = lambda t: t.reshape((-1,) + tuple(t.shape[2:]))
+    Az, Bz, cz = dz.linearize_affine_zoh(
+        f, flat(qs[:, :S]), flat(ur[:, :S]), flat(dt[:, :S]), 1)
+    Af, B0f, Bff, cf = dz.linearize_affine_foh(
+        f, flat(qs[:, S:T]), flat(ur[:, S:T]), flat(ur[:, S + 1:N]),
+        flat(dt[:, S:T]), 1)
+    per = lambda t, k: t.reshape((Bn, k) + tuple(t.shape[1:]))
+
+    # envelope and bounds at the t+1 nodes
+    Ux_t = ps[:, 1:, 0]
+    Fxf_t, Fxr_t = dyn.longitudinal_split(veh, us[:, 1:, 1])
+    lim = dyn.stable_limits(veh, Ux_t, Fxf_t, Fxr_t)
+    d_min = torch.clamp(lim.delta_min, min=-veh.delta_max)
+    d_max = torch.clamp(lim.delta_max, max=veh.delta_max)
+    dd_lim = ctl.delta_dot_max * dt
+
+    ones = lambda *shape: torch.ones((Bn,) + shape, **kw)
+    neg1 = lambda *shape: -ones(*shape)
+    values = [
+        ones(2 * T),
+        ones(T), neg1(T), neg1(T),
+        ones(4), ones(1),
+        per(Az, S), per(Bz[..., 0], S), neg1(S, 4),
+        per(Af, Lg), per(B0f[..., 0], Lg), per(Bff[..., 0], Lg),
+        neg1(Lg, 4),
+        ones(T),
+        lim.H_veh.to(qs.dtype).expand(Bn, T, 4, 2), neg1(T, 4),
+        ones(T),
+    ]
+    A = L.lay.assemble_A(values)
+
+    full = lambda k, v: torch.full((Bn, k), v, **kw)
+    zeros = lambda k: full(k, 0.0)
+    lo = torch.cat([
+        zeros(2 * T),
+        zeros(T),
+        qs[:, 0], us[:, 0, :1],
+        -cz.reshape(Bn, -1), -cf.reshape(Bn, -1),
+        d_min,
+        full(4 * T, -INF),
+        -dd_lim,
+    ], dim=-1)
+    hi = torch.cat([
+        full(2 * T, INF),
+        zeros(T),
+        qs[:, 0], us[:, 0, :1],
+        -cz.reshape(Bn, -1), -cf.reshape(Bn, -1),
+        d_max,
+        lim.G_veh.to(qs.dtype).reshape(Bn, -1),
+        dd_lim,
+    ], dim=-1)
+
+    # objective: 1/2 x'Px with P = 2Q (Parametron's x'Qx convention)
+    P = torch.zeros((Bn, L.n), **kw)
+    P[:, L.q[1:, 2]] = 2.0 * ctl.Q_dpsi * dt
+    P[:, L.q[1:, 3]] = 2.0 * ctl.Q_e * dt
+    P[:, L.d[1:]] = 2.0 * ctl.R_delta * dt
+    P[:, L.dd] = 2.0 * ctl.R_ddelta / dt
+    qlin = torch.zeros((Bn, L.n), **kw)
+    qlin[:, L.sig[:, 0]] = ctl.W_beta * dt
+    qlin[:, L.sig[:, 1]] = ctl.W_r * dt
+    return QPData(P_diag=P, q=qlin, A=A, l=lo, u=hi)
+
+
+def extract_control(hz: HorizonParams, x, us):
+    """(delta, Fx) per instance of the sparse QP: steering from its second
+    knot, Fx the feedforward of the node seeding.  x (B, n), us (B, N,
+    2)."""
+    L = get_layout(hz)
+    return torch.stack([x[:, L.d[1]], us[:, 1, 1]], dim=-1)
+
+
+def extract_trajectory(hz: HorizonParams, x, us):
+    """Full (q, u) solutions (B, N, 4), (B, N, 2) of the sparse QP: the
+    states and steering from x, Fx the node seeding's."""
+    L = get_layout(hz)
+    return x[:, L.q], torch.stack([x[:, L.d], us[:, :, 1]], dim=-1)
 
 
 def build_qp_soft(veh: VehicleParams, ctl: DecoupledControlParams,

@@ -22,7 +22,10 @@ wide one (`csrc/admm_wide.cu`, A compact in row and column order, the
 condensed QP's long rows and columns split over lanes by `lane_plan`) and
 the large one (`csrc/admm_large.cu`: the wide build's compact A, one block
 of LARGE_WARPS warps filling an SM, the sparse QP in the split modes with
-a diagonal P; `class_lane_plan`).
+a diagonal P; `class_lane_plan`).  A diagonal P whose block fits none of
+them takes the large build's pair form (`EllPattern.for_mode`; kernel
+"admm_pair" of the same source): an instance on two blocks, each holding
+half of K^-1's columns (the sparse decoupled QP, n = 245).
 """
 
 from __future__ import annotations
@@ -57,6 +60,8 @@ CODE_MERGE_SHIFT, CODE_FIRST, CODE_LAST = 16, 1 << 19, 1 << 20
 # them over lanes (the condensed QP's widths 39 and 79; the sparse QP's 11
 # and 15 keep the narrow build and its first design's sums).
 NARROW_WIDTH_MAX = 32
+# the builds with the large build's forms of A (compact, class lane plans)
+LARGE_FORMS = ("large", "pair")
 # the wide build's warps a block, and a lane descriptor of its lane plans
 # (csrc/admm_wide.cu): segment, place in the group, group size, and (the
 # large build's) whether the lane's run is of split rows
@@ -68,6 +73,8 @@ LANE_SPLIT = 1 << 27
 # lane
 LARGE_WARPS = 16
 LARGE_K_PARTS, LARGE_K_TASK, LARGE_K_COLS = 8, 16, 4
+# the pair build's tile is a cluster of 2 tile blocks
+PAIR_TILE_MAX = TILE_MAX // 2
 
 
 def plan_build(row_width: int, col_width: int, mode: str = "highest",
@@ -76,7 +83,8 @@ def plan_build(row_width: int, col_width: int, mode: str = "highest",
     `mode`: "wide" past NARROW_WIDTH_MAX; within it "large" for a
     diagonal P in the split modes ("mixed", "mixedk6", "high", "bf16"),
     else "narrow" (`EllPattern.for_mode` also keeps the narrow build
-    where the large one's block does not fit)."""
+    where the large one's block does not fit, and gives a diagonal P
+    whose block fits neither the "pair" build)."""
     if max(row_width, col_width) > NARROW_WIDTH_MAX:
         return "wide"
     return "narrow" if mode == "highest" or dense_P else "large"
@@ -95,6 +103,20 @@ def large_k_run(n: int) -> int:
     apart."""
     r = -(-n // LARGE_K_PARTS)
     return r + (2 - r) % 4
+
+
+def pair_cols0(n: int) -> int:
+    """The pair build's K^-1 columns in block 0 of a pair
+    (csrc/admm_large.cu's `pair_cols0`): half of the product's
+    LARGE_K_TASK-column tasks, rounded up; block 1 takes the rest."""
+    tasks = -(-n // LARGE_K_TASK)
+    return (tasks + 1) // 2 * LARGE_K_TASK
+
+
+def pair_ld(n: int) -> int:
+    """The pair build's row stride of a block's K^-1 columns: `pair_cols0`
+    rounded up to 8 mod 32, as `kld`."""
+    return kld(pair_cols0(n))
 
 
 def _pack_groups(size, segs=None) -> list:
@@ -317,7 +339,8 @@ class EllPattern:
     The large build's: the wide build's forms, its lane plans from
     `class_lane_plan` with the rows before `m_split` (the mixed modes'
     equality rows; 0 for the other modes) apart from the others, so that
-    no lane's run mixes the two."""
+    no lane's run mixes the two.  The pair build ("pair") takes the large
+    build's forms."""
 
     def __init__(self, rows, cols, m: int, n: int, build: str = None,
                  m_split: int = 0):
@@ -332,10 +355,10 @@ class EllPattern:
         self.row_width = max(1, int(per_row.max(initial=0)))
         self.col_width = max(1, int(per_col.max(initial=0)))
         self.build = build or plan_build(self.row_width, self.col_width)
-        self.m_split = int(m_split) if self.build == "large" else 0
+        self.m_split = int(m_split) if self.build in LARGE_FORMS else 0
         self._on = {}
         self._forms = {}
-        if self.build in ("wide", "large"):
+        if self.build in ("wide",) + LARGE_FORMS:
             self._compact(rows, cols, per_row, per_col)
         elif self.build == "narrow":
             self._narrow(rows, cols)
@@ -434,49 +457,58 @@ class EllPattern:
         self.col_row[cols[by_col], cpos] = rows[by_col]
 
     def as_build(self, build: str, m_split: int = 0) -> "EllPattern":
-        """The same positions in the forms of `build` (the large build's
-        rows split at `m_split`), made once per pattern."""
-        key = (build, int(m_split) if build == "large" else 0)
+        """The same positions in the forms of `build` (the large and pair
+        builds' rows split at `m_split`), made once per pattern."""
+        key = (build, int(m_split) if build in LARGE_FORMS else 0)
         if key not in self._forms:
             self._forms[key] = EllPattern(self._key // self.n,
                                           self._key % self.n, self.m,
                                           self.n, *key)
         return self._forms[key]
 
+    def _split_form(self, build: str, mode: str, m_eq: int):
+        """The pattern in the large or pair build, its rows split at the
+        mixed modes' `m_eq`: itself if it is that form already (a pattern
+        split anywhere serves the other modes, which read no row's
+        class)."""
+        mixed = mode in MIXED_MODES
+        if self.build == build and (not mixed or self.m_split == m_eq):
+            return self
+        return self.as_build(build, m_eq if mixed else 0)
+
     def for_mode(self, mode: str, m_eq: int = 0,
                  dense_P: bool = False) -> "EllPattern":
         """The pattern in the build `plan_build` gives its widths, `mode`
         and `dense_P` (the large build's rows split at the mixed modes'
         `m_eq`), the narrow build where the large one's block does not
-        fit: itself if it is that form already (a large pattern split
-        anywhere serves "high" and "bf16", which read no row's class)."""
+        fit, and for a diagonal P the pair build where the block of
+        neither fits: itself if it is that form already."""
         build = plan_build(self.row_width, self.col_width, mode, dense_P)
         if build != "large":
-            return self if build == self.build else self.as_build(build)
-        mixed = mode in MIXED_MODES
-        if self.build == "large" and (not mixed or self.m_split == m_eq):
-            large = self
+            form = self if build == self.build else self.as_build(build)
         else:
-            large = self.as_build("large", m_eq if mixed else 0)
-        if smem_bytes_large(self.n, self.m, large.slots, large.lane_warps,
-                            mode) > SMEM_MAX:
-            return self if self.build == "narrow" else self.as_build(
-                "narrow")
-        return large
+            form = self._split_form("large", mode, m_eq)
+            if block_bytes(form, dense_P, mode) > SMEM_MAX:
+                form = self if self.build == "narrow" else self.as_build(
+                    "narrow")
+        if dense_P or block_bytes(form, dense_P, mode) <= SMEM_MAX:
+            return form
+        return self._split_form("pair", mode, m_eq)
 
     @property
     def lane_warps(self) -> tuple:
-        """The wide (and large) build's lane warps: (rows, columns)."""
+        """The wide (and large, pair) build's lane warps: (rows,
+        columns)."""
         return self.row_lanes.size // 32, self.col_lanes.size // 32
 
     @property
     def slots(self) -> tuple:
-        """The wide (and large) build's slots: (rows, columns)."""
+        """The wide (and large, pair) build's slots: (rows, columns)."""
         return self.row_pos.size, self.col_pos.size
 
     def packed_shape(self, B: int) -> tuple:
         """The shape of `pack`'s values for B instances: the row-ELL's (B,
-        m, row_width), or the wide and large builds' (B, row slots +
+        m, row_width), or the wide, large and pair builds' (B, row slots +
         column slots)."""
         return ((B, self.m, self.row_width) if self.build == "narrow"
                 else (B, sum(self.slots)))
@@ -590,17 +622,20 @@ def plan_smem_wide(n: int, m: int, slots: tuple, lane_warps: tuple,
 
 
 def smem_bytes_large(n: int, m: int, slots: tuple, lane_warps: tuple,
-                     mode: str = "highest") -> int:
+                     mode: str = "highest", pair: bool = False) -> int:
     """Shared memory of one block of the large build (`smem_bytes_large`
-    in csrc/admm_large.cu): K^-1 at row stride `kld(n)`, the vectors (a
-    column's two parts of A'v, no A x: the checks reduce it where it is
-    made), the warps' maxima, A's values in both slot orders, in every
-    mode but "highest" five vectors' words (x's too, made where x is),
-    and the pattern block."""
+    in csrc/admm_large.cu): K^-1 at row stride `kld(n)` (with `pair`, a
+    block of the pair build: its half's columns at row stride `pair_ld(n)`
+    and the 2 n exchange words), the vectors (a column's two parts of
+    A'v, no A x: the checks reduce it where it is made), the warps'
+    maxima, A's values in both slot orders, in every mode but "highest"
+    five vectors' words (x's too, made where x is), and the pattern
+    block."""
     sr, sc = slots
     even = lambda v: v + v % 2
     plan = 64 * sum(lane_warps) + (even(sr) + even(sc)) // 2
-    words = (n * kld(n) + 9 * n + 7 * m + 8 + 8 * LARGE_WARPS + 4 + sr + sc
+    kwords = n * pair_ld(n) + 2 * n if pair else n * kld(n)
+    words = (kwords + 9 * n + 7 * m + 8 + 8 * LARGE_WARPS + 4 + sr + sc
              + (0 if mode == "highest" else 3 * n + 2 * m) + 2 + plan)
     return 4 * words
 
@@ -622,31 +657,73 @@ def plan_smem_large(n: int, m: int, slots: tuple, lane_warps: tuple,
     return need
 
 
+def plan_smem_pair(n: int, m: int, slots: tuple, lane_warps: tuple,
+                   mode: str = "highest", dense_P: bool = False) -> int:
+    """Shared memory of each block of the pair build (`smem_bytes_large`
+    with `pair`), or ValueError for a dense P or a shape whose half of
+    K^-1 and A do not fit one block (the sparse decoupled QP's n = 245, m
+    = 395, 1,375 nonzeros in 1,696 row and 1,760 column slots of 13 and 8
+    lane warps take 181,800 B in "highest", its full K^-1 in the large
+    build 305,280 B)."""
+    if dense_P:
+        raise ValueError("the dense ADMM kernel's pair build takes a "
+                         "diagonal P; a dense P takes the wide build")
+    need = smem_bytes_large(n, m, slots, lane_warps, mode, pair=True)
+    if need > SMEM_MAX:
+        raise ValueError(
+            f"the dense ADMM kernel's pair build holds half of K^-1 and A's "
+            f"nonzeros in each block's shared memory: n={n}, m={m}, "
+            f"{sum(slots)} slots need {need} B of the {SMEM_MAX} B a block "
+            f"may use")
+    return need
+
+
+def block_bytes(pattern: EllPattern, dense_P: bool = False,
+                mode: str = "highest") -> int:
+    """Shared memory one block of the pattern's build would need (each
+    block of a pair in the pair build), whether it fits or not."""
+    if pattern.build == "narrow":
+        return smem_bytes(pattern.n, pattern.m, pattern.row_width,
+                          pattern.col_width, dense_P, mode)
+    if pattern.build in LARGE_FORMS:
+        return smem_bytes_large(pattern.n, pattern.m, pattern.slots,
+                                pattern.lane_warps, mode,
+                                pattern.build == "pair")
+    return smem_bytes_wide(pattern.n, pattern.m, pattern.slots,
+                           pattern.lane_warps, mode)
+
+
 def block_smem(pattern: EllPattern, dense_P: bool = False,
                mode: str = "highest") -> int:
     """Shared memory of one block of the pattern's build (`plan_smem`,
-    `plan_smem_wide` or `plan_smem_large`; ValueError where it does not
-    fit)."""
+    `plan_smem_wide`, `plan_smem_large` or `plan_smem_pair`; ValueError
+    where it does not fit)."""
     if pattern.build == "narrow":
         return plan_smem(pattern.n, pattern.m, pattern.row_width,
                          pattern.col_width, dense_P, mode)
     if pattern.build == "large":
         return plan_smem_large(pattern.n, pattern.m, pattern.slots,
                                pattern.lane_warps, mode, dense_P)
+    if pattern.build == "pair":
+        return plan_smem_pair(pattern.n, pattern.m, pattern.slots,
+                              pattern.lane_warps, mode, dense_P)
     return plan_smem_wide(pattern.n, pattern.m, pattern.slots,
                           pattern.lane_warps, mode)
 
 
-# each build's kernel (`_kernels.KERNELS`) and source
+# each build's kernel (`_kernels.KERNELS`) and source; the pair build is
+# the large build's source
 BUILD_KERNELS = {"narrow": ("admm_dense", "admm_dense.cu"),
                  "wide": ("admm_wide", "admm_wide.cu"),
-                 "large": ("admm_large", "admm_large.cu")}
+                 "large": ("admm_large", "admm_large.cu"),
+                 "pair": ("admm_pair", "admm_large.cu")}
 
 
 def max_active_clusters(pattern: EllPattern, tile: int,
                         dense_P: bool = False, mode: str = "highest") -> int:
-    """How many clusters of `tile` blocks of the pattern's build the card
-    holds at once (cudaOccupancyMaxActiveClusters) for its shapes."""
+    """How many clusters of a tile of `tile` instances (`tile` blocks, 2
+    `tile` in the pair build) of the pattern's build the card holds at
+    once (cudaOccupancyMaxActiveClusters) for its shapes."""
     if pattern.build == "narrow":
         return _kernels.occupancy(
             "admm_dense.cu", "admm_dense_max_clusters", pattern.n,
@@ -853,7 +930,9 @@ def admm_iterations(Kinv, A, q, l, u, rho, x0, z0, y0, n_iters: int,
     the mode.  The pattern's build is the kernel's: the narrow one
     (`csrc/admm_dense.cu`), the wide one (`csrc/admm_wide.cu`) or the
     large one (`csrc/admm_large.cu`), which takes a diagonal P and in a
-    mixed mode its rows split at `m_eq` (ValueError otherwise).
+    mixed mode its rows split at `m_eq` (ValueError otherwise), or that
+    source's pair build, an instance on a pair of blocks and a tile a
+    cluster of 2 `tile` blocks (so `tile` <= PAIR_TILE_MAX).
     `A_packed`: `pack(A, pattern)` when the caller has it already (the
     pipeline packs once per solve); else the wrapper packs, one gather.
     Both are used only on the card: the CPU runs the dense plain
@@ -892,11 +971,15 @@ def admm_iterations(Kinv, A, q, l, u, rho, x0, z0, y0, n_iters: int,
     if (pattern.m, pattern.n) != (m, n):
         raise ValueError(f"the pattern is of a {pattern.m} x {pattern.n} "
                          f"matrix, A of {m} x {n}")
-    if (pattern.build == "large" and mode in MIXED_MODES
+    if pattern.build == "pair" and tile > PAIR_TILE_MAX:
+        raise ValueError(f"the pair build's tile is a cluster of 2 tile "
+                         f"blocks: 1 <= tile <= {PAIR_TILE_MAX}, got "
+                         f"tile={tile}")
+    if (pattern.build in LARGE_FORMS and mode in MIXED_MODES
             and pattern.m_split != m_eq):
-        raise ValueError(f"the large build's pattern splits its rows at "
-                         f"{pattern.m_split}, the mode's equality rows end "
-                         f"at {m_eq}")
+        raise ValueError(f"the {pattern.build} build's pattern splits its "
+                         f"rows at {pattern.m_split}, the mode's equality "
+                         f"rows end at {m_eq}")
     block_smem(pattern, dense_P, mode)
     if A_packed is None:
         A_packed = pack(A, pattern)
@@ -912,7 +995,7 @@ def admm_iterations(Kinv, A, q, l, u, rho, x0, z0, y0, n_iters: int,
                  int(check), float(eps_abs), float(eps_rel))
     tag = mode + ("_dense_P" if dense_P else "")
     vectors = (q, l, u, rho, x, z, y, E, PuD, qu, invDc, stats)
-    if pattern.build in ("wide", "large"):
+    if pattern.build != "narrow":
         _kernels.KERNELS[BUILD_KERNELS[pattern.build][0]].launch(
             Kinv, A_packed, pat["plan"], *vectors, B, n, m,
             *pattern.slots, *pattern.lane_warps, *tail, *mode_args,

@@ -135,12 +135,22 @@ def test_carry_matches(steps, k):
 @pytest.mark.parametrize("change", [
     dict(lin_substeps=2), dict(coupled=TCP(use_walls=True)),
     dict(lin_method="rk4"),
-    dict(formulation="decoupled", soft=False),
+    dict(formulation="decoupled", soft=False, hz=THP(N_short=10,
+                                                     N_long=20)),
     dict(formulation="lateral")],
     ids=["lin_substeps", "walls", "lin_method",
          "decoupled_hard", "unknown_formulation"])
 def test_unported_options_raise(change):
+    """Each option the port has not ported raises; the sparse decoupled
+    QP, ported since, gives its carry (warm vectors of n = 245, m =
+    395)."""
     cfg = dataclasses.replace(TM.x1_coupled_config(soft=True), **change)
+    if cfg.formulation == "decoupled":
+        carry = TM.init_carry(cfg, 2, device="cpu")
+        assert carry.warm_x.shape == (2, 245)
+        assert carry.warm_y.shape == carry.warm_z.shape == (2, 395)
+        assert carry.q_prev.shape == (2, 31, 4)
+        return
     with pytest.raises(NotImplementedError):
         TM.init_carry(cfg, 2, device="cpu")
 

@@ -406,7 +406,7 @@ def test_carry_round_trip_full_horizon():
 
 def test_unported_sparse_options_raise():
     cfg = TM.x1_coupled_config(hz=THP(N_short=2, N_long=3))
-    for change in (dict(lin_method="rk4"), dict(formulation="decoupled")):
+    for change in (dict(lin_method="rk4"), dict(lin_substeps=2)):
         with pytest.raises(NotImplementedError):
             TM.init_carry(dataclasses.replace(cfg, **change), 2,
                           device="cpu")
