@@ -60,12 +60,15 @@ Phases (any failure raises, so the script exits non-zero):
    plain version leaves float64's tenth of a scale or goes non-finite,
    where it does; the statistics against the kernel's own iterates'),
    with each build's time, bound, registers and shared memory.  The
-   large build's pair form (`admm_pair`: an instance on two blocks, each
-   holding half of K^-1's columns) is held the same way on the sparse
-   decoupled fleet's cold and warm segments (B=2048, n=245, m=395), a
-   ragged batch, horizon (4, 8) and at tile 1; the Ruiz kernel on that
-   fleet's A, and the dense exponential on its two stacks a step
-   (20,480 matrices of 11 x 11, 40,960 of 17 x 17);
+   large build is held the same way on the sparse decoupled fleet's cold
+   and warm segments (B=2048, n=245, m=395, "highest"), a ragged batch
+   and horizon (4, 8), and so is its pair form (`admm_pair`: an instance
+   on two blocks, each holding half of K^-1's columns; no path runs it),
+   also at tile 1 and bit-equal to the large build on the sparse coupled
+   fleet's calls and on the decoupled fleet's cold, warm, ragged and tile
+   1 calls; the Ruiz kernel on that fleet's A, and the dense exponential
+   on its two stacks a step (20,480 matrices of 11 x 11, 40,960 of 17 x
+   17);
 4. path "fleet": the coupled soft MPC for a fleet of 8192 vehicles on an
    oval (x1_coupled_config(soft=True), N_short=5, N_long=10, the lane
    solver with bench.py's options), one cold step and 10 warm closed-loop
@@ -101,9 +104,9 @@ Phases (any failure raises, so the script exits non-zero):
    (x1_decoupled_config() as it comes, N_short=10, N_long=20, QPs of
    n=245, m=395) for 2048 vehicles on the sparse fleet's solver options
    (no banded plan: the dense Cholesky), one cold and 10 warm steps, each
-   launching expm_dense twice, ruiz once and admm_pair (the pair build)
-   once per segment; its converged share on one more step held against
-   the same step with B8's plain version on the card
+   launching expm_dense twice, ruiz once and admm_large (the large
+   build, "highest") once per segment; its converged share on one more
+   step held against the same step with B8's plain version on the card
    (`convergence_witness`; its float32 solve leaves about a fifth of the
    fleet unconverged at this budget, in the JAX package too);
 7. path "simulate": `mpc.simulate` for one vehicle on the card, 20
@@ -289,16 +292,17 @@ PATH_KERNELS = {
     "sparse": {"vanloan", "ruiz", "banded_chol", "admm_dense"},
     "condensed": {"vanloan", "ruiz", "admm_wide"},
     "sparse_mixedk6": {"vanloan", "ruiz", "banded_chol", "admm_large"},
-    "decoupled_sparse": {"expm_dense", "ruiz", "admm_pair"},
+    "decoupled_sparse": {"expm_dense", "ruiz", "admm_large"},
     "simulate": {"expm_dense"},
     "simulate_condensed": {"expm_dense", "admm_wide"},
     "montecarlo": {"vanloan", "chol_inverse", "admm_iterations"},
 }
 # The dense ADMM kernel's build each hard path must launch, and no other:
 # the narrow ("admm_dense"), the wide ("admm_wide", the condensed QP's
-# widths), the large build ("admm_large", the sparse QP's split modes;
-# `pallas_admm.plan_build`) or its pair build ("admm_pair", the sparse
-# decoupled QP, whose K^-1 no one block holds), and its mode
+# widths), the large build ("admm_large", the sparse QP's split modes,
+# `pallas_admm.plan_build`, and the sparse decoupled QP, whose K^-1 only
+# its block holds, `EllPattern.for_mode`) or its pair build ("admm_pair":
+# a K^-1 no one block holds; no path), and its mode
 # (`_kernels.launches_by`: "_dense_P" added for the dense-P build)
 B8_KERNELS = ("admm_dense", "admm_wide", "admm_large", "admm_pair")
 B8_BUILD_OF = {"admm_dense": "narrow", "admm_wide": "wide",
@@ -306,7 +310,7 @@ B8_BUILD_OF = {"admm_dense": "narrow", "admm_wide": "wide",
 PATH_B8_BUILD = {"sparse": ("admm_dense", "highest"),
                  "condensed": ("admm_wide", "highest_dense_P"),
                  "sparse_mixedk6": ("admm_large", "mixedk6"),
-                 "decoupled_sparse": ("admm_pair", "highest"),
+                 "decoupled_sparse": ("admm_large", "highest"),
                  "simulate_condensed": ("admm_wide", "highest")}
 # Every step of the sparse decoupled fleet launches the dense exponential
 # twice (the ZOH stages' 11 x 11 stack, then the FOH stages' 17 x 17) and
@@ -1487,23 +1491,30 @@ def residency(torch, pattern, B, tile, dense_P, mode="highest") -> dict:
                 waves=-(-B // (clusters * tile)))
 
 
-def pipe_floor_ms(torch, pattern, res, tile, iterations) -> float:
+def pipe_floor_ms(torch, pattern, res, tile, iterations,
+                  mode="highest", all_rows=False) -> float:
     """A dense ADMM segment's shared-memory pipe floor: every iteration of
-    every block reads its K^-1 once (n rows at the build's row stride: n
-    in the narrow build, `kld(n)` in the wide and large ones, a half's
-    columns at `pair_ld(n)` in each block of a pair) through its SM's pipe
-    at SMEM_BYTES_PER_CLOCK, the SM's resident blocks one after another
-    and the waves (`residency`) one after another, at the highest SM
-    clock; `iterations` the segment's mean executed count."""
+    every block reads the K^-1 words it keeps in shared memory once (rows
+    at the build's row stride: n in the narrow build, `kld(n)` in the
+    wide and large ones, a half's columns at `pair_ld(n)` in each block
+    of a pair; in the large and pair builds only the rows past each K^-1
+    lane's `large_kreg(mode)` register rows, `large_stored_rows`) through
+    its SM's pipe at SMEM_BYTES_PER_CLOCK, the SM's resident blocks one
+    after another and the waves (`residency`) one after another, at the
+    highest SM clock; `iterations` the segment's mean executed count.
+    `all_rows`: count all n rows, as before the register rows were left
+    out of the count."""
     from pigeon_tpu_torch.solver import pallas_admm as pa
 
     n = pattern.n
     ld = {"narrow": n, "pair": pa.pair_ld(n)}.get(pattern.build, pa.kld(n))
+    rows = (pa.large_stored_rows(n, pa.large_kreg(mode))
+            if pattern.build in pa.LARGE_FORMS and not all_rows else n)
     pairs = 2 if pattern.build == "pair" else 1
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     per_sm = -(-res["max_active_clusters"] * tile * pairs // sms)
     clock_hz = float(nvidia_smi("clocks.max.sm").split()[0]) * 1e6
-    return (res["waves"] * per_sm * iterations * 4 * n * ld
+    return (res["waves"] * per_sm * iterations * 4 * rows * ld
             / SMEM_BYTES_PER_CLOCK / clock_hz * 1e3)
 
 
@@ -1519,23 +1530,27 @@ def check_admm_dense(torch, args, kw, extra):
     """`args`: a hard fleet's first segment of its cold step (Kinv, A, q,
     l, u, rho, x, z, y, n_iters, sigma, alpha), the sparse fleet's
     (diagonal P, the narrow build), the condensed fleet's
-    (`kw["dense_P"]`, the wide build) or the sparse fleet's in mode
-    "mixedk6" (the large build); `extra["warm"]`: the first segment of a
-    warm step, `extra["small"]`: the 12-stage horizon's call, held in the
-    main call's build whichever the plan gives its widths.
+    (`kw["dense_P"]`, the wide build), the sparse fleet's in mode
+    "mixedk6" (the large build) or the sparse decoupled fleet's (the large
+    build, or the pair build where `kw["pattern"]` is in it);
+    `extra["warm"]`: the first segment of a warm step, `extra["small"]`:
+    the 12-stage horizon's call, held in the main call's build whichever
+    the plan gives its widths.
 
     On the cold step no tile converges within the segment, so the early
     exit per tile is held on the warm step's segment too, where most
     tiles stop at a check before the segment's end.  In a split mode, and
-    in the pair build, the statistics are held against their own
-    iterates' (`stats_of_iterates`, as `held_mode` holds them): the sparse
-    decoupled QP's 155 stiff equality rows make |Ax - z| a cancellation
-    that follows each run's own rounding of x (on a warm segment's
-    130-instance cut the kernel's came 4.2e-4 of its scale from float64's
-    against the float32 plain version's 8.2e-5, and 1.3e-5 against 2.2e-5
-    on another step).  The pair build is also held bit-equal to the large
-    build on the sparse coupled fleet's calls (`extra["large_calls"]`,
-    `pair_vs_large`), which both builds take."""
+    in the large and pair builds, the statistics are held against their
+    own iterates' (`stats_of_iterates`, as `held_mode` holds them): the
+    sparse decoupled QP's 155 stiff equality rows make |Ax - z| a
+    cancellation that follows each run's own rounding of x (on a warm
+    segment's 130-instance cut the pair's came 4.2e-4 of its scale from
+    float64's against the float32 plain version's 8.2e-5, and 1.3e-5
+    against 2.2e-5 on another step).  The pair build is also held
+    bit-equal to the large build on the sparse coupled fleet's calls
+    (`extra["large_calls"]`, `pair_vs_large`) and on its own: the cold
+    and the warm segment, the warm segment's ragged cut and the warm
+    segment at tile 1 (`large_vs_pair`), which both builds take."""
     from pigeon_tpu_torch.solver import pallas_admm as pa
 
     ops, (n_iters, sigma, alpha) = args[:9], args[9:12]
@@ -1548,7 +1563,8 @@ def check_admm_dense(torch, args, kw, extra):
     pattern = kw.get("pattern") or pa.pattern_from(
         ops[1], mode, kw.get("m_eq", 0), dense_P)
     build = pattern.build
-    truth_of = ((lambda o, k: None) if mode == "highest" and build != "pair"
+    truth_of = ((lambda o, k: None)
+                if mode == "highest" and build not in pa.LARGE_FORMS
                 else (lambda o, k: stats_of_iterates(torch, o, k)))
     truth = truth_of(ops, kw)
     kw.setdefault("A_packed", pa.pack(ops[1], pattern))
@@ -1658,7 +1674,11 @@ def check_admm_dense(torch, args, kw, extra):
                             a_nonzeros_mean=float((ops[1] != 0).sum(
                                 dim=(1, 2)).double().mean())),
                **res, pipe_floor_ms=pipe_floor_ms(
-                   torch, pattern, res, kw["tile"], float(executed.mean())),
+                   torch, pattern, res, kw["tile"], float(executed.mean()),
+                   mode),
+               pipe_floor_all_rows_ms=pipe_floor_ms(
+                   torch, pattern, res, kw["tile"], float(executed.mean()),
+                   mode, all_rows=True),
                dense_P=dense_P,
                shapes=[list(ops[0].shape), list(ops[1].shape)])
     if build != "narrow":
@@ -1670,20 +1690,30 @@ def check_admm_dense(torch, args, kw, extra):
         rec["pair_vs_large"] = {
             name: pair_vs_large(torch, *call)
             for name, call in extra["large_calls"].items()}
+        sched = [n_iters, sigma, alpha]
+        r_ops, r_kw = cut(w_ops, w_kw)
+        rec["large_vs_pair"] = {
+            name: pair_vs_large(torch, list(o) + sched, k)
+            for name, (o, k) in dict(
+                cold=(ops, kw), warm=(w_ops, w_kw), ragged=(r_ops, r_kw),
+                tile1=(w_ops, dict(w_kw, tile=1))).items()}
     return rec
 
 
 def pair_vs_large(torch, args, kw):
     """A call the large build takes (the sparse coupled fleet's first
-    segment, n = 193) run in the large build and in its pair form on the
-    same operands: the pair's blocks compute each column of xt with the
-    large build's sums, so the outputs must be the same bits."""
+    segment, n = 193, or the sparse decoupled fleet's, n = 245) run in the
+    large build and in its pair form on the same operands: the pair's
+    blocks compute each column of xt with the large build's sums, so the
+    outputs must be the same bits.  Also each build's time (3 calls), its
+    residency and pipe floor."""
     from pigeon_tpu_torch.solver import pallas_admm as pa
 
     ops, (n_iters, sigma, alpha) = args[:9], args[9:12]
     m_split = kw.get("m_eq", 0) if b8_mode(kw, ops[1].shape[1]) in \
         pa.MIXED_MODES else 0
-    outs, ms = {}, {}
+    outs, ms, res = {}, {}, {}
+    mode = b8_mode(kw, ops[1].shape[1])
     for build in ("large", "pair"):
         pattern = kw["pattern"].as_build(build, m_split)
         kb = dict(kw, sigma=sigma, alpha=alpha, pattern=pattern,
@@ -1691,14 +1721,22 @@ def pair_vs_large(torch, args, kw):
         outs[build] = dense_admm(torch, ops, kb, n_iters, kw["check"])
         ms[build] = cuda_ms(torch, lambda: dense_admm(
             torch, ops, kb, n_iters, kw["check"]), 3)
+        res[build] = residency(torch, pattern, ops[1].shape[0], kb["tile"],
+                               False, mode)
+        iters = float(outs[build][3][:, 6].double().mean())
+        res[build]["pipe_floor_ms"] = pipe_floor_ms(
+            torch, pattern, res[build], kb["tile"], iters, mode)
+        res[build]["pipe_floor_all_rows_ms"] = pipe_floor_ms(
+            torch, pattern, res[build], kb["tile"], iters, mode,
+            all_rows=True)
     same = all(torch.equal(a, b) for a, b in zip(outs["large"],
                                                  outs["pair"]))
     diffs = [float((a - b).abs().max())
              for a, b in zip(outs["large"], outs["pair"])]
     require(same, f"admm_pair differs from admm_large at "
                   f"{tuple(ops[1].shape)}: {diffs}")
-    return dict(bit_equal=same, ms=ms, mode=b8_mode(kw, ops[1].shape[1]),
-                shapes=[list(ops[1].shape)])
+    return dict(bit_equal=same, ms=ms, mode=mode, tile=kw["tile"],
+                residency=res, shapes=[list(ops[1].shape)])
 
 
 def wide_chain_links(pattern) -> int:
@@ -1935,7 +1973,10 @@ def check_admm_dense_modes(torch, forms):
                        bound_by=b_by, iters_mean=iters,
                        finite=bool(torch.isfinite(k[0]).all()), **res,
                        pipe_floor_ms=pipe_floor_ms(torch, pattern, res,
-                                                   kw["tile"], iters),
+                                                   kw["tile"], iters, mode),
+                       pipe_floor_all_rows_ms=pipe_floor_ms(
+                           torch, pattern, res, kw["tile"], iters, mode,
+                           all_rows=True),
                        cold=cold, warm=warm, ragged=ragged,
                        shapes=[list(ops[0].shape), list(ops[1].shape)])
             # x's largest difference from the float32 plain version,
@@ -2863,15 +2904,15 @@ def main() -> int:
                             "condensed")
     small_cd = timed("condensed_small", capture_fleet, "condensed", B_SMALL,
                      HZ_SMALL)
-    # the sparse decoupled fleet: B8's pair build, and the two exponential
-    # stacks of a step (its first call the ZOH stages', its last the FOH
-    # stages')
+    # the sparse decoupled fleet: B8's large build, and the two
+    # exponential stacks of a step (its first call the ZOH stages', its
+    # last the FOH stages')
     cap_ds, warm_ds = timed("decoupled_sparse_cold_warm", capture_cold_warm,
                             "decoupled_sparse")
     small_ds = timed("decoupled_sparse_small", capture_fleet,
                      "decoupled_sparse", B_SMALL, HZ_SMALL)
     require(cap_ds["admm_dense"][0][1].shape == (B_SPARSE, 395, 245)
-            and cap_ds["admm_dense"][1]["pattern"].build == "pair"
+            and cap_ds["admm_dense"][1]["pattern"].build == "large"
             and cap_ds["admm_dense"][1]["tile"] == 4
             and not {"vanloan", "banded_chol"} & set(cap_ds)
             and cap_ds["expm_dense"][0][0].shape == (B_SPARSE * 10, 11, 11)
@@ -2909,6 +2950,15 @@ def main() -> int:
             "the decoupled fleet's QP and stage sizes")
     cap["rollout"] = cap_dec["rollout_affine"]
     cap["expm_dense"] = capture_step("coupled")["expm_dense"]
+
+    def as_pair(call):
+        """A captured call with its pattern in the pair build (the pack is
+        the large build's, which the pair shares, so the call packs
+        anew)."""
+        args, kw = call
+        kw = {k: v for k, v in kw.items() if k != "A_packed"}
+        return args, dict(kw, pattern=kw["pattern"].as_build("pair"))
+
     extra = {"rollout": None,
              "expm_dense": dict(
                  decoupled=capture_step("decoupled")["expm_dense"],
@@ -2923,7 +2973,7 @@ def main() -> int:
              "admm_large": dict(small=small_mk["admm_dense"],
                                 warm=warm_mk["admm_dense"]),
              "admm_pair": dict(small=small_ds["admm_dense"],
-                               warm=warm_ds["admm_dense"],
+                               warm=as_pair(warm_ds["admm_dense"]),
                                large_calls=dict(
                                    sparse=cap_sp["admm_dense"],
                                    sparse_mixedk6=cap_mk["admm_dense"])),
@@ -2933,10 +2983,11 @@ def main() -> int:
         cap[kname] = cap_sp[kname]
     # the dense ADMM kernel's wide build at the condensed fleet's shapes
     cap["admm_wide"] = cap_cd["admm_dense"]
-    # its large build at the mixedk6 sparse fleet's, and its pair build at
-    # the sparse decoupled fleet's
+    # its large build at the mixedk6 sparse fleet's (and, below, the sparse
+    # decoupled fleet's), and its pair build at the sparse decoupled
+    # fleet's, which no path runs now that the large block holds it
     cap["admm_large"] = cap_mk["admm_dense"]
-    cap["admm_pair"] = cap_ds["admm_dense"]
+    cap["admm_pair"] = as_pair(cap_ds["admm_dense"])
     require(cap["expm_dense"][0][0].shape == (1, 15, 19, 19)
             and extra["expm_dense"]["decoupled"][0][0].shape
             == (1, 30, 17, 17), "the unbatched route's dense stacks")
@@ -2974,6 +3025,13 @@ def main() -> int:
     second["ruiz_decoupled_sparse"] = check_ruiz(torch, *cap_ds["ruiz"],
                                                  small_ds["ruiz"])
     log_check("ruiz", second["ruiz_decoupled_sparse"],
+              path="fleet_decoupled_sparse")
+    # the dense ADMM kernel's large build on the sparse decoupled fleet's
+    # segments, its path's build (n = 245, "highest")
+    second["admm_large_decoupled_sparse"] = check_admm_dense(
+        torch, *cap_ds["admm_dense"], dict(small=small_ds["admm_dense"],
+                                           warm=warm_ds["admm_dense"]))
+    log_check("admm_large", second["admm_large_decoupled_sparse"],
               path="fleet_decoupled_sparse")
     # the wide build at tile 1, B = 1, as the unbatched condensed route
     # launches it
@@ -3034,15 +3092,15 @@ def main() -> int:
             require(all(r["launches"] == SPARSE_STEP_LAUNCHES for r in recs),
                     f"sparse step launches {[r['launches'] for r in recs]}")
         if formulation == "decoupled_sparse":
-            # the two exponential stacks and Ruiz once, B8's pair build
+            # the two exponential stacks and Ruiz once, B8's large build
             # once per segment of the budget (fewer only on a step where
             # every vehicle converged)
             n_seg = SPARSE_SOLVER["max_iter"] // SPARSE_SOLVER["check_every"]
             require(all({k: r["launches"].get(k) for k in
                          DECOUPLED_SPARSE_STEP_LAUNCHES}
                         == DECOUPLED_SPARSE_STEP_LAUNCHES
-                        and 1 <= r["launches"]["admm_pair"] <= n_seg
-                        and (r["launches"]["admm_pair"] == n_seg
+                        and 1 <= r["launches"]["admm_large"] <= n_seg
+                        and (r["launches"]["admm_large"] == n_seg
                              or r["conv"] == 1) for r in recs),
                     f"{phase} step launches {[r['launches'] for r in recs]}")
         if formulation in ("condensed", "sparse_mixedk6"):
@@ -3122,7 +3180,11 @@ def main() -> int:
 
     main_launches = {k: sum(per[k] for per in launches.values())
                      for k in KERNEL_META}
-    require(all(v > 0 for v in main_launches.values()), main_launches)
+    # every kernel of a path (the pair build is on none: its kernel check
+    # above drives it)
+    require(all(main_launches[k] > 0
+                for k in set().union(*PATH_KERNELS.values())),
+            main_launches)
 
     # ---- reference checks -------------------------------------------------
     for formulation in ("coupled", "decoupled", "sparse", "condensed",

@@ -1,13 +1,14 @@
 // The code shared by the dense ADMM kernel's builds with A compact:
 // csrc/admm_wide.cu (the wide build: the condensed QP's long rows and
 // columns, a diagonal or a dense P) and csrc/admm_large.cu (the large
-// build: the sparse coupled QP in the split modes, one block filling an
-// SM; and its pair build: the sparse decoupled QP, an instance on two
-// blocks).  All replace the TPU kernel
-// pigeon_tpu/solver/pallas_admm.py:_kernel and store A's static nonzeros
-// once in row and once in column slot order, read by lane plans (the
-// wrapper's `pallas_admm.EllPattern`).  Shared here: the precision modes'
-// arithmetic (Arith, the bf16 pair in one 32-bit word, SplitSums), the
+// build: the sparse coupled QP in the split modes and the sparse
+// decoupled QP, one block filling an SM; and its pair build: an instance
+// on two blocks, for a K^-1 that one block does not hold).  All replace
+// the TPU kernel pigeon_tpu/solver/pallas_admm.py:_kernel and store A's
+// static nonzeros once in row and once in column slot order, read by lane
+// plans (the wrapper's `pallas_admm.EllPattern`).  Shared here: the
+// precision modes' arithmetic (Arith, the bf16 pair in one 32-bit word,
+// SplitSums), the
 // NaN handling (clip_keep_nan, nmax), a lane's run and its group's sum,
 // the check blocks with the early exit per tile (run_checks), and the host
 // side of a launch for a build's traits (`prepare`, `launch`,
@@ -284,21 +285,22 @@ bool valid_mode(int mode, int m_eq, int m) {
 }
 
 // The host side of a build `Build`: Build::BLOCK (threads a block),
-// Build::PAIRS (blocks an instance), Build::smem(n, m, sr, sc, rwarps,
-// cwarps, vec) (a block's shared bytes) and Build::kernel(dense_P, mode)
-// (its kernel; nullptr where the build takes no such call).  `prepare`
-// checks the arguments and the block's shared memory and sets its opt-in.
+// Build::PAIRS (blocks an instance), Build::N_MAX (the largest n it
+// takes), Build::smem(n, m, sr, sc, rwarps, cwarps, mode) (a block's
+// shared bytes) and Build::kernel(dense_P, mode) (its kernel; nullptr
+// where the build takes no such call).  `prepare` checks the arguments
+// and the block's shared memory and sets its opt-in.
 template <class Build>
 cudaError_t prepare(int n, int m, int sr, int sc, int rwarps, int cwarps,
                     int tile, int dense_P, int mode, int m_eq,
                     size_t* shmem) {
   if (n < 1 || m < 1 || sr < 0 || sr > SLOTS_MAX || sc < 0
-      || sc > SLOTS_MAX || n >= LANE_IDLE
+      || sc > SLOTS_MAX || n >= LANE_IDLE || n > Build::N_MAX
       || m >= LANE_IDLE || rwarps < 1 || cwarps < 1 || tile < 1
       || tile * Build::PAIRS > TILE_MAX || (dense_P != 0 && dense_P != 1)
       || !valid_mode(mode, m_eq, m) || !Build::kernel(dense_P, mode))
     return cudaErrorInvalidValue;
-  *shmem = Build::smem(n, m, sr, sc, rwarps, cwarps, mode != HIGHEST);
+  *shmem = Build::smem(n, m, sr, sc, rwarps, cwarps, mode);
   if (*shmem > (size_t)SMEM_MAX) return cudaErrorInvalidValue;
   return cudaFuncSetAttribute(Build::kernel(dense_P, mode),
                               cudaFuncAttributeMaxDynamicSharedMemorySize,

@@ -1,12 +1,13 @@
 // OSQP ADMM iterations of the hard MPC QPs with a dense explicit K^-1, the
-// large build: the sparse QP (n = 193, m = 290, the 128 equality rows
-// first) in the split modes ("mixed", "mixedk6", "high", "bf16"), a
-// diagonal P.  Its K^-1 (154,400 B at row stride kld(n)) takes most of an
-// SM's shared memory, so one block holds an SM, and the design makes that
-// block use the whole SM.  The early-exit tile of `tile` instances is one
-// thread block cluster.  `pallas_admm.plan_build` picks it for a diagonal
-// P in a split mode at widths within NARROW_WIDTH_MAX, where its block
-// fits.
+// large build, a diagonal P: the sparse coupled QP (n = 193, m = 290, the
+// 128 equality rows first) in the split modes ("mixed", "mixedk6",
+// "high", "bf16"), and the sparse decoupled QP (n = 245, m = 395) in
+// "highest", "mixedk6" and "bf16".  One 512-thread block holds an SM (128
+// registers a thread), and the design makes that block use the whole SM.
+// The early-exit tile of `tile` instances is one thread block cluster.
+// `pallas_admm.plan_build` picks it for a diagonal P in a split mode at
+// widths within NARROW_WIDTH_MAX, and `EllPattern.for_mode` for a diagonal
+// P whose narrow block does not fit, where its block fits (n <= 256).
 //
 // Replaces the TPU kernel pigeon_tpu/solver/pallas_admm.py:_kernel in
 // those modes.  The iteration, the statistics, the exits, the modes'
@@ -27,11 +28,14 @@
 //               sums); a column's two parts meet in shared memory (ae, as)
 //               and are added in one more pass, as the TPU kernel's matA
 //               adds them.  A x's group leader updates its row's z, y, w.
-//   rhs' K^-1   13 warps, a warp 16 consecutive columns, a lane 4 of them
-//               (one 16-byte load a row) over one of 8 parts of the rows
-//               (`lk_run`: no bank conflicts at row stride kld(n)); the
-//               parts added in the xor butterfly; the first kreg<MODE>()
-//               rows of a lane's part held in registers for the call.
+//   rhs' K^-1   a warp 16 consecutive columns (one task a warp: n <=
+//               256), a lane 4 of them (one 16-byte load a row) over one
+//               of 8 parts of the rows (`lk_run`: no bank conflicts at row
+//               stride kld(n)); the parts added in the xor butterfly; the
+//               first kreg<MODE>() rows of a lane's part held in registers
+//               for the call, loaded from device memory, and only the
+//               other rows of each part stored in shared memory (`KGeom`),
+//               so that a K^-1 of n = 245 fits the block.
 //   checks      the words of x and y made by the iteration before (`last`),
 //               the maxima folded where A x and A'y are made and reduced
 //               over all warps.
@@ -64,8 +68,9 @@
 //               warps here (LSmem's vnx and wmax against Smem's ax).
 //
 // The pair build (kernel "admm_pair"): an instance whose K^-1 does not fit
-// one large block (the sparse decoupled QP: n = 245, m = 395, K^-1 258,720
-// B at row stride kld(n)) runs on a pair of blocks, one an SM, in a cluster
+// one large block (n > 256, or the sparse decoupled QP's n = 245 in
+// "mixed" and "high", whose 8 register rows leave 182 rows stored) runs on
+// a pair of blocks, one an SM, in a cluster
 // of 2 `tile` blocks (the tile's pairs).  K^-1 is symmetric, so block r of
 // the pair holds the columns of its half of x (`KGeom`: a whole number of
 // the product's 16-column tasks, block 0 half of them rounded up) over all
@@ -78,15 +83,16 @@
 // barrier both relax all of x from the full xt.  So a check's statistics
 // are the same in both blocks, and block 0 writes the outputs.  Blocks past
 // B keep to the cluster barriers.  A column's sum is the large build's
-// (the same row parts and order), so the pair gives the bits the large
-// build would give if its block held the whole K^-1.
+// (the same row parts and order), so the pair gives the large build's
+// bits; it stores all n rows of its columns.
 //
 // Bound on the card (H100 SXM): the larger of the call's bytes (K^-1 and
 // A's static nonzeros read once) and its operations (a split term's three
 // FMAs): 0.136 ms, by operations, for the sparse fleet's 2048-instance
 // cold segment in "mixedk6"; its pipe floor, K^-1 through the
 // shared-memory pipe once an iteration at 128 B a clock, 0.548 ms
-// (chip_smoke.py's `pipe_floor_ms`).  What sets the time is the pipe's
+// (chip_smoke.py's `pipe_floor_ms`, which counted all n rows before the
+// register rows left shared memory).  What sets the time is the pipe's
 // traffic: measured, it moves ~1.4 clocks a 128-byte wavefront in the
 // K^-1 product, which keeps it near 2,000 clocks an iteration.
 
@@ -100,11 +106,16 @@ namespace {
 constexpr int L_THREADS = 512;
 constexpr int L_WARPS = L_THREADS / 32;
 // rows of its part of K^-1 a K^-1 lane keeps in registers for the call:
-// 16 where K^-1 is fp32 or rounded, 8 where its words are split (16 would
-// spill the split sums' registers)
+// 16 where K^-1 is fp32 or rounded, 8 where its words are split
+// (Arith<MODE>::K_SPLIT: 16 would spill the split sums' registers)
+__host__ __device__ constexpr int kreg_of(int mode) {
+  return (mode == MIXED || mode == HIGH) ? 8 : 16;
+}
+
 template <int MODE>
 __host__ __device__ constexpr int kreg() {
-  return Arith<MODE>::K_SPLIT ? 8 : 16;
+  static_assert((kreg_of(MODE) == 8) == Arith<MODE>::K_SPLIT, "kreg");
+  return kreg_of(MODE);
 }
 // the K^-1 product: a lane's 4 consecutive columns (one 16-byte load a
 // row) over one of the 8 parts of the rows; a warp's 4 column lanes (16
@@ -128,6 +139,24 @@ __host__ __device__ inline int lk_tasks(int n) {
   return (n + LK_TASK - 1) / LK_TASK;
 }
 
+// The large build's n: one K^-1 task a warp, so that every lane's first
+// kreg rows are register rows and shared memory holds only the rest
+constexpr int L_N_MAX = L_WARPS * LK_TASK;
+
+// The rows of K^-1 the large build stores: each part's rows past its
+// first kreg, part p's at p (lk_run(n) - kreg) onwards (so row j of part
+// p, kreg or more into its part, is stored row j - (p + 1) kreg; a part's
+// stored run is 2 mod 4 rows, as lk_run's, where it has one)
+__host__ __device__ inline int stored_rows(int n, int kreg) {
+  const int run = lk_run(n);
+  int rows = 0;
+  for (int p = 0; p < LK_PARTS; ++p) {
+    const int past = (n - p * run < run ? n - p * run : run) - kreg;
+    rows += past > 0 ? past : 0;
+  }
+  return rows;
+}
+
 // The pair build's K^-1 columns: block 0 the first pair_cols0(n), a whole
 // number of LK_TASK-column tasks (half of them rounded up), block 1 the
 // rest, each at the row stride pair_ld(n), pair_cols0(n) rounded up to 8
@@ -138,43 +167,47 @@ __host__ __device__ inline int pair_cols0(int n) {
 
 __host__ __device__ inline int pair_ld(int n) { return kld(pair_cols0(n)); }
 
-// A block's columns of K^-1: from c0, `cols` of them, at row stride ld
+// A block's columns of K^-1 in its shared memory: from c0, `cols` of
+// them, at row stride ld; `rows` rows stored, and `skip`: 0 where all n
+// are (the pair build), else the register rows each part leaves out
+// (`stored_rows`)
 struct KGeom {
-  int c0, cols, ld;
+  int c0, cols, ld, skip, rows;
 };
 
-template <bool PAIR>
+template <int MODE, bool PAIR>
 __host__ __device__ inline KGeom k_geom(int n, int half) {
   if constexpr (PAIR) {
     const int c1 = min(pair_cols0(n), n);    // block 0's columns end
-    return half == 0 ? KGeom{0, c1, pair_ld(n)}
-                     : KGeom{c1, n - c1, pair_ld(n)};
+    return half == 0 ? KGeom{0, c1, pair_ld(n), 0, n}
+                     : KGeom{c1, n - c1, pair_ld(n), 0, n};
   } else {
-    return {0, n, kld(n)};
+    return {0, n, kld(n), kreg<MODE>(), stored_rows(n, kreg<MODE>())};
   }
 }
 
-// K^-1's words in a block's shared memory: all of it at row stride
-// kld(n), or (`pair`) a half's columns at pair_ld(n) and the exchange
-// buffers xh (2 n)
-__host__ __device__ inline size_t k_words(int n, int pair) {
+// K^-1's words in a block's shared memory: its stored rows (`kreg`
+// register rows a part left out) at row stride kld(n), or (`pair`) all
+// rows of a half's columns at pair_ld(n) and the exchange buffers xh (2 n)
+__host__ __device__ inline size_t k_words(int n, int pair, int kreg) {
   return pair ? (size_t)n * pair_ld(n) + 2 * (size_t)n
-              : (size_t)n * kld(n);
+              : (size_t)stored_rows(n, kreg) * kld(n);
 }
 
-// Shared memory of one block, in this order: K^-1 (n kld(n), first, so
-// that its rows are 16-byte aligned; in the pair build its columns and
-// xh, `k_words`); floats v1, x, v2, q, PuD, qu, invDc, ae, as (n each), z,
-// y, w, rho, l, u, E (m each), st (8), the warps' maxima (8 a warp), aqu
-// (4), vr (sr slots), vc (sc slots); with `vec` the words vn1, vn2, vnx (n
-// each), vm1, vm2 (m each); ints flags (2); the pattern block.
+// Shared memory of one block in `mode`, in this order: K^-1 (first, so
+// that its rows are 16-byte aligned; `k_words`); floats v1, x, v2, q, PuD,
+// qu, invDc, ae, as (n each), z, y, w, rho, l, u, E (m each), st (8), the
+// warps' maxima (8 a warp), aqu (4), vr (sr slots), vc (sc slots); in
+// every mode but HIGHEST the words vn1, vn2, vnx (n each), vm1, vm2 (m
+// each); ints flags (2); the pattern block.
 __host__ __device__ inline size_t smem_bytes_large(int n, int m, int sr,
                                                    int sc, int rwarps,
-                                                   int cwarps, int vec,
+                                                   int cwarps, int mode,
                                                    int pair) {
-  const size_t words = k_words(n, pair) + 9 * (size_t)n + 7 * (size_t)m
-                       + 8 + 8 * L_WARPS + 4 + (size_t)sr + sc
-                       + (vec ? 3 * (size_t)n + 2 * (size_t)m : 0) + 2
+  const bool vec = mode != HIGHEST;
+  const size_t words = k_words(n, pair, kreg_of(mode)) + 9 * (size_t)n
+                       + 7 * (size_t)m + 8 + 8 * L_WARPS + 4 + (size_t)sr
+                       + sc + (vec ? 3 * (size_t)n + 2 * (size_t)m : 0) + 2
                        + plan_words(sr, sc, rwarps, cwarps);
   return 4 * words;
 }
@@ -192,12 +225,12 @@ struct LSmem {
 };
 
 __device__ LSmem carve_large(float* sh, const Args& a, bool vec,
-                             bool pair) {
+                             bool pair, int kreg) {
   const int n = a.n, m = a.m;
   LSmem s;
   s.K = sh;
   s.xh = s.K + n * pair_ld(n);
-  s.v1 = s.K + k_words(n, pair);
+  s.v1 = s.K + k_words(n, pair, kreg);
   s.x = s.v1 + n;
   s.v2 = s.x + n;
   s.q = s.v2 + n;
@@ -347,25 +380,48 @@ struct LKLane {
   }
 };
 
+// a K^-1 entry in the mode's form: the bf16 pair, or (BF16) the rounding
 template <int MODE>
-__device__ __forceinline__ void load_kcache(const Args& a, const LSmem& s,
-                                            const KGeom& kg,
-                                            KCache<MODE>& kc) {
-  const int n = a.n, ld4 = kg.ld / 4, t = threadIdx.x >> 5;
+__device__ __forceinline__ unsigned k_word(float v) {
+  using M = Arith<MODE>;
+  if constexpr (M::K_SPLIT) return split_word(v);
+  else if constexpr (M::K_ROUND) return __float_as_uint(bf16_round(v));
+  else return __float_as_uint(v);
+}
+
+// Loads the lane's register rows of instance b's K^-1 straight from device
+// memory, in the mode's form (its rows at stride n there: scalar loads,
+// once an instance); zero past the part's rows, past the block's columns
+// and for a warp without a task
+template <int MODE>
+__device__ __forceinline__ void load_kcache(const Args& a, const KGeom& kg,
+                                            long long b, KCache<MODE>& kc) {
+  const int n = a.n, t = threadIdx.x >> 5;
   const LKLane lk(n);
-  const uint4* K4 = reinterpret_cast<const uint4*>(s.K + lk.k0(t));
+  const int k0 = lk.k0(t);
+  const bool task = t < lk_tasks(kg.cols);
+  const float* Kb = a.Kinv + b * n * n + kg.c0 + k0;
 #pragma unroll
-  for (int i = 0; i < kreg<MODE>(); ++i)
-    kc.w[i] = (t < lk_tasks(kg.cols) && lk.j0 + i < lk.j1)
-                  ? K4[(lk.j0 + i) * ld4] : make_uint4(0u, 0u, 0u, 0u);
+  for (int i = 0; i < kreg<MODE>(); ++i) {
+    const int j = lk.j0 + i;
+    const bool row = task && j < lk.j1;
+    unsigned w[LK_COLS];
+#pragma unroll
+    for (int c = 0; c < LK_COLS; ++c)
+      w[c] = (row && k0 + c < kg.cols)
+                 ? k_word<MODE>(__ldg(Kb + (long long)j * n + c)) : 0u;
+    kc.w[i] = make_uint4(w[0], w[1], w[2], w[3]);
+  }
 }
 
 // xt = rhs' K^-1 in the mode's arithmetic for the block's columns `kg`,
 // then out(k, xt[k]): warp t takes columns LK_TASK t onwards, a lane four
 // of them over its part's rows ascending (the first kreg<MODE>() from
-// registers on the warp's first task), the parts added by
-// `parts_sum_large`; the lanes of parts 0..3 put the four columns (columns
-// past the block's read the row's next words, and are dropped).
+// registers on the warp's first task, the rest from shared memory: row j
+// at stored row j - (part + 1) kg.skip, so a warp has one task wherever
+// kg.skip > 0), the parts added by `parts_sum_large`; the lanes of parts
+// 0..3 put the four columns (columns past the block's read the row's next
+// words, and are dropped).
 template <int MODE, class Out>
 __device__ __forceinline__ void large_k_products(const Args& a,
                                                  const LSmem& s,
@@ -375,6 +431,7 @@ __device__ __forceinline__ void large_k_products(const Args& a,
   using M = Arith<MODE>;
   const int n = a.n, ld4 = kg.ld / 4, warp = threadIdx.x >> 5;
   const LKLane lk(n);
+  const int shift = (lk.part + 1) * kg.skip;
   for (int t = warp; t < lk_tasks(kg.cols); t += L_WARPS) {
     const int k0 = lk.k0(t);
     const uint4* K4 = reinterpret_cast<const uint4*>(s.K + k0);
@@ -396,7 +453,7 @@ __device__ __forceinline__ void large_k_products(const Args& a,
         j = min(lk.j0 + kreg<MODE>(), lk.j1);
       }
 #pragma unroll 4
-      for (; j < lk.j1; ++j) term(K4[j * ld4], s.vn1[j]);
+      for (; j < lk.j1; ++j) term(K4[(j - shift) * ld4], s.vn1[j]);
 #pragma unroll
       for (int q = 0; q < LK_COLS; ++q) {
         sp[q].hh = parts_sum_large(sp[q].hh);
@@ -424,7 +481,7 @@ __device__ __forceinline__ void large_k_products(const Args& a,
         j = min(lk.j0 + kreg<MODE>(), lk.j1);
       }
 #pragma unroll 4
-      for (; j < lk.j1; ++j) term(K4[j * ld4], vec(j));
+      for (; j < lk.j1; ++j) term(K4[(j - shift) * ld4], vec(j));
 #pragma unroll
       for (int q = 0; q < LK_COLS; ++q) c[q] = parts_sum_large(acc[q]);
     }
@@ -569,18 +626,21 @@ __device__ bool calc_stats_large(const Args& a, const LSmem& s) {
   return __syncthreads_and(conv) != 0;
 }
 
-// Loads the block's instance b: its columns `kg` of K^-1 (all of it but
-// in the pair build), A's values, the pattern block and the vectors.
+// Loads the block's instance b: the stored rows `kg` of its K^-1 (its
+// columns in the pair build), A's values, the pattern block and the
+// vectors.
 template <int MODE>
 __device__ void load_large(const Args& a, const LSmem& s, const KGeom& kg,
                            long long b) {
   using M = Arith<MODE>;
   const int n = a.n, m = a.m, ld = kg.ld, nc = kg.cols;
+  const int srun = lk_run(n) - kg.skip;     // > 0 wherever a row is stored
   const float* Kb = a.Kinv + b * n * n + kg.c0;
-  for (int e = threadIdx.x; e < n * nc; e += L_THREADS) {
-    const int i = e / nc;
-    cp_async4(s.K + i * ld + (e - i * nc), Kb + (long long)i * n
-                                              + (e - i * nc));
+  for (int e = threadIdx.x; e < kg.rows * nc; e += L_THREADS) {
+    const int i = e / nc, c = e - i * nc;
+    // stored row i: row i + (part + 1) skip of K^-1
+    const int j = kg.skip ? i + (i / srun + 1) * kg.skip : i;
+    cp_async4(s.K + i * ld + c, Kb + (long long)j * n + c);
   }
   const float* Vb = a.Aval + b * (a.sr + a.sc);
   for (int e = threadIdx.x; e < a.sr + a.sc; e += L_THREADS)
@@ -609,7 +669,7 @@ __device__ void load_large(const Args& a, const LSmem& s, const KGeom& kg,
   // the mode's forms of K^-1 and A (a slot's class is its lane's; the
   // pads' forms are never read)
   if constexpr (M::K_SPLIT || M::K_ROUND) {
-    for (int e = threadIdx.x; e < n * nc; e += L_THREADS) {
+    for (int e = threadIdx.x; e < kg.rows * nc; e += L_THREADS) {
       float* k = s.K + (e / nc) * ld + e % nc;
       *k = M::K_SPLIT ? __uint_as_float(split_word(*k)) : bf16_round(*k);
     }
@@ -659,15 +719,15 @@ __global__ void __launch_bounds__(L_THREADS, 1)
 admm_large_kernel(Args a) {
   extern __shared__ float4 sh4[];
   const LSmem s = carve_large(reinterpret_cast<float*>(sh4), a,
-                              Arith<MODE>::VEC, PAIR);
+                              Arith<MODE>::VEC, PAIR, kreg<MODE>());
   const long long b = PAIR ? blockIdx.x / 2 : blockIdx.x;
   const int half = PAIR ? blockIdx.x % 2 : 0;
-  const KGeom kg = k_geom<PAIR>(a.n, half);
+  const KGeom kg = k_geom<MODE, PAIR>(a.n, half);
   const bool active = b < a.B;               // uniform across the pair
   KCache<MODE> kc;
   if (active) {
+    load_kcache<MODE>(a, kg, b, kc);
     load_large<MODE>(a, s, kg, b);
-    load_kcache<MODE>(a, s, kg, kc);
   }
   float* xh_peer = nullptr;
   if constexpr (PAIR) {
@@ -706,14 +766,16 @@ constexpr KernelFn of_mode() {
 }
 
 // the builds' traits (csrc/admm_compact.cuh's `prepare`): a diagonal P
-// only; an instance a block (Large) or a pair of blocks (Pair)
+// only; an instance a block (Large, n <= L_N_MAX) or a pair of blocks
+// (Pair)
 template <bool PAIR>
 struct LargeBuild {
   static constexpr int BLOCK = L_THREADS;
   static constexpr int PAIRS = PAIR ? 2 : 1;
+  static constexpr int N_MAX = PAIR ? LANE_IDLE - 1 : L_N_MAX;
   static size_t smem(int n, int m, int sr, int sc, int rwarps, int cwarps,
-                     int vec) {
-    return smem_bytes_large(n, m, sr, sc, rwarps, cwarps, vec, PAIR);
+                     int mode) {
+    return smem_bytes_large(n, m, sr, sc, rwarps, cwarps, mode, PAIR);
   }
   static KernelFn kernel(int dense_P, int mode) {
     if (dense_P) return nullptr;

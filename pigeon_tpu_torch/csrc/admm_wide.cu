@@ -549,9 +549,10 @@ KernelFn of_mode(int mode) {
 struct Wide {
   static constexpr int BLOCK = THREADS;
   static constexpr int PAIRS = 1;
+  static constexpr int N_MAX = LANE_IDLE - 1;
   static size_t smem(int n, int m, int sr, int sc, int rwarps, int cwarps,
-                     int vec) {
-    return smem_bytes(n, m, sr, sc, rwarps, cwarps, vec);
+                     int mode) {
+    return smem_bytes(n, m, sr, sc, rwarps, cwarps, mode != HIGHEST);
   }
   static KernelFn kernel(int dense_P, int mode) {
     return dense_P ? of_mode<true>(mode) : of_mode<false>(mode);

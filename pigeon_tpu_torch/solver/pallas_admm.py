@@ -22,10 +22,16 @@ wide one (`csrc/admm_wide.cu`, A compact in row and column order, the
 condensed QP's long rows and columns split over lanes by `lane_plan`) and
 the large one (`csrc/admm_large.cu`: the wide build's compact A, one block
 of LARGE_WARPS warps filling an SM, the sparse QP in the split modes with
-a diagonal P; `class_lane_plan`).  A diagonal P whose block fits none of
-them takes the large build's pair form (`EllPattern.for_mode`; kernel
-"admm_pair" of the same source): an instance on two blocks, each holding
-half of K^-1's columns (the sparse decoupled QP, n = 245).
+a diagonal P; `class_lane_plan`).  Where the planned build's block does
+not fit, `EllPattern.for_mode` gives a diagonal P the narrow build, else
+the large one, where its block fits: the large build keeps each K^-1
+lane's first `large_kreg(mode)` rows in registers and stores only the
+others (`large_stored_rows`), which lets it hold the sparse decoupled
+QP's K^-1 (n = 245) in "highest", "mixedk6" and "bf16".  A diagonal P
+whose block fits none of them (n > LARGE_N_MAX, or n = 245 in "mixed"
+and "high") takes the large build's pair form (kernel "admm_pair" of the
+same source): an instance on two blocks, each holding half of K^-1's
+columns.
 """
 
 from __future__ import annotations
@@ -73,6 +79,8 @@ LANE_SPLIT = 1 << 27
 # lane
 LARGE_WARPS = 16
 LARGE_K_PARTS, LARGE_K_TASK, LARGE_K_COLS = 8, 16, 4
+# the large build's n: one K^-1 task a warp (csrc/admm_large.cu's L_N_MAX)
+LARGE_N_MAX = LARGE_WARPS * LARGE_K_TASK
 # the pair build's tile is a cluster of 2 tile blocks
 PAIR_TILE_MAX = TILE_MAX // 2
 
@@ -82,9 +90,9 @@ def plan_build(row_width: int, col_width: int, mode: str = "highest",
     """The dense ADMM kernel's build for a pattern of these widths in
     `mode`: "wide" past NARROW_WIDTH_MAX; within it "large" for a
     diagonal P in the split modes ("mixed", "mixedk6", "high", "bf16"),
-    else "narrow" (`EllPattern.for_mode` also keeps the narrow build
-    where the large one's block does not fit, and gives a diagonal P
-    whose block fits neither the "pair" build)."""
+    else "narrow".  `EllPattern.for_mode` then takes, for a diagonal P
+    whose block does not fit, the narrow build, else the large one, where
+    its block fits, and else the "pair" build."""
     if max(row_width, col_width) > NARROW_WIDTH_MAX:
         return "wide"
     return "narrow" if mode == "highest" or dense_P else "large"
@@ -103,6 +111,22 @@ def large_k_run(n: int) -> int:
     apart."""
     r = -(-n // LARGE_K_PARTS)
     return r + (2 - r) % 4
+
+
+def large_kreg(mode: str) -> int:
+    """The rows of its part of K^-1 a K^-1 lane of the large build keeps
+    in registers (csrc/admm_large.cu's `kreg_of`): 8 where the K^-1 words
+    are split ("mixed", "high"), else 16."""
+    return 8 if mode in ("mixed", "high") else 16
+
+
+def large_stored_rows(n: int, kreg: int) -> int:
+    """The rows of K^-1 the large build stores in shared memory
+    (csrc/admm_large.cu's `stored_rows`): each part's rows past its first
+    `kreg`, the register rows."""
+    run = large_k_run(n)
+    return sum(max(min(run, n - p * run) - kreg, 0)
+               for p in range(LARGE_K_PARTS))
 
 
 def pair_cols0(n: int) -> int:
@@ -479,20 +503,19 @@ class EllPattern:
     def for_mode(self, mode: str, m_eq: int = 0,
                  dense_P: bool = False) -> "EllPattern":
         """The pattern in the build `plan_build` gives its widths, `mode`
-        and `dense_P` (the large build's rows split at the mixed modes'
-        `m_eq`), the narrow build where the large one's block does not
-        fit, and for a diagonal P the pair build where the block of
-        neither fits: itself if it is that form already."""
+        and `dense_P` (the large and pair builds' rows split at the mixed
+        modes' `m_eq`); for a diagonal P whose block does not fit there,
+        the narrow build, else the large one, where its block fits
+        (`block_smem`), and else the pair build: itself if it is that
+        form already."""
         build = plan_build(self.row_width, self.col_width, mode, dense_P)
-        if build != "large":
-            form = self if build == self.build else self.as_build(build)
-        else:
-            form = self._split_form("large", mode, m_eq)
-            if block_bytes(form, dense_P, mode) > SMEM_MAX:
-                form = self if self.build == "narrow" else self.as_build(
-                    "narrow")
-        if dense_P or block_bytes(form, dense_P, mode) <= SMEM_MAX:
-            return form
+        order = ((build,) if dense_P or build == "wide"
+                 else dict.fromkeys((build, "narrow", "large")))
+        for b in order:
+            form = (self._split_form(b, mode, m_eq) if b in LARGE_FORMS
+                    else self if b == self.build else self.as_build(b))
+            if dense_P or _fits(form, mode):
+                return form
         return self._split_form("pair", mode, m_eq)
 
     @property
@@ -624,17 +647,19 @@ def plan_smem_wide(n: int, m: int, slots: tuple, lane_warps: tuple,
 def smem_bytes_large(n: int, m: int, slots: tuple, lane_warps: tuple,
                      mode: str = "highest", pair: bool = False) -> int:
     """Shared memory of one block of the large build (`smem_bytes_large`
-    in csrc/admm_large.cu): K^-1 at row stride `kld(n)` (with `pair`, a
-    block of the pair build: its half's columns at row stride `pair_ld(n)`
-    and the 2 n exchange words), the vectors (a column's two parts of
-    A'v, no A x: the checks reduce it where it is made), the warps'
-    maxima, A's values in both slot orders, in every mode but "highest"
-    five vectors' words (x's too, made where x is), and the pattern
-    block."""
+    in csrc/admm_large.cu): K^-1's stored rows (`large_stored_rows`: each
+    part's rows past the mode's `large_kreg` register rows) at row stride
+    `kld(n)` (with `pair`, a block of the pair build: all rows of its
+    half's columns at row stride `pair_ld(n)` and the 2 n exchange
+    words), the vectors (a column's two parts of A'v, no A x: the checks
+    reduce it where it is made), the warps' maxima, A's values in both
+    slot orders, in every mode but "highest" five vectors' words (x's
+    too, made where x is), and the pattern block."""
     sr, sc = slots
     even = lambda v: v + v % 2
     plan = 64 * sum(lane_warps) + (even(sr) + even(sc)) // 2
-    kwords = n * pair_ld(n) + 2 * n if pair else n * kld(n)
+    kwords = (n * pair_ld(n) + 2 * n if pair
+              else large_stored_rows(n, large_kreg(mode)) * kld(n))
     words = (kwords + 9 * n + 7 * m + 8 + 8 * LARGE_WARPS + 4 + sr + sc
              + (0 if mode == "highest" else 3 * n + 2 * m) + 2 + plan)
     return 4 * words
@@ -643,10 +668,17 @@ def smem_bytes_large(n: int, m: int, slots: tuple, lane_warps: tuple,
 def plan_smem_large(n: int, m: int, slots: tuple, lane_warps: tuple,
                     mode: str = "highest", dense_P: bool = False) -> int:
     """`smem_bytes_large`, or ValueError for a dense P (the large build
-    takes a diagonal one) or a shape that does not fit one block."""
+    takes a diagonal one), an n past LARGE_N_MAX (a warp's second K^-1
+    task would have no register rows) or a shape that does not fit one
+    block (the sparse decoupled QP's n = 245, m = 395 take 179,616 B in
+    "highest", 185,716 B in "mixedk6" and "bf16", and 244,852 B, too
+    many, in "mixed" and "high")."""
     if dense_P:
         raise ValueError("the dense ADMM kernel's large build takes a "
                          "diagonal P; a dense P takes the wide build")
+    if n > LARGE_N_MAX:
+        raise ValueError(f"the dense ADMM kernel's large build takes n <= "
+                         f"{LARGE_N_MAX} (one K^-1 task a warp); got n={n}")
     need = smem_bytes_large(n, m, slots, lane_warps, mode)
     if need > SMEM_MAX:
         raise ValueError(
@@ -691,6 +723,16 @@ def block_bytes(pattern: EllPattern, dense_P: bool = False,
                                 pattern.build == "pair")
     return smem_bytes_wide(pattern.n, pattern.m, pattern.slots,
                            pattern.lane_warps, mode)
+
+
+def _fits(pattern: EllPattern, mode: str) -> bool:
+    """Whether one block of the pattern's build takes it with a diagonal
+    P in `mode` (`block_smem` raises no ValueError)."""
+    try:
+        block_smem(pattern, False, mode)
+    except ValueError:
+        return False
+    return True
 
 
 def block_smem(pattern: EllPattern, dense_P: bool = False,

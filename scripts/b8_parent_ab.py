@@ -11,9 +11,12 @@ builds, on the same captured inputs, on one card, and compare them.
 from each hard path, captured as chip_smoke.py captures it: the first
 segment of a cold and of a warm step of the sparse fleet (B = 2048, mode
 "highest", the narrow build), of a cold and a warm step of the sparse
-fleet in mode "mixedk6", of the condensed fleet (dense P), and the
-unbatched condensed route's first segment (tile 1).  `run` loads them
-and, with the package and the chip_smoke.py of the checkout at ROOT,
+fleet in mode "mixedk6", of the condensed fleet (dense P), of the sparse
+decoupled fleet (n = 245, "highest": the large build, the pair build
+before its register rows left shared memory), and the unbatched
+condensed route's first segment (tile 1).  `run` loads them (and runs
+the sparse cold call in "mixed" and "high" too, MODE_CASES) and, with
+the package and the chip_smoke.py of the checkout at ROOT,
 packs A into that checkout's pattern of the path's layout (in the build
 of the call's mode, where the checkout picks builds by mode), runs each
 call, times it (chip_smoke's `cuda_ms`, 5 calls) and saves the outputs
@@ -22,8 +25,9 @@ whether the outputs of the NAMEs are bit-equal, and each NAME's times.
 Run parent, change, change, parent, so that drift on the card shows.
 `builds` runs each saved call in the builds of this checkout that take
 it (`EllPattern.as_build`: the sparse calls in the narrow, the wide and
-the large build, each in "highest" and in "mixedk6"; the condensed calls
-in the wide and the narrow one), in turns (each build, then each again
+the large build, each in "highest" and in "mixedk6"; the sparse
+decoupled calls in the large and the pair build; the condensed calls in
+the wide and the narrow one), in turns (each build, then each again
 in reverse order; device times), prints each build's shared bytes,
 registers, resident clusters, waves and pipe floor, and holds each build
 the path does not take as chip_smoke.py holds the path's own, under its
@@ -56,7 +60,14 @@ CASES = {
     "condensed_cold": ("condensed", False, False),
     "condensed_warm": ("condensed", True, False),
     "condensed_tile1": ("condensed", False, True),
+    "decoupled_sparse_cold": ("decoupled_sparse", False, False),
+    "decoupled_sparse_warm": ("decoupled_sparse", True, False),
 }
+# `run` and `compare` also take the sparse cold call in the modes whose
+# K^-1 words are split (the large build's 8 register rows a lane):
+# name: (saved call, mode, leading equality rows)
+MODE_CASES = {"sparse_mixed_cold": ("sparse_cold", "mixed", 128),
+              "sparse_high_cold": ("sparse_cold", "high", 0)}
 OPTIONS = ("tile", "check", "eps_abs", "eps_rel", "dense_P", "precision",
            "bf16", "m_eq")
 PLACEMENTS = (0, 1, 2, 3)
@@ -122,14 +133,25 @@ def capture(out_dir):
     torch.save(saved, Path(out_dir) / "inputs.pt")
 
 
+def _runs(saved):
+    """Each call `run` makes: name, its saved call (options in the mode of
+    MODE_CASES where named there) and its path (CASES)."""
+    for name in list(CASES) + list(MODE_CASES):
+        base, mode, m_eq = MODE_CASES.get(name, (name, None, 0))
+        c = saved[base]
+        if mode:
+            c = dict(c, options=dict(c["options"], precision=mode,
+                                     bf16=False, m_eq=m_eq))
+        yield name, c, CASES[base]
+
+
 def run(root, out_dir, tag):
     cs = _chip_smoke(root)
     from pigeon_tpu_torch import _kernels
 
     saved = torch.load(Path(out_dir) / "inputs.pt")
     outs, rec = {}, {}
-    for name, (form, _, unbatched) in CASES.items():
-        c = saved[name]
+    for name, c, (form, _, unbatched) in _runs(saved):
         pattern = _pattern(cs, form, unbatched, c["options"])
         ops, kw, n_iters, check = _call(c, pattern)
         _kernels.reset_launches()
@@ -152,7 +174,7 @@ def compare(out_dir, tags):
     recs = {t: json.loads((Path(out_dir) / f"{t}.json").read_text())
             for t in tags}
     res = {}
-    for name in CASES:
+    for name in list(CASES) + list(MODE_CASES):
         first = outs[tags[0]][name]
         res[name] = dict(
             bit_equal={t: all(torch.equal(a, b) for a, b in
@@ -163,14 +185,18 @@ def compare(out_dir, tags):
     print(json.dumps({"b8_parent_ab": res}), flush=True)
 
 
-def _held(cs, ops, kw, n_iters, check, mode, what):
-    """A build's call held as chip_smoke.py holds the path's own."""
+def _held(cs, ops, kw, n_iters, check, mode, what, own_stats=False):
+    """A build's call held as chip_smoke.py holds the path's own (with
+    `own_stats`, the statistics against its own iterates', as the sparse
+    decoupled QP's)."""
     try:
         if mode != "highest":
             return cs.held_mode(torch, ops, kw, n_iters, check, what)
         if check > 0:
+            truth = (cs.stats_of_iterates(torch, ops, kw) if own_stats
+                     else None)
             return cs.held_segment(torch, ops, kw, n_iters, check, what,
-                                   some_early=False)[2]
+                                   some_early=False, truth=truth)[2]
         return cs.held_fixed(torch, ops, kw, n_iters, what)
     except RuntimeError as e:            # a bar it misses: recorded
         return dict(failed=str(e))
@@ -189,6 +215,9 @@ def builds(out_dir):
         sparse = form.startswith("sparse")
         modes = ("highest", "mixedk6") if sparse else (
             c["options"].get("precision", "highest"),)
+        names = (("narrow", "wide", "large") if sparse
+                 else ("large", "pair") if form == "decoupled_sparse"
+                 else ("wide", "narrow"))
         for mode in modes:
             opt = dict(c["options"], precision=mode, bf16=False)
             if mode in pa.MIXED_MODES:
@@ -197,14 +226,14 @@ def builds(out_dir):
             call = dict(c, options=opt)
             own = layout.for_mode(mode, opt.get("m_eq", 0),
                                   opt.get("dense_P", False))
-            names = (("narrow", "wide", "large") if sparse
-                     else ("wide", "narrow"))
             pats = {b: (own if b == own.build else layout.as_build(
-                b, own.m_split if b == "large" else 0)) for b in names}
+                b, own.m_split if b in pa.LARGE_FORMS else 0))
+                for b in names}
             calls = {b: _call(call, p) for b, p in pats.items()}
             ops, kw, n_iters, check = calls[own.build]
             held = {b: _held(cs, *calls[b], mode,
-                             f"{name} {mode}, the {b} build")
+                             f"{name} {mode}, the {b} build",
+                             form == "decoupled_sparse")
                     for b in names if b != own.build}
             t = lambda b: cs.cuda_ms(torch, lambda: cs.dense_admm(
                 torch, *calls[b]), 5)

@@ -105,21 +105,39 @@ def test_dense_P_keeps_its_build(mode, hz):
 
 @pytest.mark.parametrize("mode", ["mixed", "mixedk6", "high", "bf16"])
 def test_large_build_only_where_it_fits(mode):
-    """`for_mode` keeps the narrow build for a diagonal P where the large
-    block does not fit: at m = 290 an n of 205 (K^-1 at row stride 232)
-    is past 227 KB in the large build and within it in the narrow one; an
-    n of 193 fits both and takes the large build."""
+    """`for_mode` gives a split mode's diagonal P the large build where
+    its block fits, and else the narrow build where that fits.  At m =
+    290, n = 193 and 205 (K^-1 at row stride 232; before its register
+    rows left shared memory the large block was past 227 KB there) fit
+    the large block.  At n = 245 it fits where 16 register rows a lane
+    leave 126 rows stored; with "mixed" and "high"'s 8, 182 stay, too
+    many, and so in the narrow build, which holds all of K^-1: the pair
+    build.  A pattern of 3,468 rows of one nonzero at n = 109 is past 227
+    KB in the large build in "mixed" (the rows' words and lanes) and
+    within it in the narrow one, which it keeps."""
     rng = np.random.default_rng(0)
-    for n, want in ((193, "large"), (205, "narrow")):
+    for n in (193, 205, 245):
         rows = np.repeat(np.arange(290), 4)
         cols = rng.integers(0, n, rows.size)
         cols[:n] = np.arange(n)            # every column has a nonzero
         pat = TP.EllPattern(rows, cols, 290, n)
         assert pat.build == "narrow"
         got = pat.for_mode(mode, M_EQ)
+        want = "large"
+        if n == 245:
+            assert TP.block_bytes(pat, mode=mode) > TP.SMEM_MAX
+            want = "pair" if mode in ("mixed", "high") else "large"
         assert got.build == want, (n, mode)
         assert TP.block_smem(got, mode=mode) <= TP.SMEM_MAX
     assert TP.plan_build(11, 15, mode) == "large"
+    n, m = 109, 3468
+    tall = TP.EllPattern(np.arange(m), np.arange(m) * 7 % n, m, n)
+    m_split = M_EQ if mode in TP.MIXED_MODES else 0
+    large = TP.block_bytes(tall.as_build("large", m_split), mode=mode)
+    assert (large > TP.SMEM_MAX) == (mode == "mixed")
+    assert tall.for_mode(mode, M_EQ).build == (
+        "narrow" if mode == "mixed" else "large")
+    assert TP.block_smem(tall.for_mode(mode, M_EQ), mode=mode) <= TP.SMEM_MAX
 
 
 @pytest.mark.parametrize("precision", ["mixedk6", "highest"])
@@ -181,22 +199,33 @@ def test_bf16_bulk_takes_its_own_build(monkeypatch, precision):
 
 
 def test_large_smem_planner():
-    """`plan_smem_large` at the sparse QP's shapes: K^-1 at row stride 200
-    and the split modes' five vectors' words; the same bytes in
-    `block_smem`; ValueError for a dense P and past 227 KB (n = 205, at
-    row stride 232; n = 200, at 200, fits)."""
+    """`plan_smem_large` at the sparse QP's shapes: K^-1's stored rows at
+    row stride 200 (8 parts of 26 rows, a lane's first 16 in registers:
+    70 rows, 56,000 B, in place of all 193, 154,400 B, before the
+    register rows left shared memory; 129 rows in "mixed" and "high",
+    whose lanes keep 8) and the split modes' five vectors' words; the
+    same bytes in `block_smem`; ValueError for a dense P, past n = 256
+    (one K^-1 task a warp) and past 227 KB (n = 256 in "mixed": 192 rows
+    at row stride 264; n = 205 fits, at 232)."""
     pat = _large()
     args = (193, 290, pat.slots, pat.lane_warps)
     assert pat.lane_warps == (10, 14) and pat.slots == (1472, 1696)
-    assert TP.plan_smem_large(*args, mode="mixedk6") == 199824
-    assert TP.plan_smem_large(*args) == 199824 - 4 * (3 * 193 + 2 * 290)
-    assert TP.block_smem(pat, mode="mixedk6") == 199824
+    assert TP.large_stored_rows(193, 16) == 70
+    assert TP.large_stored_rows(193, 8) == 129
+    assert TP.plan_smem_large(*args, mode="mixedk6") == 101424
+    assert 101424 == 199824 - 4 * (193 - 70) * TP.kld(193)
+    assert TP.plan_smem_large(*args) == 101424 - 4 * (3 * 193 + 2 * 290)
+    assert TP.plan_smem_large(*args, mode="mixed") == 101424 + 4 * (
+        129 - 70) * TP.kld(193)
+    assert TP.block_smem(pat, mode="mixedk6") == 101424
     with pytest.raises(ValueError):
         TP.block_smem(pat, dense_P=True, mode="mixedk6")
-    with pytest.raises(ValueError):
-        TP.plan_smem_large(205, 290, pat.slots, pat.lane_warps,
-                           mode="mixedk6")
-    assert TP.plan_smem_large(200, 290, pat.slots, pat.lane_warps,
+    with pytest.raises(ValueError, match="n <= 256"):
+        TP.plan_smem_large(257, 290, pat.slots, pat.lane_warps)
+    with pytest.raises(ValueError, match="227|232448"):
+        TP.plan_smem_large(256, 290, pat.slots, pat.lane_warps,
+                           mode="mixed")
+    assert TP.plan_smem_large(205, 290, pat.slots, pat.lane_warps,
                               mode="mixedk6") <= TP.SMEM_MAX
 
 

@@ -1,11 +1,12 @@
 """The dense ADMM kernel's pair build (`csrc/admm_large.cu`'s kernel
 "admm_pair": an instance on a pair of blocks, each holding half of K^-1's
-columns; the sparse decoupled QP, n = 245, m = 395) around the kernel, on
-the CPU: which patterns take it and which keep their builds, its
-shared-memory planner, its tile limit, its split of K^-1's columns, its
-forms of A (the large build's), and the decoupled "pallas" pipeline's
-calls through its pattern and pack (the kernel runs only on the card, in
-chip_smoke.py)."""
+columns; a diagonal P whose K^-1 no one block holds: the sparse decoupled
+QP at n = 245 in "mixed" and "high", and past n = 256) around the kernel,
+on the CPU: which patterns take it and which keep or take other builds,
+its shared-memory planner, its tile limit, its split of K^-1's columns,
+its forms of A (the large build's), and the decoupled "pallas" pipeline's
+calls through its pattern and pack, and through the large build's (the
+kernel runs only on the card, in chip_smoke.py)."""
 
 import dataclasses
 
@@ -42,32 +43,52 @@ def _coupled(condensed=False):
 
 @pytest.mark.parametrize("mode", TP.MODES)
 def test_pair_build_at_n245(mode):
-    """The decoupled layout's pattern (n = 245, widths 7 and 11) fits
-    neither the narrow nor the large block, so every mode takes the pair
-    build (the mixed modes' rows split at their m_eq, which the decoupled
-    QP does not have: its pipeline raises there, as the JAX package's)."""
+    """The decoupled layout's pattern (n = 245, widths 7 and 11) fits no
+    narrow block.  The large block holds it where a lane's 16 register
+    rows of K^-1 leave 126 rows in shared memory ("highest", "mixedk6",
+    "bf16"); with the split K^-1 words' 8 ("mixed", "high") 182 rows stay
+    there, too many, and the pattern takes the pair build.  At the (10,
+    22) horizon (n = 261, past the large build's 256) every mode takes the
+    pair build, whose block fits in "highest" (228,352 B; the other
+    modes' words take it past 227 KB).  The mixed modes' rows split at
+    their m_eq, which the
+    decoupled QP does not have: its pipeline raises there, as the JAX
+    package's."""
     pat = _decoupled()
     assert (pat.n, pat.m, pat.row_width, pat.col_width) == (245, 395, 7, 11)
     assert pat.build == "narrow"
     assert TP.block_bytes(pat) > TP.SMEM_MAX
-    assert TP.block_bytes(pat.as_build("large"), mode=mode) > TP.SMEM_MAX
     m_eq = 4 if mode in TP.MIXED_MODES else 0
+    large = pat.as_build("large", m_eq)
+    split_k = mode in ("mixed", "high")
+    assert (TP.block_bytes(large, mode=mode) > TP.SMEM_MAX) == split_k
     got = pat.for_mode(mode, m_eq)
-    assert got.build == "pair" and got.m_split == m_eq
+    assert got.build == ("pair" if split_k else "large")
+    assert got.m_split == m_eq
     assert pat.for_mode(mode, m_eq) is got            # made once
     assert got.for_mode(mode, m_eq) is got
     assert TP.block_smem(got, mode=mode) <= TP.SMEM_MAX
+    longer = _decoupled((10, 22))
+    assert longer.n == 261 > TP.LARGE_N_MAX
+    pair = longer.for_mode(mode, m_eq)
+    assert pair.build == "pair" and pair.m_split == m_eq
+    assert (TP.block_bytes(pair, mode=mode) <= TP.SMEM_MAX) == (
+        mode == "highest")
+    with pytest.raises(ValueError, match="n <= 256"):
+        TP.block_smem(longer.as_build("large", m_eq), mode=mode)
 
 
 @pytest.mark.parametrize("mode", TP.MODES)
 def test_other_patterns_keep_their_builds(mode):
-    """Every pattern that fit before keeps its build: the sparse coupled
-    layout the narrow one in "highest" and the large one in the split
-    modes, the condensed one (dense P) the wide one, the decoupled layout
-    at the (4, 8) horizon (n = 69) the narrow or large one; and a random
-    pattern at m = 290 the large build at n = 193, the narrow one at
-    n = 205 (the large block too big), the pair at n = 245 (both too
-    big)."""
+    """The layouts keep their builds: the sparse coupled layout the
+    narrow one in "highest" and the large one in the split modes, the
+    condensed one (dense P) the wide one, the decoupled layout at the (4,
+    8) horizon (n = 69) the narrow or large one.  A random pattern at m =
+    290 takes the narrow build in "highest" where its block fits (n = 193,
+    205) and the large build in the split modes (its block fits at n =
+    205 too, the register rows out of shared memory); at n = 245 the
+    large build, or the pair where the split K^-1 words leave 8 register
+    rows ("mixed", "high")."""
     m_eq = 128 if mode in TP.MIXED_MODES else 0
     sparse = _coupled().for_mode(mode, m_eq)
     assert sparse.build == ("narrow" if mode == "highest" else "large")
@@ -75,14 +96,14 @@ def test_other_patterns_keep_their_builds(mode):
     small = _decoupled((4, 8)).for_mode(mode, 4 if m_eq else 0)
     assert small.build == ("narrow" if mode == "highest" else "large")
     rng = np.random.default_rng(0)
-    for n, split_build in ((193, "large"), (205, "narrow"), (245, "pair")):
+    for n in (193, 205, 245):
         rows = np.repeat(np.arange(290), 4)
         cols = rng.integers(0, n, rows.size)
         cols[:n] = np.arange(n)
         pat = TP.EllPattern(rows, cols, 290, n)
-        want = split_build
-        if mode == "highest" and split_build != "pair":
-            want = "narrow"
+        want = "narrow" if mode == "highest" else "large"
+        if n == 245:
+            want = "pair" if mode in ("mixed", "high") else "large"
         got = pat.for_mode(mode, m_eq)
         assert got.build == want, (n, mode)
         assert TP.block_smem(got, mode=mode) <= TP.SMEM_MAX
@@ -105,7 +126,7 @@ def test_dense_P_past_the_wide_build_raises():
     assert wide.build == "wide"
     with pytest.raises(ValueError):
         TP.block_smem(wide, dense_P=True)
-    pair = pat.for_mode("highest")
+    pair = pat.as_build("pair")
     with pytest.raises(ValueError):
         TP.block_smem(pair, dense_P=True)
     with pytest.raises(ValueError):
@@ -114,12 +135,13 @@ def test_dense_P_past_the_wide_build_raises():
 
 
 def test_pair_smem_planner():
-    """Each block of the pair at the decoupled QP's shapes: half of K^-1's
-    columns (128 of them at row stride 136) and the 2 n exchange words in
-    place of the whole K^-1 at row stride 264 (which alone, 258,720 B, is
-    over 227 KB): 181,800 B in "highest", 187,900 B with the split
-    modes' words, so one block an SM; ValueError past 227 KB."""
-    pair = _decoupled().for_mode("highest")
+    """Each block of the pair at the decoupled QP's shapes: all rows of
+    half of K^-1's columns (128 of them at row stride 136) and the 2 n
+    exchange words in place of the whole K^-1 at row stride 264 (which
+    alone, 258,720 B, is over 227 KB) or the large block's 126 stored
+    rows of it: 181,800 B in "highest", 187,900 B with the split modes'
+    words, so one block an SM; ValueError past 227 KB."""
+    pair = _decoupled().as_build("pair")
     args = (245, 395, pair.slots, pair.lane_warps)
     assert pair.slots == (1696, 1760) and pair.lane_warps == (13, 8)
     assert TP.plan_smem_pair(*args) == 181800
@@ -129,7 +151,7 @@ def test_pair_smem_planner():
     large = TP.smem_bytes_large(*args)
     assert 4 * 245 * TP.kld(245) == 258720 > TP.SMEM_MAX
     assert large - TP.plan_smem_pair(*args) == 4 * (
-        245 * TP.kld(245) - 245 * TP.pair_ld(245) - 2 * 245)
+        126 * TP.kld(245) - 245 * TP.pair_ld(245) - 2 * 245)
     assert 2 * TP.plan_smem_pair(*args) > TP.SMEM_MAX   # one block an SM
     with pytest.raises(ValueError):
         TP.plan_smem_pair(400, 395, pair.slots, pair.lane_warps)
@@ -192,7 +214,7 @@ def test_pair_tiles_at_most_4(tile):
     tiles 5..8, which the other builds take, raise ValueError; tiles up
     to 4 go on to the kernel's device checks."""
     assert TP.PAIR_TILE_MAX == 4
-    pair = _decoupled().for_mode("highest")
+    pair = _decoupled().as_build("pair")
     if tile > TP.PAIR_TILE_MAX:
         with pytest.raises(ValueError, match="pair build's tile"):
             _meta_call(pair, tile)
@@ -201,15 +223,17 @@ def test_pair_tiles_at_most_4(tile):
             _meta_call(pair, tile)
 
 
-def test_decoupled_pipeline_through_the_pair_pack(monkeypatch):
-    """The decoupled "pallas" pipeline (3 vehicles at full width, float32,
-    chip_smoke.py's options) with every dense ADMM call made on the A that
-    the pair build's pattern and pack carry: the pipeline hands the
-    layout's pattern down, `_ell_form` puts it in the pair build, its pack
-    scattered back from either slot order is A exactly, and the solve is
-    the one without the pack (the plain version, bit for bit)."""
-    cfg = dataclasses.replace(TM.x1_decoupled_config(),
-                              solver=TSO(**PALLAS))
+def _pipeline_builds(monkeypatch, hz):
+    """The decoupled "pallas" pipeline (3 vehicles at full width at the
+    horizon `hz`, float32, chip_smoke.py's options) with every dense ADMM
+    call made on the A that its build's pattern and pack carry: the
+    pipeline hands the layout's pattern down, `_ell_form` puts it in the
+    build of its mode, and its pack is scattered back from either slot
+    order.  Returns each call's (build, tile, both halves give A exactly)
+    and the solves without and with the pack."""
+    cfg = dataclasses.replace(
+        TM.x1_decoupled_config(hz=THP(N_short=hz[0], N_long=hz[1])),
+        solver=TSO(**PALLAS))
     tube = convert.tube_from_numpy(
         tube_arrays(JT.straight_trajectory(60.0, 5.0, pad_to=32)),
         device="cpu", dtype=torch.float32)
@@ -252,6 +276,27 @@ def test_decoupled_pipeline_through_the_pair_pack(monkeypatch):
     monkeypatch.setattr(TA, "_ell_form", ell)
     monkeypatch.setattr(TP, "admm_iterations", spy)
     packed = TA.solve_qp_batched(qp, warm, cfg.solver, a_pattern=layout)
+    return calls, plain, packed
+
+
+def test_decoupled_pipeline_through_the_pair_pack(monkeypatch):
+    """The decoupled pipeline at the (10, 22) horizon (n = 261, past the
+    large build) runs every dense ADMM call on the pair build's pattern
+    and pack, whose A is the QP's exactly, and the solve is the one
+    without the pack (the plain version, bit for bit)."""
+    calls, plain, packed = _pipeline_builds(monkeypatch, (10, 22))
     assert calls and all(c == ("pair", 4, True) for c in calls)
+    for a, b in zip(plain, packed):
+        assert torch.equal(a, b)
+
+
+def test_decoupled_pipeline_through_the_large_pack(monkeypatch):
+    """The decoupled pipeline as chip_smoke.py's fleet runs it (n = 245,
+    "highest") runs every dense ADMM call on the large build's pattern and
+    pack, whose A is the QP's exactly, and the solve is the one without
+    the pack (the plain version, bit for bit), as it was through the pair
+    build's."""
+    calls, plain, packed = _pipeline_builds(monkeypatch, (10, 20))
+    assert calls and all(c == ("large", 4, True) for c in calls)
     for a, b in zip(plain, packed):
         assert torch.equal(a, b)
