@@ -133,6 +133,22 @@ Phases (any failure raises, so the script exits non-zero):
    over one more step, and the Cholesky inverse and ADMM kernels held
    against their plain versions on the inputs of a step that refactors
    with active HJI rows (`run_montecarlo`);
+   path "runtime": `runtime.ControllerRuntime` on the card with both
+   default controllers at full width (the sparse decoupled path
+   controller, n=245, m=395; the sparse coupled trajectory controller,
+   n=193, m=290, with the HJI override), the mid grid, pad_to 1024,
+   warmed up; 10 periods on the oval as a spatial path (`set_path`), then
+   10 on the oval as a timed VehicleTrajectory from the wire
+   (`set_trajectory_msg`) with the other car placed ahead each period;
+   every state message through the native `StateRing`, the RK4 plant on
+   the host; a pre_flag = 0 period, one at ux < 1 and (traj) one before
+   the time window must return None and keep the heartbeat, every other
+   period must return a finite command and launch expm_dense (twice a
+   path period, once a traj period) and nothing else; each mode's
+   `latency_stats()` against the 10 ms budget, one more period of each
+   under torch.profiler, the count of periods with the HJI row active,
+   and the dense exponential held against its plain version on the calls
+   of a period of each mode (`run_runtime`, `check_runtime_expm`);
 9. reference checks: for each formulation (coupled, decoupled, sparse,
    condensed, decoupled_sparse) a 64-vehicle fleet stepped on the card,
    each step also run on the CPU (plain versions) from the card's state
@@ -152,7 +168,10 @@ Phases (any failure raises, so the script exits non-zero):
    iterations and convergence accounted, every launch the large build's
    bf16 or mixedk6 instantiation);
    and the Monte-Carlo rollout's 8 scenarios of least start value, five
-   steps (`reference_montecarlo`);
+   steps (`reference_montecarlo`); the runtime's first three steps of
+   each mode replayed on the CPU at float64 and float32 by
+   `simulate_reference_check`'s rule (`reference_runtime`, run with the
+   runtime phase);
 10. B=1 latency: the coupled fleet path for one vehicle, 20 warm steps;
 11. one JSON line listing the kernels, the nvidia-smi line, and the last
    line {"ok": true, "device": {...}}.
@@ -296,6 +315,7 @@ PATH_KERNELS = {
     "simulate": {"expm_dense"},
     "simulate_condensed": {"expm_dense", "admm_wide"},
     "montecarlo": {"vanloan", "chol_inverse", "admm_iterations"},
+    "runtime": {"expm_dense"},
 }
 # The dense ADMM kernel's build each hard path must launch, and no other:
 # the narrow ("admm_dense"), the wide ("admm_wide", the condensed QP's
@@ -407,6 +427,23 @@ MC_SCENARIOS = dict(seed=7, oncoming_gap=(12.0, 40.0),
 # the card and on the CPU
 MC_REF_B = 8
 MC_REF_STEPS = 5
+# The runtime phase (`run_runtime`): periods driven in each mode; each
+# mode's gated periods (by index: pre_flag 0, ux below 1 m/s, a stamp
+# before the trajectory's time window); the trajectory message's header
+# stamp; the other car's start gap (m), lateral offset (m) and speed
+# (m/s), oncoming; the steps of each mode replayed on the CPU
+RT_PERIODS = 10
+RT_GATED = {"path": {3: dict(pre_flag=0), 6: dict(ux_mps=0.5)},
+            "traj": {2: dict(pre_flag=0), 5: dict(ux_mps=0.5),
+                     8: dict(stamp_shift=-1e3)}}
+RT_STAMP = 1000.0
+RT_OTHER = (7.0, 1.0, 5.0)
+RT_REF_PERIODS = 3
+# every period of each runtime mode launches the dense exponential this
+# often (the path controller's ZOH and FOH stacks, the trajectory
+# controller's stage matrix) and nothing else
+RUNTIME_PERIOD_LAUNCHES = {"path": {"expm_dense": 2},
+                           "traj": {"expm_dense": 1}}
 # at most this share of a step's vehicles may have an HJI flag that
 # differs from the CPU float64 path's within float32 interpolation noise
 # of the threshold (`hji_flags`)
@@ -2836,6 +2873,292 @@ def reference_montecarlo(torch, ctx):
                 steps=steps)
 
 
+# ---------------------------------------------------------------------------
+# The real-time controller runtime: runtime.ControllerRuntime
+# ---------------------------------------------------------------------------
+
+def runtime_msg(q, seq: int, stamp: float, **override):
+    """The state message of plant state `q` (CPU, (6,)), with fields of
+    `override` in place of the plant's (pre_flag, ux_mps)."""
+    from pigeon_tpu_torch.runtime import FromAutobox
+
+    E, N, psi, ux, uy, r = (float(v) for v in q)
+    fields = dict(seq=seq, stamp=stamp, E_m=E, N_m=N, psi_rad=psi,
+                  ux_mps=ux, uy_mps=uy, r_radps=r, pre_flag=1)
+    return FromAutobox(**dict(fields, **override))
+
+
+def other_car_ahead(q, gap: float, lateral: float, speed: float):
+    """`set_other_car`'s arguments for a car `gap` m ahead of plant state
+    `q` along its heading and `lateral` m to its left, oncoming at
+    `speed` (the reference's heading convention: theta = psi + pi/2)."""
+    E, N, psi = (float(v) for v in q[:3])
+    fwd, left = (-math.sin(psi), math.cos(psi)), (-math.cos(psi),
+                                                  -math.sin(psi))
+    return (E + gap * fwd[0] + lateral * left[0],
+            N + gap * fwd[1] + lateral * left[1],
+            psi + math.pi + math.pi / 2, speed)
+
+
+def run_runtime(torch, kernels, cache, device="cuda"):
+    """The runtime on the card as a user deploys it: `ControllerRuntime`
+    with both default controllers at full width (the sparse decoupled
+    path controller, the sparse coupled trajectory controller with the
+    HJI override), `cache` (the mid grid), pad_to 1024, warmed up.
+    "path": `set_path` on the oval, RT_PERIODS periods; "traj":
+    `set_trajectory_msg` of the oval as a timed VehicleTrajectory (edges,
+    a stamp), RT_PERIODS periods, each placing the other car ahead
+    (`set_other_car`).  Every state message goes through the native
+    `StateRing` (push, pop, `on_state`); the plant (`dz.propagate`, RK4,
+    float64 on the host) advances by the command in effect.  Each mode
+    has one pre_flag = 0 period and one at ux < 1, and "traj" one before
+    its time window: those return None, launch nothing and keep the
+    heartbeat; every other period returns a finite command with the
+    message's sequence number as heartbeat and launches expm_dense as
+    RUNTIME_PERIOD_LAUNCHES says and nothing else.  The counters are set
+    to 0 before the first period and read after the last.  Then one more
+    period of each mode under torch.profiler.  Returns (record, context:
+    each mode's recorded steps for `reference_runtime`, the captured
+    expm_dense calls)."""
+    from pigeon_tpu_torch import discretize as dz
+    from pigeon_tpu_torch import dynamics as dyn
+    from pigeon_tpu_torch import trajectory
+    from pigeon_tpu_torch.runtime import ControllerRuntime, transport
+
+    sync = lambda: torch.cuda.synchronize() if device != "cpu" else None
+    t0 = time.perf_counter()
+    rt = ControllerRuntime(cache=cache, use_hji_policy=True, pad_to=1024,
+                           warmup=True, device=device)
+    setup_s = time.perf_counter() - t0
+    shapes = {m: (c.formulation, c.soft, c.hz.N_short, c.hz.N_long)
+              for m, c in rt.cfgs.items()}
+    require(shapes == {"path": ("decoupled", False, 10, 20),
+                       "traj": ("coupled", False, 5, 10)}
+            and rt.cfgs["traj"].use_hji_policy
+            and not rt.cfgs["path"].use_hji_policy,
+            f"runtime: the default controllers {shapes}")
+    steps = {"path": [], "traj": []}
+    for mode, step in list(rt._steps.items()):
+        def recorded(*args, step=step, mode=mode):
+            out = step(*args)
+            steps[mode].append(dict(args=args, out=out))
+            return out
+        rt._steps[mode] = recorded
+
+    cols = trajectory.oval_columns()
+    veh = rt.cfgs["path"].veh
+    ode = lambda q, ur: dyn.vehicle_ode(veh, "bicycle", q, ur[..., :2],
+                                        ur[..., 2:])
+    f64 = dict(dtype=torch.float64)
+    ring = transport.StateRing(64)
+    plant = dict(q=torch.tensor([cols["E"][0] + 0.3, cols["N"][0] + 0.5,
+                                 cols["psi"][0] + 0.03, 6.0, 0.0, 0.0],
+                                **f64),
+                 u=torch.zeros(3, **f64), seq=0)
+    periods, captures = [], {}
+
+    def period(mode, stamp, gated=False, capture=None, **override):
+        plant["seq"] += 1
+        msg = runtime_msg(plant["q"], plant["seq"], stamp, **override)
+        require(ring.push(msg), "runtime: the state ring is full")
+        got = ring.pop()
+        require(got == msg and ring.pop() is None,
+                f"runtime: the ring gave {got} for {msg}")
+        hb, before = rt.heartbeat, kernels.launches()
+        run = lambda: rt.on_state(got)
+        if capture:
+            seen = capture_kernel_inputs(lambda: captures.update(cmd=run()))
+            cmd = captures.pop("cmd")
+            captures[capture] = cloned(torch, seen)
+        else:
+            cmd = run()
+        grew = {k: v - before[k] for k, v in kernels.launches().items()
+                if v != before[k]}
+        if gated:
+            require(cmd is None and rt.heartbeat == hb and not grew,
+                    f"runtime {mode}: the gated period {override} gave "
+                    f"{cmd}, heartbeat {rt.heartbeat} (was {hb}), "
+                    f"launches {grew}")
+        else:
+            u = [cmd.delta_cmd_rad, cmd.fxf_cmd_N, cmd.fxr_cmd_N]
+            require(cmd.heartbeat == rt.heartbeat == got.seq
+                    and cmd.post_flag == 1 and cmd.stamp == stamp
+                    and all(math.isfinite(v) for v in u + [cmd.s_m, cmd.e_m])
+                    and grew == RUNTIME_PERIOD_LAUNCHES[mode],
+                    f"runtime {mode}: period {got.seq} gave {cmd}, "
+                    f"launches {grew}")
+        periods.append(dict(mode=mode, seq=got.seq, stamp=stamp,
+                            gated=gated, ran=cmd is not None,
+                            heartbeat=rt.heartbeat, launches=grew))
+        # the plant runs on under the command in effect, then adopts the
+        # new one (`mpc.simulate`'s order)
+        u = plant["u"]
+        plant["q"] = dz.propagate(ode, plant["q"], torch.cat(
+            [u[0:1], u[1:2] + u[2:3], torch.zeros(4, **f64)]), DT)
+        if cmd is not None:
+            plant["u"] = torch.tensor([cmd.delta_cmd_rad, cmd.fxf_cmd_N,
+                                       cmd.fxr_cmd_N], **f64)
+
+    def drive(mode, stamp_of, place=lambda: None):
+        """RT_PERIODS periods (RT_GATED's gated), the mode's latency
+        statistics, then one more period under the profiler."""
+        # each mode's statistics start from an empty window
+        rt._step_times.clear()
+        rt.budget_violations = 0
+        for k in range(RT_PERIODS):
+            place()
+            override = dict(RT_GATED[mode].get(k, {}))
+            stamp = stamp_of(k) + override.pop("stamp_shift", 0.0)
+            period(mode, stamp, gated=k in RT_GATED[mode],
+                   capture=mode if k == 0 else None, **override)
+        stats = rt.latency_stats()
+        place()
+        prof = profile_call(torch, lambda: period(mode,
+                                                  stamp_of(RT_PERIODS)))
+        return stats, prof
+
+    # ---- path mode: the oval as a spatial path ----------------------------
+    kernels.reset_launches()
+    rt.set_path(trajectory.make_tube(**cols, pad_to=1024, device=device))
+    stats, prof = {}, {}
+    stats["path"], prof["path"] = drive("path", lambda k: k * DT)
+    # ---- traj mode: the oval as a timed trajectory from the wire ----------
+    n = cols["s"].shape[0]
+    buf = trajectory.serialize_trajmsg(
+        cols["t"], cols["s"], cols["V"], cols["A"], cols["E"], cols["N"],
+        cols["psi"], cols["kappa"], np.zeros(n), np.zeros(n),
+        np.full(n, 3.5), np.full(n, -3.5), stamp=RT_STAMP, seq=1,
+        frame_id="map")
+    rt.set_trajectory_msg(buf)
+    require(rt.tracking_mode == "traj" and rt.time_offset == RT_STAMP
+            and not bool(rt.carries["traj"].solved)
+            and rt.tube.n_valid == n,
+            "runtime: the trajectory message's ingest")
+    # the trajectory's time where the vehicle is
+    cpu_tube = trajectory.make_tube(**cols, pad_to=1024, device="cpu",
+                                    dtype=torch.float64)
+    t_on = float(trajectory.path_coordinates(cpu_tube, plant["q"][:2])[2])
+    gap = dict(g=RT_OTHER[0])
+
+    def place():
+        rt.set_other_car(*other_car_ahead(plant["q"], gap["g"],
+                                          *RT_OTHER[1:]))
+        gap["g"] -= (float(plant["q"][3]) + RT_OTHER[2]) * DT
+
+    stats["traj"], prof["traj"] = drive(
+        "traj", lambda k: RT_STAMP + t_on + k * DT, place)
+    sync()
+    launched = kernels.launches()
+    ring.destroy()
+    require({k for k, v in launched.items() if v}
+            == PATH_KERNELS["runtime"],
+            f"runtime: launches {launched}")
+    diag = lambda mode: [s["out"][2] for s in steps[mode]]
+    rec = dict(
+        setup_s=setup_s, periods=len(periods),
+        latency=stats, budget_ms=rt.step_budget_s * 1e3,
+        hji_active_periods=sum(bool(d.hji_active) for d in diag("traj")),
+        V_hji_min=min(float(d.V_hji) for d in diag("traj")),
+        iterations={m: [int(d.iterations) for d in diag(m)] for m in steps},
+        converged={m: sum(bool(d.converged) for d in diag(m))
+                   for m in steps},
+        e_last={m: float(diag(m)[-1].e) for m in steps},
+        launches=launched, profile=prof, trace=periods)
+    return rec, dict(steps=steps, captures=captures, rt=rt, cols=cols,
+                     traj_msg=buf)
+
+
+def reference_runtime(torch, ctx, cache):
+    """The card's runtime commands against the CPU, by
+    `simulate_reference_check`'s rule: each mode's first RT_REF_PERIODS
+    steps replayed through `mpc.mpc_step` on the CPU from the card's
+    recorded inputs (the state, the command in effect, the time, the
+    other car) and from the carry the card's first step of the mode
+    started from, at float64 and float32, each chaining its own carry.
+    Every card command within the bar (2e-4 rad, 2 N) plus twice the CPU
+    float32-to-float64 gap of its step, never more than REF_CAP_BARS bars
+    away, and its converged flag the CPU float32 step's.  The HJI flag
+    must be the CPU float64 step's but where V lies at eps within float32
+    interpolation noise (`hji_flags`' test); such a step is left out of
+    the command rule."""
+    from pigeon_tpu_torch import mpc, trajectory
+
+    cpu_cache = cache_to(cache, "cpu")
+    rt = ctx["rt"]
+    bar = torch.tensor([2e-4, 2.0, 2.0], dtype=torch.float64)
+    out = {}
+    for mode, recs in ctx["steps"].items():
+        cfg = rt.cfgs[mode]
+        recs = recs[:RT_REF_PERIODS]
+        conv = lambda x, dt: (x.to(device="cpu", dtype=dt)
+                              if x.is_floating_point() else x.cpu())
+        runs = {}
+        for dt in (torch.float64, torch.float32):
+            tube = trajectory.make_tube(**ctx["cols"], pad_to=1024,
+                                        device="cpu", dtype=dt)
+            if mode == "traj":
+                tube = trajectory.tube_from_trajmsg_bytes(
+                    ctx["traj_msg"], pad_to=1024, device="cpu",
+                    dtype=dt)[0]
+            carry = mpc.MPCCarry(*[conv(x, dt) for x in recs[0]["args"][1]])
+            runs[dt] = []
+            for r in recs:
+                q0, u0, oc, t = (conv(x, dt) for x in r["args"][2:])
+                carry, u3, d = mpc.mpc_step(cfg, tube, cpu_cache, carry, q0,
+                                            u0, oc, t)
+                runs[dt].append((u3, d))
+        steps = []
+        for i, r in enumerate(recs):
+            _, ug, dg = r["out"]
+            (u64, d64), (u32, d32) = runs[torch.float64][i], runs[
+                torch.float32][i]
+            V64, V32 = float(d64.V_hji), float(d32.V_hji)
+            differ = bool(dg.hji_active) != bool(d64.hji_active)
+            near = abs(V64 - cfg.hji_eps) <= 2.0 * abs(V32 - V64)
+            require(not differ or near,
+                    f"runtime {mode} step {i}: HJI flag {bool(dg.hji_active)}"
+                    f" on the card, V = {V64} on the CPU")
+            dg_ = (ug.cpu().double() - u64).abs()
+            gap = (u32.double() - u64).abs()
+            allowed = torch.minimum(bar + 2.0 * gap, REF_CAP_BARS * bar)
+            row = dict(step=i, err_bars=float((dg_ / bar).max()),
+                       gap32_bars=float((gap / bar).max()),
+                       max_excess=float((dg_ - allowed).max()),
+                       converged=[bool(dg.converged), bool(d32.converged)],
+                       iterations=[int(dg.iterations), int(d32.iterations),
+                                   int(d64.iterations)],
+                       hji_active=bool(dg.hji_active), V_hji=V64,
+                       flag_near_eps=differ)
+            if not differ:
+                require(row["max_excess"] <= 0.0,
+                        f"runtime {mode} step {i}: card vs CPU float64 "
+                        f"{row}")
+            require(bool(dg.converged.cpu() == d32.converged),
+                    f"runtime {mode} step {i}: converged vs CPU float32 "
+                    f"{row}")
+            steps.append(row)
+        out[mode] = steps
+    return out
+
+
+def check_runtime_expm(torch, captures):
+    """The dense exponential on the calls captured from the first period
+    of each runtime mode: the path controller's ZOH and FOH stacks, the
+    trajectory controller's stage matrix (`expm_case`)."""
+    out = {}
+    for mode, seen in captures.items():
+        calls = {"zoh": seen["expm_dense"], "foh": seen["expm_dense_last"]}
+        if mode == "traj":
+            calls = {"stages": seen["expm_dense"]}
+        for name, (args, kw) in calls.items():
+            M = args[0]
+            sq = args[1] if len(args) > 1 else kw.get("squarings", 8)
+            order = args[2] if len(args) > 2 else kw.get("order", 8)
+            out[f"runtime_{mode}_{name}"] = expm_case(torch, M, sq, order,
+                                                      (20, 5))
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -2846,9 +3169,9 @@ def main() -> int:
     from pigeon_tpu_torch import mpc
 
     smi = nvidia_smi()
-    name = torch.cuda.get_device_name(0)
+    kind = torch.cuda.get_device_name(0)
     log(phase="device", nvidia_smi=smi, torch=torch.__version__,
-        cuda=torch.version.cuda, name=name,
+        cuda=torch.version.cuda, name=kind,
         count=torch.cuda.device_count(),
         sms=torch.cuda.get_device_properties(0).multi_processor_count)
 
@@ -3178,6 +3501,24 @@ def main() -> int:
                   step=mc_rec["capture_step"])
     del mc_ctx["capture"]
 
+    # ---- path: the real-time controller runtime --------------------------
+    t0 = time.perf_counter()
+    rt_rec, rt_ctx = run_runtime(torch, kernels, mc_ctx["cache"])
+    launches["runtime"] = rt_rec.pop("launches")
+    rt_prof = rt_rec.pop("profile")
+    log(phase="runtime", seconds=time.perf_counter() - t0, nvidia_smi=smi,
+        **rt_rec)
+    for mode, prof in rt_prof.items():
+        log(phase="profile", path="runtime", mode=mode, batch=1, **prof)
+    # the dense exponential on the calls of a period of each mode
+    for call, r in check_runtime_expm(torch, rt_ctx.pop("captures")).items():
+        second[f"expm_dense_{call}"] = r
+        log_check("expm_dense", r, path=call)
+    t0 = time.perf_counter()
+    rec = reference_runtime(torch, rt_ctx, mc_ctx["cache"])
+    log(phase="reference_runtime", seconds=time.perf_counter() - t0, **rec)
+    del rt_ctx
+
     main_launches = {k: sum(per[k] for per in launches.values())
                      for k in KERNEL_META}
     # every kernel of a path (the pair build is on none: its kernel check
@@ -3238,6 +3579,8 @@ def main() -> int:
                       simulate_condensed=second.get(
                           f"{k}_simulate_condensed"),
                       montecarlo=second.get(f"{k}_montecarlo"),
+                      **{name[len(k) + 1:]: o for name, o in second.items()
+                         if name.startswith(f"{k}_runtime_")},
                       decoupled_step=r.get("decoupled_step"),
                       fleet_stack=r.get("fleet_stack"))
         keys = ("shapes", "err", "ms", "plain_ms", "bound_ms", "bound_by",
@@ -3256,7 +3599,7 @@ def main() -> int:
           flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": name,
+        "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)
     return 0
 

@@ -3,7 +3,8 @@
 Each function takes numpy arrays (the caller applies `np.asarray` to the
 JAX objects' fields) and builds the port's counterpart on a chosen device,
 so a tube, an HJI cache, a fleet's controller state, a Monte-Carlo
-scenario set or a batched closed-loop state can move from one
+scenario set, a batched closed-loop state or a controller runtime's state
+can move from one
 implementation to the other without this package importing either JAX or
 `pigeon_tpu`.
 """
@@ -20,6 +21,7 @@ from pigeon_tpu_torch.hji import HJICache
 from pigeon_tpu_torch.montecarlo import ScenarioSet
 from pigeon_tpu_torch.mpc import MPCCarry, SimLog, StepDiagnostics
 from pigeon_tpu_torch.parallel.mesh import BatchState
+from pigeon_tpu_torch.runtime.loop import ControllerRuntime, ToAutobox
 from pigeon_tpu_torch.trajectory import (COLUMNS, LookupIndex,
                                          TrajectoryTube, tube_from_columns)
 
@@ -104,3 +106,25 @@ def batch_state_from_numpy(arrays: Mapping, device=None,
     as_f = lambda v: torch.as_tensor(np.array(v), dtype=dtype, device=device)
     return BatchState(carry=carry_from_numpy(arrays["carry"], device, dtype),
                       q=as_f(arrays["q"]), u=as_f(arrays["u"]))
+
+
+def runtime_state_from_numpy(runtime: ControllerRuntime,
+                             arrays: Mapping) -> ControllerRuntime:
+    """Give `runtime` (built with the same controllers) the state of
+    another one, on `runtime`'s device, in float32: `arrays` holds `tube`
+    (as `tube_from_numpy` takes it), `carries` (a mapping of each mode,
+    "path" and "traj", to its `MPCCarry` fields of one vehicle),
+    `other_car` (4,), `tracking_mode`, `time_offset`, `heartbeat` and
+    `last_command` (a mapping of the `ToAutobox` fields).  Returns
+    `runtime`."""
+    device = runtime.device
+    runtime.tube = tube_from_numpy(arrays["tube"], device)
+    runtime.carries = {m: carry_from_numpy(arrays["carries"][m], device)
+                       for m in runtime.cfgs}
+    runtime.other_car = torch.as_tensor(np.array(arrays["other_car"]),
+                                        dtype=torch.float32, device=device)
+    runtime.tracking_mode = str(arrays["tracking_mode"])
+    runtime.time_offset = float(arrays["time_offset"])
+    runtime.heartbeat = int(arrays["heartbeat"])
+    runtime.last_command = ToAutobox(**dict(arrays["last_command"]))
+    return runtime

@@ -7,19 +7,24 @@ A `TrajectoryTube` holds fixed-length (optionally padded) column tensors
 on one device; `n_valid` marks the live prefix.  Lookups take query
 tensors of any shape and return nodes of that shape.  The uniform-grid
 `LookupIndex` is built on the host with numpy, as in the JAX package.
+The loaders at the end read the `.world` text, the path message and the
+`/des_traj` VehicleTrajectory message into tubes.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
+import re
+import struct
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
 from pigeon_tpu_torch import resolve_device
-from pigeon_tpu_torch.math_utils import cross2, segment_distance2
+from pigeon_tpu_torch.math_utils import (cross2, invcumtrapz,
+                                         segment_distance2)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -294,3 +299,127 @@ def path_coordinates(tube: TrajectoryTube, x):
     e = torch.sqrt(d2min) * torch.sign(cross2(v, w))
     _, dt = _time_from_arc(tube, i, ds, s)
     return s, e, tube.t[i] + dt
+
+
+def end_time(tube: TrajectoryTube):
+    """Final live time knot (the reference's `traj.t[end]`), a 0-d
+    tensor."""
+    return tube.t[tube.n_valid - 1]
+
+
+# ---------------------------------------------------------------------------
+# Loaders: the `.world` text, the path message and the VehicleTrajectory
+# message (the reference's /des_path and /des_traj ingest,
+# src/ros_integration.jl:13-20), with no YAML or ROS stack
+# ---------------------------------------------------------------------------
+
+def _time_from_speed(V, s) -> np.ndarray:
+    """t = invcumtrapz(V, s) at float64 on the host: the time the
+    reference reconstructs for a spatial path."""
+    as64 = lambda a: torch.as_tensor(np.asarray(a, np.float64))
+    return invcumtrapz(as64(V), as64(s)).numpy()
+
+
+def load_world_arrays(path: str) -> dict:
+    """Parse a `.world` file of `key: comma-separated values` entries
+    (keys per the reference's `test/path/world2pathmsg.py:5-16`) into
+    numpy arrays; single values become floats, or stay strings."""
+    out = {}
+    with open(path) as f:
+        text = f.read()
+    for m in re.finditer(r"^(\w+):\s*(.*?)(?=^\w+:|\Z)", text,
+                         re.MULTILINE | re.DOTALL):
+        key, val = m.group(1), m.group(2).strip()
+        if "," in val:
+            out[key] = np.array([float(v) for v in val.split(",")])
+        else:
+            try:
+                out[key] = float(val)
+            except ValueError:
+                out[key] = val
+    return out
+
+
+def tube_from_world(path: str, pad_to: int | None = None, device=None,
+                    dtype=torch.float32) -> TrajectoryTube:
+    """A recorded X1 `.world` path as a tube on `device` (None: the card),
+    with its time reconstructed from speed over arclength."""
+    w = load_world_arrays(path)
+    s, V = w["s_m"], w["UxDes_mps"]
+    return make_tube(
+        t=_time_from_speed(V, s), s=s, V=V, A=w["AxDes_mps2"],
+        E=w["posE_m"], N=w["posN_m"], psi=w["psi_rad"], kappa=w["k_1pm"],
+        theta=w["grade_rad"], phi=None, edge_L=w.get("edgeL_m"),
+        edge_R=w.get("edgeR_m"), pad_to=pad_to, device=device, dtype=dtype)
+
+
+def _header_arrays(buf: bytes, what: str) -> list:
+    """The 12 length-prefixed float64 arrays after a ROS1 std_msgs/Header
+    (uint32 seq, uint32 secs, uint32 nsecs, length-prefixed frame_id)."""
+    off = 12
+    (flen,) = struct.unpack_from("<I", buf, off)
+    off += 4 + flen
+    arrays = []
+    while off + 4 <= len(buf) and len(arrays) < 12:
+        (n,) = struct.unpack_from("<I", buf, off)
+        off += 4
+        if n * 8 > len(buf) - off:
+            raise ValueError(f"corrupt {what}: array of {n} doubles past "
+                             f"end of buffer")
+        arrays.append(np.frombuffer(buf, "<f8", count=n, offset=off).copy())
+        off += 8 * n
+    if len(arrays) != 12:
+        raise ValueError(f"{what}: expected 12 arrays, got {len(arrays)}")
+    return arrays
+
+
+def tube_from_pathmsg(path: str, pad_to: int | None = None, device=None,
+                      dtype=torch.float32) -> TrajectoryTube:
+    """A serialized ROS1 `safe_traffic_weaving/path` message file as a
+    tube.  Its layout (little endian): the header, then 12 float64 arrays
+    -- two unused, s, E, N, psi, kappa, grade, edge_L, edge_R, Ux, Ax --
+    then isOpen.  Time is reconstructed from Ux over s, as for `.world`
+    paths."""
+    with open(path, "rb") as f:
+        buf = f.read()
+    (s, E, N, psi, kappa, grade, edge_L, edge_R, Ux,
+     Ax) = _header_arrays(buf, f"path msg {path!r}")[2:]
+    return make_tube(t=_time_from_speed(Ux, s), s=s, V=Ux, A=Ax, E=E, N=N,
+                     psi=psi, kappa=kappa, theta=grade, phi=None,
+                     edge_L=edge_L, edge_R=edge_R, pad_to=pad_to,
+                     device=device, dtype=dtype)
+
+
+def tube_from_trajmsg_bytes(buf: bytes, pad_to: int | None = None,
+                            device=None, dtype=torch.float32
+                            ) -> "tuple[TrajectoryTube, float]":
+    """A serialized ROS1 `safe_traffic_weaving/VehicleTrajectory` message
+    (the `/des_traj` topic): the header, then 12 float64 arrays t, s, V,
+    A, E, N, heading, curvature, grade, bank, edge_L, edge_R.  Returns
+    (tube, the header stamp in seconds): the controller's time offset."""
+    (_, secs, nsecs) = struct.unpack_from("<III", buf, 0)
+    (t, s, V, A, E, N, psi, kappa, grade, bank, edge_L,
+     edge_R) = _header_arrays(buf, "VehicleTrajectory msg")
+    tube = make_tube(t=t, s=s, V=V, A=A, E=E, N=N, psi=psi, kappa=kappa,
+                     theta=grade, phi=bank, edge_L=edge_L, edge_R=edge_R,
+                     pad_to=pad_to, device=device, dtype=dtype)
+    return tube, secs + nsecs * 1e-9
+
+
+def serialize_trajmsg(t, s, V, A, E, N, psi, kappa, grade, bank, edge_L,
+                      edge_R, stamp: float = 0.0, seq: int = 0,
+                      frame_id: str = "") -> bytes:
+    """A VehicleTrajectory in the ROS1 wire format, the inverse of
+    `tube_from_trajmsg_bytes` (for tests and in-process planner
+    stand-ins)."""
+    secs = int(stamp)
+    nsecs = int(round((stamp - secs) * 1e9))
+    fid = frame_id.encode()
+    out = [struct.pack("<III", seq, secs, nsecs),
+           struct.pack("<I", len(fid)), fid]
+    for arr in (t, s, V, A, E, N, psi, kappa, grade, bank, edge_L,
+                edge_R):
+        a = np.asarray(arr, "<f8")
+        out.append(struct.pack("<I", a.size))
+        out.append(a.tobytes())
+    return b"".join(out)
