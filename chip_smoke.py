@@ -68,7 +68,11 @@ Phases (any failure raises, so the script exits non-zero):
    fleet's calls and on the decoupled fleet's cold, warm, ragged and tile
    1 calls; the Ruiz kernel on that fleet's A, and the dense exponential
    on its two stacks a step (20,480 matrices of 11 x 11, 40,960 of 17 x
-   17);
+   17).  The same checks on the wall fleets' calls (below): B1 on each,
+   B9, B7 (block width 14, the padded build) and B8's narrow build (n =
+   208, m = 335) on the sparse one, B9 and B8's wide build with its dense
+   P (n = 118, m = 245) on the condensed one, B2 and B3 (m = 139) on the
+   soft one;
 4. path "fleet": the coupled soft MPC for a fleet of 8192 vehicles on an
    oval (x1_coupled_config(soft=True), N_short=5, N_long=10, the lane
    solver with bench.py's options), one cold step and 10 warm closed-loop
@@ -106,10 +110,24 @@ Phases (any failure raises, so the script exits non-zero):
    (no banded plan: the dense Cholesky), one cold and 10 warm steps, each
    launching expm_dense twice, ruiz once and admm_large (the large
    build, "highest") once per segment; its converged share on one more
-   step held against the same step with B8's plain version on the card
+   step held against the same step with B8's plain version on the card,
+   every convergence it reports confirmed by the float64 residuals of
+   its solution, and the plain version in float64 recorded beside them
    (`convergence_witness`; its float32 solve leaves about a fifth of the
    fleet unconverged at this budget, in the JAX package too);
-7. path "simulate": `mpc.simulate` for one vehicle on the card, 20
+   paths "fleet_sparse_walls", "fleet_condensed_walls" and "fleet_walls":
+   the sparse, hard condensed (B = 2048, the hard fleets' options) and
+   soft coupled fleets (B = 8192, bench.py's) with the wall rows (the
+   reference's both_walls) on the oval with a 3.5 m lane (WALL_EDGES),
+   one cold and 5 warm steps each, launching their base fleets' kernels;
+   the cold step's shares outside the admissible band and with a live
+   wall slack must be above zero; the sparse and soft ones' converged
+   share is gated by `convergence_witness` (the sparse one's float32
+   solve, the soft one's budget); then one cold step of the
+   sparse wall fleet with lin_method "expm_split" (`run_expm_split`: its
+   QP against the "expm" one, expm_dense twice, its two stacks held
+   against plain);
+7. path "simulate": `mpc.simulate` for one vehicle on the card, 10
    closed-loop steps per soft formulation -- the unbatched route, dense
    linearization and `solve_qp` -- which launches expm_dense once per
    step and no other kernel; then torch.profiler over 1 more step; and
@@ -119,7 +137,11 @@ Phases (any failure raises, so the script exits non-zero):
    admm_wide once per segment), profiled over 1 more; and 30 steps of
    the sparse decoupled QP (x1_decoupled_config() as it comes, the
    runtime's path controller: expm_dense twice a step, plain `solve_qp`),
-   profiled over 1 more;
+   profiled over 1 more; and path "simulate_faithful": 10 steps of the
+   parity harness's reference-faithful controller (`parity.faithful_config`
+   at the oval's stable RK4 substep count, 4: the RK4 linearization,
+   PARITY_SOLVER, the reference tire inverse, unclamped), which launches
+   no kernel;
 8. path "montecarlo": `montecarlo.run_dynamic_obstacle`, the HJI safety
    filter's Monte-Carlo study, at scripts/exp_safety_ab.py's
    hammer_eps1.5 arm (the soft coupled QP with the HJI row and its
@@ -150,17 +172,20 @@ Phases (any failure raises, so the script exits non-zero):
    and the dense exponential held against its plain version on the calls
    of a period of each mode (`run_runtime`, `check_runtime_expm`);
 9. reference checks: for each formulation (coupled, decoupled, sparse,
-   condensed, decoupled_sparse) a 64-vehicle fleet stepped on the card,
+   condensed, decoupled_sparse, and the three wall fleets) a 64-vehicle
+   fleet stepped on the card,
    each step also run on the CPU (plain versions) from the card's state
    at float64 and float32, commands compared by each formulation's rule
    (REF_RULES, `reference_check`; the hard QPs' bars are fleet-wide,
    their float32 solves being rounding-determined, the condensed one's
    also covers the float64 path's own exit noise, and the sparse
    decoupled one's converged counts the float32 path's own), on three
-   placements for the hard QPs, which also record the card's QPs solved
-   on the CPU; the card's `simulate` commands against the CPU `simulate`
-   at float64 and float32 (`simulate_reference_check`, both unbatched
-   soft formulations, the condensed and the sparse decoupled one); the coupled, the sparse and the condensed check
+   placements for the hard QPs (one for the wall fleets), which also
+   record the card's QPs solved on the CPU; the card's `simulate`
+   commands against the CPU `simulate` at float64 and float32
+   (`simulate_reference_check`, both unbatched soft formulations, the
+   condensed, the sparse decoupled and the faithful one); the coupled,
+   the sparse and the condensed check
    once more with active HJI rows (the mid grid, the other car 3-15 m
    ahead); the sparse fleet in mode "mixedk6" by the sparse rule, with
    its controls; the precision ladder (`ladder_check`: 50 and 2 bf16
@@ -194,10 +219,38 @@ import numpy as np
 
 B_FLEET = 8192
 B_SPARSE = 2048
+# The wall fleets (the reference's both_walls configuration): each coupled
+# fleet with the wall rows, on the oval with a 3.5 m lane whose centre
+# lies 0.55 m right of the path; with the default wall_margin of 1.0 the
+# admissible band is e in [-1.3, 0.2], so the fleet's +-0.5 m placement
+# starts a share of it outside the band
+WALL_EDGES = dict(edge_L=1.2, edge_R=-2.3)
+WALL_FLEETS = {"sparse_walls": "sparse", "condensed_walls": "condensed",
+               "coupled_walls": "coupled"}
+# the kernel checks' records of the wall fleets' calls and of the
+# "expm_split" step's two exponential stacks, by path (the kernels line's
+# `other_shapes`)
+WALL_CHECKS = ("sparse_walls", "condensed_walls", "coupled_walls",
+               "expm_split_zoh", "expm_split_foh")
+# The "expm_split" step (one cold step of the sparse wall fleet with each
+# hold order's own exponential, 8 squarings, order 8): each field of its
+# QP within this share of the field's scale of the "expm" QP (4 squarings,
+# order 6) of the same state.  On the CPU over 64 vehicles the two
+# differ by 1.0e-8 of A's scale in float64 (the methods) and by 1.2e-5
+# in float32 (the roundings of the squarings); the bar is the dense
+# exponential's own float64 bar (`expm_case`)
+EXPM_SPLIT_QP_REL = 1e-4
+# The reference-faithful closed loop (`parity.faithful_config` of the
+# coupled singleton at the oval's stable substep count, on PARITY_SOLVER):
+# steps on the card, all replayed on the CPU
+SIM_STEPS_FAITHFUL = 10
 WARM_STEPS = {"coupled": 10, "decoupled": 10, "sparse": 10,
-              "condensed": 10, "sparse_mixedk6": 10, "decoupled_sparse": 10}
+              "condensed": 10, "sparse_mixedk6": 10, "decoupled_sparse": 10,
+              "sparse_walls": 5, "condensed_walls": 5, "coupled_walls": 5}
 B1_STEPS = 20
-SIM_STEPS = 20
+# (10, the steps its reference check compares, cut from 20 when the wall
+# and faithful phases joined the run)
+SIM_STEPS = 10
 # the condensed QP's single-vehicle path: as many steps as its reference
 # check compares; the sparse decoupled QP's, the runtime's path
 # controller, 30
@@ -254,6 +307,10 @@ EXIT_NOISE = 1e-7
 #   least a check period more each segment (the mixedk6 sparse fleet:
 #   63 of 64 converged on the card against 64 on the CPU gave means of
 #   163.1 and 93.8 iterations on one step);
+# - card_plain: the card's step with its ADMM kernel's float32 plain
+#   version in place of the kernel (`plain_admm`), from the same state,
+#   is one more witness: its gap to float64 joins the fleet-wide gap and
+#   its share outside the bar the witnesses' shares;
 # - conv_slack: how far the fleet-wide converged counts may differ (2
 #   where not given).  The sparse decoupled fleet's float32 solve leaves
 #   a fifth of its vehicles unconverged at the tolerance's edge, where
@@ -263,7 +320,8 @@ EXIT_NOISE = 1e-7
 #   path's); its slack is twice the largest, 14.  Its controls are
 #   rejected by the iteration means and the commands, each on every
 #   step, and `convergence_witness` holds the fleet's share at B = 2048
-#   to its plain version's within CONV_WITNESS_SLACK.
+#   to its plain version's within CONV_WITNESS_SLACK, each of its
+#   convergences confirmed in float64.
 REF_RULES = {
     "coupled": dict(seeds=(0,), fleet_wide=False, exit_draws=0,
                     outside_from_cpu="active"),
@@ -283,6 +341,31 @@ REF_RULES = {
     "decoupled_sparse": dict(seeds=(0, 1, 2), fleet_wide=True, exit_draws=0,
                              outside_from_cpu="never", segments=True,
                              conv_slack=14),
+    # the wall fleets: each base fleet's rule, the sparse one with the
+    # segments' allowance (its float32 solve leaves a share of the fleet
+    # unconverged at the budget) and the card-plain witness: on placement
+    # 2's third step the card's commands lie 7.59 bars from float64, the
+    # CPU float32 path's 1.68, and the card's step with B8's float32 plain
+    # version 6.69 (B8's plain version leaves that vehicle unconverged at
+    # 400 iterations; its float64 version 0.14 bars), so the float32 spread
+    # of the card's own QPs is as wide as the kernel's error; the soft one
+    # with the share outside the bar scaled by the CPU float32 path's: its
+    # unconverged vehicles at a wall are weakly determined (on the CPU the
+    # float32 path put 6 of 64 commands outside the bar, up to 35 bars
+    # from float64).  The sparse and soft ones hold on placements 0-2; the
+    # condensed one on placement 0 only: on placement 1's third step one
+    # tile's kernel exits at iteration 80 where its plain version, the CPU
+    # float32 and the float64 paths exit at 100, its float64 residuals
+    # within the tolerance, and that vehicle's force lies 3.10 bars from
+    # float64 against the 2.98 the rule allows (ROADMAP C;
+    # scripts/wall_rule_probe.py; PERF.md section 6)
+    "sparse_walls": dict(seeds=(0, 1, 2), fleet_wide=True, exit_draws=0,
+                         outside_from_cpu="never", segments=True,
+                         card_plain=True),
+    "condensed_walls": dict(seeds=(0,), fleet_wide=True, exit_draws=3,
+                            outside_from_cpu="always"),
+    "coupled_walls": dict(seeds=(0, 1, 2), fleet_wide=False,
+                          exit_draws=0, outside_from_cpu="always"),
 }
 # The fleet-wide rules' controls: wrong solver options, each run on the
 # card from the same state as the step it is compared with, and whether
@@ -304,7 +387,7 @@ REF_CONTROLS = {"rho_eq_scale_1": (dict(rho_eq_scale=1.0), True),
 SPARSE_STEP_LAUNCHES = {"vanloan": 1, "ruiz": 1, "banded_chol": 8,
                         "admm_dense": 8}
 # The kernels every step of each main path must launch; it must launch no
-# other
+# other ("faithful": none, the RK4 linearization and the plain solver)
 PATH_KERNELS = {
     "coupled": {"vanloan", "chol_inverse", "admm_iterations"},
     "decoupled": {"vanloan", "rollout", "chol_inverse", "admm_iterations"},
@@ -312,7 +395,13 @@ PATH_KERNELS = {
     "condensed": {"vanloan", "ruiz", "admm_wide"},
     "sparse_mixedk6": {"vanloan", "ruiz", "banded_chol", "admm_large"},
     "decoupled_sparse": {"expm_dense", "ruiz", "admm_large"},
+    "sparse_walls": {"vanloan", "ruiz", "banded_chol", "admm_dense"},
+    "condensed_walls": {"vanloan", "ruiz", "admm_wide"},
+    "coupled_walls": {"vanloan", "chol_inverse", "admm_iterations"},
+    "sparse_walls_expm_split": {"expm_dense", "ruiz", "banded_chol",
+                                "admm_dense"},
     "simulate": {"expm_dense"},
+    "simulate_faithful": set(),
     "simulate_condensed": {"expm_dense", "admm_wide"},
     "montecarlo": {"vanloan", "chol_inverse", "admm_iterations"},
     "runtime": {"expm_dense"},
@@ -329,6 +418,8 @@ B8_BUILD_OF = {"admm_dense": "narrow", "admm_wide": "wide",
                "admm_large": "large", "admm_pair": "pair"}
 PATH_B8_BUILD = {"sparse": ("admm_dense", "highest"),
                  "condensed": ("admm_wide", "highest_dense_P"),
+                 "sparse_walls": ("admm_dense", "highest"),
+                 "condensed_walls": ("admm_wide", "highest_dense_P"),
                  "sparse_mixedk6": ("admm_large", "mixedk6"),
                  "decoupled_sparse": ("admm_large", "highest"),
                  "simulate_condensed": ("admm_wide", "highest")}
@@ -344,6 +435,18 @@ DECOUPLED_SPARSE_STEP_LAUNCHES = {"expm_dense": 2, "ruiz": 1}
 # (`convergence_witness`, two float32 roundings of one step): the
 # kernel's share may fall short of it by at most this much
 CONV_WITNESS_SLACK = 0.02
+# A witness run's reported convergence holds when the float64 residuals of
+# its solution are within this share above their tolerances
+# (`verified_convergence`): float32 rounding of the statistics moves the
+# ratio by far less
+CONV_VERIFY_MARGIN = 0.1
+# the fleets gated by `convergence_witness` in place of converged >= 0.99,
+# each for its float32 solve at its budget: the sparse decoupled one; the
+# sparse wall fleet (on the CPU at B = 128 after the cold and 5 warm
+# steps: 0.992 in float64, 0.984 in float32); and the soft wall fleet,
+# whose vehicles outside the band leave a share unconverged at its
+# 150-iteration budget in float64 too (0.945 / 0.953)
+WITNESS_FLEETS = ("decoupled_sparse", "sparse_walls", "coupled_walls")
 # bench.py's lane-solver iteration budget per formulation
 MAX_ITER = {"coupled": 150, "decoupled": 300}
 # The dense ADMM kernel's other precision modes, held on the "highest"
@@ -486,10 +589,15 @@ def fleet_config(formulation: str, hz=None):
     x1_coupled_config(condensed=True) with the same options, or
     ("sparse_mixedk6") the sparse QP in mode "mixedk6", or
     ("decoupled_sparse") x1_decoupled_config() as it comes with
-    SPARSE_SOLVER; `hz` = (N_short, N_long) overrides the horizon."""
+    SPARSE_SOLVER, or (WALL_FLEETS) one of the coupled ones with the wall
+    rows (`use_walls`); `hz` = (N_short, N_long) overrides the horizon."""
     from pigeon_tpu_torch import mpc
     from pigeon_tpu_torch.config import SolverOptions
 
+    if formulation in WALL_FLEETS:
+        cfg = fleet_config(WALL_FLEETS[formulation], hz)
+        return dataclasses.replace(cfg, coupled=dataclasses.replace(
+            cfg.coupled, use_walls=True))
     if formulation == "decoupled_sparse":
         cfg = mpc.x1_decoupled_config(
             solver=SolverOptions(**HARD_SOLVER[formulation]))
@@ -512,6 +620,20 @@ def fleet_config(formulation: str, hz=None):
         backend="lanes", scaling_iters=2, pallas_check_inner=10))
 
 
+def oval_tube(torch, device, dtype, cfg=None):
+    """The in-repo oval, padded to 1024 knots; with the lane of
+    WALL_EDGES where `cfg` has wall rows."""
+    from pigeon_tpu_torch import trajectory
+
+    cols = trajectory.oval_columns()
+    if cfg is not None and cfg.formulation == "coupled" \
+            and cfg.coupled.use_walls:
+        cols.update({k: np.full(len(cols["t"]), v)
+                     for k, v in WALL_EDGES.items()})
+    return trajectory.make_tube(**cols, pad_to=1024, device=device,
+                                dtype=dtype)
+
+
 def make_setup(torch, B: int, device, hz=None, formulation="coupled",
                seed=0, cache=None):
     """The fleet on the in-repo oval (bench.py's placement, from `seed`).
@@ -522,8 +644,8 @@ def make_setup(torch, B: int, device, hz=None, formulation="coupled",
     from pigeon_tpu_torch import hji, mpc, trajectory
 
     cols = trajectory.oval_columns()
-    tube = trajectory.make_tube(**cols, pad_to=1024, device=device)
     cfg = fleet_config(formulation, hz)
+    tube = oval_tube(torch, device, torch.float32, cfg)
     rng = np.random.default_rng(seed)
     k0 = rng.integers(0, 900, B)
     E = cols["E"][k0] + rng.uniform(-0.5, 0.5, B)
@@ -910,6 +1032,19 @@ def check_admm(torch, args, kw, small=None):
             f"admm executed counts on a ragged batch: {ek} vs {ep}")
     ragged_exec = dict(kernel=[float(ek[0]), float(ek[-1])],
                        plain=[float(ep[0]), float(ep[-1])])
+    # an instance with a NaN bound (the reference's envelope row is NaN at
+    # some nodes, in the JAX package too): its statistics NaN and its
+    # group kept to the budget, as in the plain version
+    nan_ops = [o.clone() for o in sub]
+    nan_ops[4][0, 0] = float("nan")
+    sk_nan, sp_nan = (fn(*nan_ops, n_iters, sigma, alpha, check=check,
+                         **eps)[3][:, 0]
+                      for fn in (la.admm_iterations, la.admm_iterations_plain))
+    nan_instance = dict(kernel=sk_nan.tolist(), plain=sp_nan.tolist())
+    require(bool(torch.isnan(sk_nan[:6]).all())
+            and bool(torch.isnan(sp_nan[:6]).all())
+            and float(sk_nan[6]) == float(sp_nan[6]) == n_iters,
+            f"admm with a NaN bound: {nan_instance}")
     ms = cuda_ms(torch, lambda: la.admm_iterations(
         *ops, n_iters, sigma, alpha, check=check, **eps), 10)
     plain = cuda_ms(torch, lambda: la.admm_iterations_plain(
@@ -926,7 +1061,7 @@ def check_admm(torch, args, kw, small=None):
                 fixed_errs=fixed_errs, exit_errs=exit_errs,
                 ragged_errs=other_errs[0],
                 small_horizon_errs=other_errs[1] if small else None,
-                ragged_exec=ragged_exec,
+                ragged_exec=ragged_exec, nan_instance=nan_instance,
                 iters_mean=float(executed.mean()), ms=ms, plain_ms=plain,
                 library_ms=None, bound_ms=b_ms, bound_by=b_by,
                 a_nonzeros_mean=float((ops[1] != 0).sum(dim=(0, 1))
@@ -2054,10 +2189,33 @@ KERNEL_META = {
 
 # ---------------------------------------------------------------------------
 
+def wall_shares(torch, st, diag) -> dict:
+    """A wall fleet's shares: its vehicles whose projection at the step's
+    start lies outside the admissible band [edge_R + margin, edge_L -
+    margin], and those whose plan after the step leans on a wall slack
+    (the hard QPs' sw above 1e-3 at some stage; the soft QP's planned e
+    outside the band by more than 1e-3)."""
+    from pigeon_tpu_torch import mpc
+
+    cfg = st["cfg"]
+    lo = WALL_EDGES["edge_R"] + cfg.coupled.wall_margin
+    hi = WALL_EDGES["edge_L"] - cfg.coupled.wall_margin
+    outside = (diag.e < lo) | (diag.e > hi)
+    if cfg.soft:
+        plan = st["carry"].q_prev[:, 1:, 5]
+        live = ((plan < lo - 1e-3) | (plan > hi + 1e-3)).any(dim=-1)
+    else:
+        live = (st["carry"].warm_x[:, mpc._layout(cfg).sw] > 1e-3).any(
+            dim=-1)
+    return dict(outside_band=float(outside.float().mean()),
+                wall_slack_live=float(live.float().mean()))
+
+
 def run_fleet(torch, B: int, steps: int, kernels, formulation="coupled"):
     """One cold and `steps` warm steps; every step must launch each kernel
-    of its path (PATH_KERNELS) and no other.  Returns per-step records
-    and the final state."""
+    of its path (PATH_KERNELS) and no other.  A wall fleet's cold step
+    records `wall_shares`, each of which must be above zero.  Returns
+    per-step records and the final state."""
     st = make_setup(torch, B, "cuda", formulation=formulation)
     expect = PATH_KERNELS[formulation]
     recs = []
@@ -2082,40 +2240,170 @@ def run_fleet(torch, B: int, steps: int, kernels, formulation="coupled"):
                          conv=float(diag.converged.float().mean()),
                          iters=float(diag.iterations.float().mean()),
                          launches={k: v for k, v in grew.items() if v}))
+        if i == 0 and formulation in WALL_FLEETS:
+            recs[0].update(wall_shares(torch, st, diag))
+            require(recs[0]["outside_band"] > 0.0
+                    and recs[0]["wall_slack_live"] > 0.0,
+                    f"{formulation}: no wall binds on the cold step "
+                    f"{recs[0]}")
     return recs, st
 
 
-def plain_b8(torch, *args, pattern=None, A_packed=None, **kw):
+def run_expm_split(torch, kernels):
+    """One cold step of the sparse wall fleet (B_SPARSE) with lin_method
+    "expm_split": each hold order's own exponential on the dense expm
+    kernel, a (B 5, 13, 13) stack for the ZOH stages and a (B 10, 19, 19)
+    one for the FOH stages, in place of the structured one.  Its QP is
+    held against the "expm" QP of the same state, each field within
+    EXPM_SPLIT_QP_REL of that field's scale; the step must launch the
+    kernels of PATH_KERNELS["sparse_walls_expm_split"] (expm_dense twice)
+    and no other, B8 in its narrow build.  Returns the record (with the
+    step's launches and B8 builds) and the step's two expm_dense calls,
+    ZOH then FOH."""
+    from pigeon_tpu_torch import mpc
+
+    st = make_setup(torch, B_SPARSE, "cuda", formulation="sparse_walls")
+    split = dataclasses.replace(st["cfg"], lin_method="expm_split")
+    qp = {cfg.lin_method: mpc._pre_solve(
+        cfg, st["tube"], st["cache"], st["carry"], st["q"], st["u"],
+        st["oc"], st["t"])[0] for cfg in (st["cfg"], split)}
+    rel = {}
+    for field in qp["expm"]._fields:
+        a, b = getattr(qp["expm"], field), getattr(qp["expm_split"], field)
+        finite = torch.isfinite(a)
+        require(torch.equal(finite, torch.isfinite(b)),
+                f"expm_split: the QPs' infinite bounds differ ({field})")
+        rel[field] = float((a[finite] - b[finite]).abs().max()
+                           / a[finite].abs().max().clamp(min=1e-30))
+    require(max(rel.values()) <= EXPM_SPLIT_QP_REL,
+            f"expm_split: QP against expm {rel}")
+    del qp
+    st["cfg"] = split
+    kernels.reset_launches()
+    out = {}
+    calls = capture_kernel_inputs(
+        lambda: out.update(diag=closed_loop_step(torch, st)[1]))
+    torch.cuda.synchronize()
+    counts = kernels.launches()
+    launched = {k: v for k, v in counts.items() if v}
+    b8 = {k: kernels.launches_by(k) for k in B8_KERNELS}
+    require(set(launched) == PATH_KERNELS["sparse_walls_expm_split"]
+            and launched["expm_dense"] == 2
+            and b8 == b8_builds("admm_dense", "highest",
+                                launched["admm_dense"]),
+            f"expm_split step launches {launched}, builds {b8}")
+    zoh, foh = calls["expm_dense"], calls["expm_dense_last"]
+    require(zoh[0][0].shape == (B_SPARSE * 5, 13, 13)
+            and foh[0][0].shape == (B_SPARSE * 10, 19, 19),
+            "expm_split: the stacks' shapes")
+    return dict(batch=B_SPARSE, qp_rel=rel, qp_rel_bar=EXPM_SPLIT_QP_REL,
+                converged=float(out["diag"].converged.float().mean()),
+                launches=counts, b8_builds=b8), (zoh, foh)
+
+
+def plain_b8(torch, *args, pattern=None, A_packed=None, dtype=None, **kw):
     """`pallas_admm.admm_iterations` as its plain version computes it, on
     the tensors' own device (the card's here): the same arguments, the
-    pattern and packed A unused."""
+    pattern and packed A unused; in `dtype` if given, the iterates and
+    statistics then rounded back to the arguments' dtype."""
     n_iters, sigma, alpha = args[9:12]
     opts = dict(kw, sigma=sigma, alpha=alpha, tile=kw.get("tile", 1))
-    return dense_admm(torch, args[:9], opts, n_iters, kw.get("check", 0),
-                      plain=True)
+    out = dense_admm(torch, args[:9], opts, n_iters, kw.get("check", 0),
+                     plain=True, dtype=dtype)
+    return tuple(t.to(args[2].dtype) for t in out)
+
+
+def lane_plain_in(torch, dtype):
+    """`lane_admm.admm_iterations_plain` in `dtype`, its iterates and
+    statistics rounded back to the arguments' dtype."""
+    from pigeon_tpu_torch.solver import lane_admm as la
+
+    def run(*args, **kw):
+        up = lambda t: (t.to(dtype) if torch.is_tensor(t)
+                        and t.is_floating_point() else t)
+        out = la.admm_iterations_plain(*[up(a) for a in args], **kw)
+        return tuple(t.to(args[2].dtype) for t in out)
+    return run
+
+
+def verified_convergence(torch, qp, sol, opts):
+    """A batched solve's reported converged share, and the share whose
+    report the float64 residuals of the returned solution confirm: the
+    OSQP residuals |A x - z| and |P x + q + A'y| and their tolerances
+    recomputed from the QP as the solver's statistics define them,
+    within CONV_VERIFY_MARGIN of the tolerance; and the largest ratio of
+    residual to tolerance among the instances reported converged."""
+    P, q, A = (t.to(torch.float64) for t in qp[:3])
+    x, y, z = (t.to(torch.float64) for t in (sol.x, sol.y, sol.z))
+    Ax = torch.einsum("bmn,bn->bm", A, x)
+    Aty = torch.einsum("bmn,bm->bn", A, y)
+    Px = torch.einsum("bij,bj->bi", P, x) if P.dim() == 3 else P * x
+    amax = lambda v: v.abs().amax(dim=-1)
+    eps_p = opts.eps_abs + opts.eps_rel * torch.maximum(amax(Ax), amax(z))
+    eps_d = opts.eps_abs + opts.eps_rel * torch.maximum(
+        torch.maximum(amax(Px), amax(Aty)), amax(q))
+    ratio = torch.maximum(amax(Ax - z) / eps_p, amax(Px + q + Aty) / eps_d)
+    reported = sol.converged
+    verified = reported & (ratio <= 1.0 + CONV_VERIFY_MARGIN)
+    share = lambda t: float(t.float().mean())
+    return dict(reported=share(reported), verified=share(verified),
+                worst_ratio=float(ratio[reported].max())
+                if bool(reported.any()) else 0.0,
+                iters=float(sol.iterations.float().mean()))
+
+
+def plain_admm(torch, cfg):
+    """The ADMM kernel wrapper of `cfg`'s solver (the dense one on a
+    "pallas" fleet, the lane one on a "lanes" fleet): (its module, its
+    plain version, that plain version in float64)."""
+    from pigeon_tpu_torch.solver import lane_admm as la
+    from pigeon_tpu_torch.solver import pallas_admm as pa
+
+    if cfg.solver.backend == "lanes":
+        return (la, la.admm_iterations_plain,
+                lane_plain_in(torch, torch.float64))
+    return (pa, lambda *a, **kw: plain_b8(torch, *a, **kw),
+            lambda *a, **kw: plain_b8(torch, *a, dtype=torch.float64, **kw))
+
+
+def step_with_admm(torch, st, fn=None):
+    """`closed_loop_step` of `st` with the ADMM kernel wrapper replaced by
+    `fn` (None: the kernel); returns (u3, diag, the batched solve's (qp,
+    solution, options))."""
+    from pigeon_tpu_torch import mpc
+
+    mod = plain_admm(torch, st["cfg"])[0]
+    solve, kernel = mpc.solve_qp_batched, mod.admm_iterations
+    seen = {}
+
+    def recorded(qp, warm, opts, **kw):
+        sol = solve(qp, warm, opts, **kw)
+        seen.update(qp=qp, sol=sol, opts=opts)
+        return sol
+    mpc.solve_qp_batched, mod.admm_iterations = recorded, fn or kernel
+    try:
+        u3, diag = closed_loop_step(torch, st)
+    finally:
+        mpc.solve_qp_batched, mod.admm_iterations = solve, kernel
+    return u3, diag, (seen["qp"], seen["sol"], seen["opts"])
 
 
 def convergence_witness(torch, st):
-    """One more closed-loop step of a "pallas" fleet from its state `st`
-    (left as it is), on the path (the kernels) and with the dense ADMM
-    kernel's plain version in its place on the card (the same QPs, the
-    same Ruiz and factor): both runs' converged shares."""
-    from pigeon_tpu_torch.solver import pallas_admm as pa
-
+    """One more closed-loop step of a fleet from its state `st` (left as
+    it is), three times on the card: on the path (the kernels); with its
+    ADMM kernel's plain version in its place (`plain_admm`: the same QPs,
+    the same scaling and factor); and with that plain version in float64
+    (its arguments raised to float64 at each call, its outputs rounded
+    back).  Each run's `verified_convergence` of its solve."""
     device = st["q"].device
-    kernel = closed_loop_step(torch, copy_state(torch, st, device,
-                                                torch.float32))[1]
-    original = pa.admm_iterations
-    pa.admm_iterations = lambda *a, **kw: plain_b8(torch, *a, **kw)
-    try:
-        plain = closed_loop_step(torch, copy_state(torch, st, device,
-                                                   torch.float32))[1]
-    finally:
-        pa.admm_iterations = original
-    share = lambda d: float(d.converged.float().mean())
-    return dict(converged_kernel=share(kernel), converged_plain=share(plain),
-                iters_kernel=float(kernel.iterations.float().mean()),
-                iters_plain=float(plain.iterations.float().mean()))
+    _, plain, plain64 = plain_admm(torch, st["cfg"])
+    out = {}
+    for name, fn in (("kernel", None), ("plain", plain),
+                     ("plain64", plain64)):
+        solve = step_with_admm(torch, copy_state(torch, st, device,
+                                                 torch.float32), fn)[2]
+        out[name] = verified_convergence(torch, *solve)
+    return out
 
 
 def cache_to(cache, device):
@@ -2133,16 +2421,16 @@ def copy_state(torch, st, device, dtype, cfg=None, cache=None):
     """The same fleet state on another device / in another dtype (with
     another configuration if `cfg` is given); `cache` is the HJI cache
     there (None: the inactive cache)."""
-    from pigeon_tpu_torch import hji, mpc, trajectory
+    from pigeon_tpu_torch import hji, mpc
 
     conv = lambda x: x.to(device=device, dtype=dtype) \
         if x.is_floating_point() else x.to(device)
+    cfg = cfg or st["cfg"]
     return dict(
-        cfg=cfg or st["cfg"],
+        cfg=cfg,
         cache=cache if cache is not None else hji.inactive_cache(
             device=device),
-        tube=trajectory.make_tube(**trajectory.oval_columns(), pad_to=1024,
-                                  device=device, dtype=dtype),
+        tube=oval_tube(torch, device, dtype, cfg),
         carry=mpc.MPCCarry(*[conv(x) for x in st["carry"]]),
         **{k: conv(st[k]) for k in ("q", "u", "oc", "t")})
 
@@ -2189,7 +2477,8 @@ def profile_step(torch, st):
 
 
 def reference_verdict(torch, fleet_wide, check, card, c32, u64, exit64=(),
-                      outside_from_cpu=False, inner=0, conv_slack=2):
+                      outside_from_cpu=False, inner=0, conv_slack=2,
+                      card_plain=None):
     """One step of `reference_check`'s rule: `card` and `c32` are the
     (commands, diagnostics) of the card and of the CPU float32 path, `u64`
     the CPU float64 commands, `exit64` the CPU float64 commands from the
@@ -2197,7 +2486,10 @@ def reference_verdict(torch, fleet_wide, check, card, c32, u64, exit64=(),
     in REF_RULES; `inner` (REF_RULES' "segments"): the in-kernel check
     period, by which the fleet-wide iteration bar grows for each segment
     one run's batch went on with after the other's stopped; `conv_slack`:
-    how far the fleet-wide converged counts may differ (REF_RULES).
+    how far the fleet-wide converged counts may differ (REF_RULES);
+    `card_plain`: the commands of the card's step with its ADMM kernel's
+    float32 plain version in its place (REF_RULES' "card_plain"), a
+    witness like the moved float64 states.
     Returns the record and the rules broken."""
     (ug, dg_), (u32, d32) = card, c32
     bar = torch.tensor([2e-4, 2.0, 2.0], dtype=torch.float64)
@@ -2215,6 +2507,14 @@ def reference_verdict(torch, fleet_wide, check, card, c32, u64, exit64=(),
                                     for e in exit_gaps],
                      exit_gap_abs=exit_gap.tolist(),
                      exit_outside_bar=witness_outside[1:])
+    if card_plain is not None:
+        plain_gap = (card_plain - u64).abs()
+        scale = torch.maximum(scale, plain_gap.amax(dim=0) if fleet_wide
+                              else plain_gap)
+        witness_outside.append(outside_of(plain_gap))
+        extra.update(card_plain_gap_bars=float((plain_gap / bar).max()),
+                     card_plain_gap_abs=plain_gap.amax(dim=0).tolist(),
+                     card_plain_outside_bar=witness_outside[-1])
     allowed = torch.minimum(bar + 2.0 * scale, REF_CAP_BARS * bar)
     it_g = dg_.iterations.cpu().double()
     it_c = d32.iterations.double()
@@ -2391,7 +2691,13 @@ def reference_check(torch, formulation="coupled", device="cuda",
                    for name, cfg in controls.items()}
             on_cpu = (copy_state(torch, gpu, device, torch.float32,
                                  cache=cache) if fleet_wide else None)
+            plain_st = (copy_state(torch, gpu, device, torch.float32,
+                                   cache=cache)
+                        if rule.get("card_plain") else None)
             card = closed_loop_step(torch, gpu)
+            u_cp = (None if plain_st is None else step_with_admm(
+                torch, plain_st, plain_admm(torch, gpu["cfg"])[1])[0]
+                .cpu().double())
             cpu32 = closed_loop_step(torch, c32)
             u64, d64 = closed_loop_step(torch, c64)
             exit64 = [closed_loop_step(torch, st)[0] for st in moved]
@@ -2408,10 +2714,11 @@ def reference_check(torch, formulation="coupled", device="cuda",
                                     u64[keep])
                 exit64 = [u[keep] for u in exit64]
                 u_cq = None if u_cq is None else u_cq[keep]
+                u_cp = None if u_cp is None else u_cp[keep]
             inner = solver.pallas_check_inner if rule.get("segments") else 0
             rec, broken = reference_verdict(torch, fleet_wide, check, card,
                                             cpu32, u64, exit64, outside,
-                                            inner, conv_slack)
+                                            inner, conv_slack, u_cp)
             rec.update(flags)
             if fleet_wide:
                 rec["per_vehicle_rule_broken"] = reference_verdict(
@@ -2429,7 +2736,7 @@ def reference_check(torch, formulation="coupled", device="cuda",
                 same_bits[name] &= bool(torch.equal(u_c, ug))
                 crec, cbroken = reference_verdict(
                     torch, fleet_wide, check, (u_c, d_c), cpu32, u64, exit64,
-                    outside, inner, conv_slack)
+                    outside, inner, conv_slack, u_cp)
                 rec[f"control_{name}"] = dict(
                     broken=cbroken, err_bars=crec["err_bars"],
                     max_excess=crec["max_excess"],
@@ -2544,12 +2851,20 @@ def simulate_setup(torch, formulation: str, device, dtype):
     """`mpc.simulate`'s arguments for one vehicle near the oval's start,
     with the formulation's default solver options (the soft ones, and
     "decoupled_sparse": `x1_decoupled_config()` as it comes), or
-    ("condensed") the hard condensed QP on SIM_CONDENSED_SOLVER."""
-    from pigeon_tpu_torch import hji, mpc, trajectory
+    ("condensed") the hard condensed QP on SIM_CONDENSED_SOLVER, or
+    ("faithful") `parity.faithful_config` of `x1_coupled_config()` at the
+    oval's stable RK4 substep count (`parity.stable_substeps`: 4)."""
+    from pigeon_tpu_torch import hji, mpc, parity, trajectory
     from pigeon_tpu_torch.config import SolverOptions
 
     cols = trajectory.oval_columns()
-    if formulation == "condensed":
+    tube = trajectory.make_tube(**cols, pad_to=1024, device=device,
+                                dtype=dtype)
+    if formulation == "faithful":
+        base = mpc.x1_coupled_config()
+        cfg = parity.faithful_config(base, parity.stable_substeps(base.veh,
+                                                                  tube))
+    elif formulation == "condensed":
         cfg = mpc.x1_coupled_config(
             condensed=True, solver=SolverOptions(**SIM_CONDENSED_SOLVER))
     elif formulation == "decoupled_sparse":
@@ -2560,10 +2875,7 @@ def simulate_setup(torch, formulation: str, device, dtype):
     q0 = torch.tensor([cols["E"][0] + 0.3, cols["N"][0] + 0.5,
                        cols["psi"][0] + 0.03, 6.0, 0.0, 0.0], dtype=dtype,
                       device=device)
-    return (cfg,
-            trajectory.make_tube(**cols, pad_to=1024, device=device,
-                                 dtype=dtype),
-            hji.inactive_cache(device=device), q0)
+    return cfg, tube, hji.inactive_cache(device=device), q0
 
 
 def b8_builds(kernel: str, tag: str, count: int) -> dict:
@@ -2577,16 +2889,23 @@ def run_simulate(torch, kernels, formulation: str, steps: int = SIM_STEPS,
                  profile_steps: int = SIM_PROFILE_STEPS):
     """`steps` closed-loop steps of one vehicle on the card through
     `mpc.simulate`.  The route must launch expm_dense once per step (twice
-    for "decoupled_sparse": its ZOH and its FOH stack) and no other kernel
-    but, for "condensed", the dense ADMM kernel's wide build once per
-    solver segment (the log's iterations over `check_every`).  Returns
-    the record, the log, and torch.profiler's per-step reading of
-    `profile_steps` more steps from the same start."""
+    for "decoupled_sparse": its ZOH and its FOH stack; never for
+    "faithful", whose RK4 linearization and plain solver launch nothing)
+    and no other kernel but, for "condensed", the dense ADMM kernel's wide
+    build once per solver segment (the log's iterations over
+    `check_every`).  The last step must converge, but for "faithful":
+    PARITY_SOLVER's eps of 1e-6 is beyond a float32 solve, which runs its
+    10,000 iterations on every step (on the CPU too; float64 converges
+    within 100-650).  Returns the record, the log, and torch.profiler's
+    per-step reading of `profile_steps` more steps from the same start
+    (None for 0)."""
     from pigeon_tpu_torch import mpc
 
     cfg, tube, cache, q0 = simulate_setup(torch, formulation, "cuda",
                                           torch.float32)
-    mpc.simulate(cfg, tube, cache, q0, n_steps=2)       # warm-up
+    if formulation != "faithful":
+        # warm-up (the faithful route builds and launches no kernel)
+        mpc.simulate(cfg, tube, cache, q0, n_steps=2)
     torch.cuda.synchronize()
     kernels.reset_launches()
     t0 = time.perf_counter()
@@ -2595,8 +2914,8 @@ def run_simulate(torch, kernels, formulation: str, steps: int = SIM_STEPS,
     wall = time.perf_counter() - t0
     launched = kernels.launches()
     expect = dict.fromkeys(launched, 0)
-    expect["expm_dense"] = steps * (2 if formulation == "decoupled_sparse"
-                                    else 1)
+    expect["expm_dense"] = steps * {"decoupled_sparse": 2,
+                                    "faithful": 0}.get(formulation, 1)
     builds = {k: kernels.launches_by(k) for k in B8_KERNELS}
     if formulation == "condensed":
         b8, tag = PATH_B8_BUILD["simulate_condensed"]
@@ -2614,18 +2933,20 @@ def run_simulate(torch, kernels, formulation: str, steps: int = SIM_STEPS,
             and bool(torch.isfinite(log.u).all()),
             f"simulate ({formulation}): log not finite or misshapen")
     conv = log.diag.converged
-    require(bool(conv[-1]), f"simulate ({formulation}): last step did not "
-                            f"converge")
+    require(bool(conv[-1]) or formulation == "faithful",
+            f"simulate ({formulation}): last step did not converge")
     rec = dict(formulation=formulation, steps=steps,
                step_ms=wall / steps * 1e3,
                converged_share=float(conv.float().mean()),
                iters_mean=float(log.diag.iterations.float().mean()),
                e_last=float(log.diag.e[-1]), launches=launched,
                b8_builds=builds)
-    prof = profile_call(
-        torch, lambda: mpc.simulate(cfg, tube, cache, q0,
-                                    n_steps=profile_steps),
-        profile_steps)
+    prof = None
+    if profile_steps:
+        prof = profile_call(
+            torch, lambda: mpc.simulate(cfg, tube, cache, q0,
+                                        n_steps=profile_steps),
+            profile_steps)
     return rec, log, prof
 
 
@@ -3376,6 +3697,58 @@ def main() -> int:
     del cap_cd, small_cd, warm_cd, sim_cd, cap_mk, small_mk, warm_mk
     del cap_ds, warm_ds, small_ds
 
+    # ---- kernel checks at the wall fleets' shapes -------------------------
+    # their cold and warm steps' calls (B8 narrow at n = 208, m = 335 and
+    # B7 at block width 14 on the sparse QP, B8 wide at n = 118, m = 245
+    # with its dense P on the condensed QP, B2 and B3 at m = 139 on the
+    # soft QP, B1 and B9 on each) and the 12-stage horizon's
+    cap_sw, warm_sw = timed("sparse_walls_cold_warm", capture_cold_warm,
+                            "sparse_walls")
+    small_sw = timed("sparse_walls_small", capture_fleet, "sparse_walls",
+                     B_SMALL, HZ_SMALL)
+    cap_cw, warm_cw = timed("condensed_walls_cold_warm", capture_cold_warm,
+                            "condensed_walls")
+    small_cw = timed("condensed_walls_small", capture_fleet,
+                     "condensed_walls", B_SMALL, HZ_SMALL)
+    cap_fw = timed("coupled_walls", capture_fleet, "coupled_walls")
+    require(cap_sw["admm_dense"][0][1].shape == (B_SPARSE, 335, 208)
+            and cap_sw["admm_dense"][1]["pattern"].build == "narrow"
+            and cap_sw["banded_chol"][0][0].shape == (B_SPARSE, 16, 14, 14)
+            and cap_cw["admm_dense"][0][1].shape == (B_SPARSE, 245, 118)
+            and cap_cw["admm_dense"][1]["dense_P"]
+            and cap_cw["admm_dense"][1]["pattern"].build == "wide"
+            and cap_fw["admm_iterations"][0][1].shape[:2] == (139, 30)
+            and cap_fw["vanloan"][0][0].shape[:2] == (B_FLEET, 15),
+            "the wall fleets' QP sizes, stage blocks and B8 builds")
+    wall_checks = [
+        ("vanloan", name, lambda c=c: check_vanloan(torch, *c["vanloan"]))
+        for name, c in (("sparse_walls", cap_sw),
+                        ("condensed_walls", cap_cw),
+                        ("coupled_walls", cap_fw))] + [
+        ("chol_inverse", "coupled_walls",
+         lambda: check_chol_inverse(torch, *cap_fw["chol_inverse"])),
+        ("admm_iterations", "coupled_walls",
+         lambda: check_admm(torch, *cap_fw["admm_iterations"])),
+        ("ruiz", "sparse_walls",
+         lambda: check_ruiz(torch, *cap_sw["ruiz"], small_sw["ruiz"])),
+        ("ruiz", "condensed_walls",
+         lambda: check_ruiz(torch, *cap_cw["ruiz"], small_cw["ruiz"])),
+        ("banded_chol", "sparse_walls",
+         lambda: check_banded_chol(torch, *cap_sw["banded_chol"], dict(
+             small=small_sw["banded_chol"],
+             factor=cap_sw["factor_inv_banded"]))),
+        ("admm_dense", "sparse_walls",
+         lambda: check_admm_dense(torch, *cap_sw["admm_dense"], dict(
+             small=small_sw["admm_dense"], warm=warm_sw["admm_dense"]))),
+        ("admm_wide", "condensed_walls",
+         lambda: check_admm_dense(torch, *cap_cw["admm_dense"], dict(
+             small=small_cw["admm_dense"], warm=warm_cw["admm_dense"])))]
+    for kname, name, check in wall_checks:
+        second[f"{kname}_{name}"] = check()
+        log_check(kname, second[f"{kname}_{name}"], path=f"fleet_{name}")
+    del cap_sw, warm_sw, small_sw, cap_cw, warm_cw, small_cw, cap_fw
+    del wall_checks
+
     # ---- path: the coupled fleet ------------------------------------------
     launches, builds = {}, {}
 
@@ -3388,7 +3761,7 @@ def main() -> int:
         warm_ms = [r["ms"] for r in recs[1:]]
         last = recs[-1]
         witness = None
-        if formulation == "decoupled_sparse":
+        if formulation in WITNESS_FLEETS:
             witness = convergence_witness(torch, st)
         log(phase=phase, batch=B, cold_ms=recs[0]["ms"],
             warm_ms_median=float(np.median(warm_ms)),
@@ -3400,9 +3773,12 @@ def main() -> int:
             require(last["conv"] >= 0.99,
                     f"converged fraction {last['conv']}")
         else:
-            require(witness["converged_kernel"]
-                    >= witness["converged_plain"] - CONV_WITNESS_SLACK
-                    and last["conv"] > 0.0,
+            # every convergence the kernel reports holds in float64, and
+            # its share is no lower than its plain version's
+            kern = witness["kernel"]
+            require(kern["verified"] == kern["reported"]
+                    and kern["verified"] >= witness["plain"]["verified"]
+                    - CONV_WITNESS_SLACK and last["conv"] > 0.0,
                     f"{phase}: converged {witness}, last step "
                     f"{last['conv']}")
         if formulation in PATH_B8_BUILD:
@@ -3426,7 +3802,8 @@ def main() -> int:
                         and (r["launches"]["admm_large"] == n_seg
                              or r["conv"] == 1) for r in recs),
                     f"{phase} step launches {[r['launches'] for r in recs]}")
-        if formulation in ("condensed", "sparse_mixedk6"):
+        if formulation in ("condensed", "sparse_mixedk6", "sparse_walls",
+                           "condensed_walls"):
             # vanloan and ruiz once, B8 once per segment of the
             # budget: fewer only on a step where every vehicle converged;
             # the sparse QP's banded factor once per factorization (the
@@ -3435,7 +3812,7 @@ def main() -> int:
             segs = [r["launches"].get(PATH_B8_BUILD[formulation][0], 0)
                     for r in recs]
             chol = [r["launches"].get("banded_chol", 0) for r in recs]
-            sparse = formulation != "condensed"
+            sparse = not formulation.startswith("condensed")
             require(all(r["launches"].get("vanloan") == 1
                         and r["launches"].get("ruiz") == 1
                         and 1 <= k <= n_seg and (k == n_seg or r["conv"] == 1)
@@ -3455,6 +3832,22 @@ def main() -> int:
     fleet_phase("condensed", "fleet_condensed", B_SPARSE)
     # ---- path: the sparse decoupled fleet ---------------------------------
     fleet_phase("decoupled_sparse", "fleet_decoupled_sparse", B_SPARSE)
+    # ---- paths: the wall fleets (the reference's both_walls) --------------
+    fleet_phase("sparse_walls", "fleet_sparse_walls", B_SPARSE)
+    fleet_phase("condensed_walls", "fleet_condensed_walls", B_SPARSE)
+    fleet_phase("coupled_walls", "fleet_walls")
+    # ---- path: the sparse wall fleet's step with "expm_split" -------------
+    rec, split_calls = run_expm_split(torch, kernels)
+    launches["fleet_sparse_walls_expm_split"] = rec.pop("launches")
+    builds["fleet_sparse_walls_expm_split"] = rec.pop("b8_builds")
+    log(phase="fleet_sparse_walls_expm_split", **rec)
+    for name, (a, kw) in zip(("zoh", "foh"), split_calls):
+        # linearize_affine_zoh / _foh call expm_dense(M) at its defaults
+        second[f"expm_dense_expm_split_{name}"] = expm_case(
+            torch, a[0], kw.get("squarings", 8), kw.get("order", 8), (10, 3))
+        log_check("expm_dense", second[f"expm_dense_expm_split_{name}"],
+                  path=f"expm_split_{name}")
+    del split_calls
 
     # ---- path: the unbatched closed loop ----------------------------------
     sim_logs = {}
@@ -3485,6 +3878,13 @@ def main() -> int:
     log(phase="simulate", **rec)
     log(phase="profile", path="simulate", formulation="decoupled_sparse",
         batch=1, **prof)
+    # the reference-faithful closed loop (the parity harness's faithful
+    # controller): the RK4 linearization and the plain solver, no kernel;
+    # not profiled (its 10,000-iteration solves)
+    rec, sim_logs["faithful"], _ = run_simulate(
+        torch, kernels, "faithful", SIM_STEPS_FAITHFUL, profile_steps=0)
+    launches["simulate_faithful"] = rec["launches"]
+    log(phase="simulate", **rec)
 
     # ---- path: the Monte-Carlo safety study ------------------------------
     mc_rec, mc_ctx = run_montecarlo(torch, kernels)
@@ -3529,9 +3929,12 @@ def main() -> int:
 
     # ---- reference checks -------------------------------------------------
     for formulation in ("coupled", "decoupled", "sparse", "condensed",
-                        "sparse_mixedk6", "decoupled_sparse"):
+                        "sparse_mixedk6", "decoupled_sparse",
+                        "sparse_walls", "condensed_walls", "coupled_walls"):
+        t0 = time.perf_counter()
+        rec = reference_check(torch, formulation)
         log(phase="reference", formulation=formulation, batch=B_REF,
-            **reference_check(torch, formulation))
+            seconds=time.perf_counter() - t0, **rec)
     for bulk in LADDER_BULKS:
         t0 = time.perf_counter()
         rec = ladder_check(torch, kernels, bulk)
@@ -3582,7 +3985,9 @@ def main() -> int:
                       **{name[len(k) + 1:]: o for name, o in second.items()
                          if name.startswith(f"{k}_runtime_")},
                       decoupled_step=r.get("decoupled_step"),
-                      fleet_stack=r.get("fleet_stack"))
+                      fleet_stack=r.get("fleet_stack"),
+                      **{f"fleet_{w}" if "walls" in w else w:
+                         second.get(f"{k}_{w}") for w in WALL_CHECKS})
         keys = ("shapes", "err", "ms", "plain_ms", "bound_ms", "bound_by",
                 "library_ms")
         out["other_shapes"] = {name: {q: o[q] for q in keys}

@@ -131,9 +131,24 @@ struct Inst {
   float z[RPL], y[RPL], rho[RPL], lo[RPL], hi[RPL], cap[RPL], E[RPL];
 };
 
-__device__ __forceinline__ float warp_fmax(float v) {
+// max and min that keep a NaN of either argument, one instruction each
+// (max.NaN, min.NaN), as the plain version's clamp and amax do: an
+// instance whose QP holds a NaN gets NaN statistics and never converges
+__device__ __forceinline__ float nmax(float a, float b) {
+  float d;
+  asm("max.NaN.f32 %0, %1, %2;" : "=f"(d) : "f"(a), "f"(b));
+  return d;
+}
+
+__device__ __forceinline__ float nmin(float a, float b) {
+  float d;
+  asm("min.NaN.f32 %0, %1, %2;" : "=f"(d) : "f"(a), "f"(b));
+  return d;
+}
+
+__device__ __forceinline__ float warp_max(float v) {
 #pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(FULL, v, o));
+  for (int o = 16; o > 0; o >>= 1) v = nmax(v, __shfl_xor_sync(FULL, v, o));
   return v;
 }
 
@@ -238,8 +253,8 @@ __device__ __forceinline__ void iterate(const Args& a, Inst<NT, RPL>& s,
       const float rho = s.rho[k], z = s.z[k], y = s.y[k], cap = s.cap[k];
       const float zm = a.alpha * zt[k] + (1.0f - a.alpha) * z;
       const float v = zm + y * (1.0f / rho);
-      const float zn = v - fminf(fmaxf(v - s.hi[k], 0.0f), cap)
-                       - fminf(fmaxf(v - s.lo[k], -cap), 0.0f);
+      const float zn = v - nmin(nmax(v - s.hi[k], 0.0f), cap)
+                       - nmin(nmax(v - s.lo[k], -cap), 0.0f);
       s.z[k] = zn;
       s.y[k] = y + rho * (zm - zn);
     }
@@ -265,9 +280,9 @@ __device__ __forceinline__ bool calc_stats(const Args& a,
     if (32 * k + lane < m) {
       const float invE = 1.0f / s.E[k];
       const float Ax_u = ax[k] * invE, z_u = s.z[k] * invE;
-      s0 = fmaxf(s0, fabsf(Ax_u - z_u));
-      s2 = fmaxf(s2, fabsf(Ax_u));
-      s3 = fmaxf(s3, fabsf(z_u));
+      s0 = nmax(s0, fabsf(Ax_u - z_u));
+      s2 = nmax(s2, fabsf(Ax_u));
+      s3 = nmax(s3, fabsf(z_u));
     }
   }
   float px = 0.0f;
@@ -277,18 +292,18 @@ __device__ __forceinline__ bool calc_stats(const Args& a,
   float s1 = 0.0f, s4 = 0.0f, s5 = 0.0f, aqu = 0.0f;
   if (lane < n) {
     const float Aty_u = aty * s.invDc;
-    s1 = fmaxf(0.0f, fabsf(px + s.qu + Aty_u));
-    s4 = fmaxf(0.0f, fabsf(px));
-    s5 = fmaxf(0.0f, fabsf(Aty_u));
-    aqu = fmaxf(0.0f, fabsf(s.qu));
+    s1 = fabsf(px + s.qu + Aty_u);
+    s4 = fabsf(px);
+    s5 = fabsf(Aty_u);
+    aqu = fabsf(s.qu);
   }
-  s0 = warp_fmax(s0); s1 = warp_fmax(s1); s2 = warp_fmax(s2);
-  s3 = warp_fmax(s3); s4 = warp_fmax(s4); s5 = warp_fmax(s5);
-  aqu = warp_fmax(aqu);
+  s0 = warp_max(s0); s1 = warp_max(s1); s2 = warp_max(s2);
+  s3 = warp_max(s3); s4 = warp_max(s4); s5 = warp_max(s5);
+  aqu = warp_max(aqu);
   st[0] = s0; st[1] = s1; st[2] = s2; st[3] = s3;
   st[4] = s4; st[5] = s5; st[6] = 0.0f; st[7] = 0.0f;
-  const float eps_p = a.eps_abs + a.eps_rel * fmaxf(s2, s3);
-  const float eps_d = a.eps_abs + a.eps_rel * fmaxf(fmaxf(s4, s5), aqu);
+  const float eps_p = a.eps_abs + a.eps_rel * nmax(s2, s3);
+  const float eps_d = a.eps_abs + a.eps_rel * nmax(nmax(s4, s5), aqu);
   return (s0 <= eps_p) && (s1 <= eps_d);
 }
 

@@ -1,7 +1,9 @@
 """Integration and horizon linearization.  Counterpart of
-`pigeon_tpu/discretize.py`: RK4 `propagate`, the fixed scaling-and-squaring
-`expm_fixed` and its CUDA kernel `expm_dense` (`csrc/expm_dense.cu`), and
-the fused ZOH/FOH horizon linearization.  Its Van Loan exponential takes
+`pigeon_tpu/discretize.py`: RK4 `propagate`, the reference's linearization
+by differentiating RK4 steps (`linearize_zoh`, `linearize_foh`: plain
+ops, no kernel), the fixed scaling-and-squaring `expm_fixed` and its CUDA
+kernel `expm_dense` (`csrc/expm_dense.cu`), and the fused ZOH/FOH horizon
+linearization.  Its Van Loan exponential takes
 one of two routes, as in the JAX package: the structured form
 (`csrc/vanloan.cu`) for a fleet, the dense stage matrix through
 `expm_dense` for the unbatched controller.  The sparse decoupled QP
@@ -37,12 +39,80 @@ def rk4_step(f, q, ur, dt):
     return q + (dt / 6.0) * (k1 + 2.0 * k2 + 2.0 * k3 + k4)
 
 
+def rk4_step_ramp(f, q, ur0, urf, dt):
+    """One RK4 step with the input ramping linearly from ur0 to urf over
+    dt (the reference's RampControl): stage inputs at tau = 0, dt/2, dt/2,
+    dt."""
+    urm = 0.5 * (ur0 + urf)
+    k1 = f(q, ur0)
+    k2 = f(q + 0.5 * dt * k1, urm)
+    k3 = f(q + 0.5 * dt * k2, urm)
+    k4 = f(q + dt * k3, urf)
+    return q + (dt / 6.0) * (k1 + 2.0 * k2 + 2.0 * k3 + k4)
+
+
 def propagate(f, q, ur, dt, substeps: int = 1):
     """Integrate f over dt with constant input (the plant step)."""
     h = dt / substeps
     for _ in range(substeps):
         q = rk4_step(f, q, ur, h)
     return q
+
+
+# ---------------------------------------------------------------------------
+# Discrete linearization by differentiating the integrator (the reference
+# coupled controller's path, src/coupled_lat_long.jl:253,262)
+# ---------------------------------------------------------------------------
+
+def _ramp_propagate(f, q, ur0, urf, h, substeps: int):
+    """`substeps` ramp RK4 steps of h each; substep i ramps from
+    ur0 + (urf - ur0) i/k to ur0 + (urf - ur0) (i+1)/k."""
+    for i in range(substeps):
+        u_a = ur0 + (urf - ur0) * (i / substeps)
+        u_b = ur0 + (urf - ur0) * ((i + 1) / substeps)
+        q = rk4_step_ramp(f, q, u_a, u_b, h)
+    return q
+
+
+def linearize_zoh(f, q, ur, dt, n_keep: int, substeps: int = 1):
+    """Discrete ZOH affine model of each row by differentiating
+    `substeps` RK4 steps over dt: q (K, n), ur (K, m), dt (K,) -> A (K, n,
+    n), B (K, n, n_keep), c (K, n), the input's other columns folded into
+    c (`pigeon_tpu.discretize.linearize_zoh`, batched).
+
+    Explicit RK4 is stable only for |lambda| dt / substeps < 2.78; the
+    lateral tire modes reach |lambda| ~ 250/Ux 1/s, so one step over
+    dt_long = 0.2 gives an amplifying model (the reference's own; see
+    `parity.stable_substeps`)."""
+    # dt rides along as an argument, repeated with the rows (its column
+    # of the Jacobian is dropped)
+    def g(q_, ur_, dt_):
+        return propagate(f, q_, ur_, dt_, substeps)
+
+    A, B_full, _ = batched_jacobians(g, q, ur, dt[:, None])
+    B = B_full[..., :n_keep]
+    c = (g(q, ur, dt[:, None]) - torch.einsum("kij,kj->ki", A, q)
+         - torch.einsum("kij,kj->ki", B, ur[:, :n_keep]))
+    return A, B, c
+
+
+def linearize_foh(f, q, ur0, urf, dt, n_keep: int, substeps: int = 1):
+    """Discrete FOH affine model of each row by differentiating
+    `substeps` ramp RK4 steps over dt with respect to q, ur0 and urf, the
+    inputs at the step's two ends: A (K, n, n), B0, Bf (K, n, n_keep),
+    c (K, n) (`pigeon_tpu.discretize.linearize_foh`, batched).  Same
+    stability caveat as `linearize_zoh`."""
+    h = (dt / substeps)[:, None]
+
+    def g(q_, ur0_, urf_, h_):
+        return _ramp_propagate(f, q_, ur0_, urf_, h_, substeps)
+
+    A, B0_full, Bf_full, _ = batched_jacobians(g, q, ur0, urf, h)
+    B0, Bf = B0_full[..., :n_keep], Bf_full[..., :n_keep]
+    c = (g(q, ur0, urf, h) - torch.einsum("kij,kj->ki", A, q)
+         - torch.einsum("kij,kj->ki", B0, ur0[:, :n_keep])
+         - torch.einsum("kij,kj->ki", Bf, urf[:, :n_keep]))
+    return A, B0, Bf, c
 
 
 def expm_fixed(M, squarings: int = 8, order: int = 8):
@@ -250,29 +320,34 @@ def vanloan_dense(P0, Cu0, cc0, rr, squarings: int, order: int):
             E[..., :n, -1:])
 
 
-def batched_jacobians(f, q, u):
-    """Per-row Jacobians of a row-wise function f(q (K, n), u (K, m)) ->
-    (K, d): Jq (K, d, n), Ju (K, d, m).
+def batched_jacobians(f, *args):
+    """Per-row Jacobians of a row-wise function f(a0 (K, n0), a1 (K, n1),
+    ...) -> (K, d), one for each argument: (K, d, n0), (K, d, n1), ...
 
-    This is `torch.func.jacfwd` (a vmap of jvp over the basis vectors)
-    with the instance batch kept as a plain leading dimension.  The
-    per-instance form `vmap(jacfwd(f))` indexes 0-d tensors inside the
+    One forward-mode pass (`torch.func.jvp`) over the rows repeated once
+    for each input column, copy j carrying the j-th basis vector as its
+    tangent: the instance batch stays a plain leading dimension, so every
+    intermediate stays (K,)-shaped and in the input dtype (the
+    per-instance `vmap(jacfwd(f))` indexes 0-d tensors inside the
     dynamics, and under vmap a 0-d float32 tensor times a Python float
-    promotes to float64; here every intermediate stays (K,)-shaped and in
-    the input dtype."""
-    def column(argnum):
-        def jvp(v):
-            if argnum == 0:
-                return torch.func.jvp(lambda x: f(x, u), (q,),
-                                      (v.expand_as(q),))[1]
-            return torch.func.jvp(lambda x: f(q, x), (u,),
-                                  (v.expand_as(u),))[1]
-        return jvp
-
-    eye = lambda t: torch.eye(t.shape[-1], dtype=t.dtype, device=t.device)
-    Jq = torch.func.vmap(column(0))(eye(q)).permute(1, 2, 0)
-    Ju = torch.func.vmap(column(1))(eye(u)).permute(1, 2, 0)
-    return Jq, Ju
+    promotes to float64), and no op goes through vmap's batching rules.
+    Since f sees the rows repeated, every row-wise tensor f reads must be
+    one of `args`: a (K, ...) tensor f closes over would not line up with
+    the repeated rows."""
+    K = args[0].shape[0]
+    sizes = [a.shape[-1] for a in args]
+    total = sum(sizes)
+    tangents, start = [], 0
+    for a, size in zip(args, sizes):
+        t = torch.zeros((total, K, size), dtype=a.dtype, device=a.device)
+        j = torch.arange(size, device=a.device)
+        t[start + j, :, j] = 1.0
+        tangents.append(t.reshape(total * K, size))
+        start += size
+    primals = tuple(a.repeat(total, 1) for a in args)
+    out = torch.func.jvp(f, primals, tuple(tangents))[1]
+    out = out.reshape(total, K, -1).permute(1, 2, 0)
+    return tuple(torch.split(out, sizes, dim=-1))
 
 
 def continuous_affine(f, q, ur):
@@ -329,6 +404,42 @@ def linearize_affine_foh(f, q, ur0, urf, dt, n_keep: int):
          + torch.einsum("kij,kj->ki", B0_full[..., n_keep:], ur0[:, n_keep:])
          + torch.einsum("kij,kj->ki", Bf_full[..., n_keep:], urf[:, n_keep:]))
     return E[:, :n, :n], B0_full[..., :n_keep], Bf_full[..., :n_keep], c
+
+
+def linearize_affine_horizon(f, qs, urs, urs_next, dts, n_keep: int):
+    """The continuous linearization of a horizon's stages as the
+    (n + 2m + 1)^2 augmented matrices of `linearize_horizon_fused`,
+    before the ramp block and dt are applied: qs (..., n), urs (..., m)
+    -> (M (..., dim, dim), dim) with Jq, Ju and ct in the first n rows
+    (`pigeon_tpu.discretize.linearize_affine_horizon`, any leading
+    dimensions; `urs_next`, `dts` and `n_keep` are unused there too)."""
+    n, m = qs.shape[-1], urs.shape[-1]
+    lead = tuple(qs.shape[:-1])
+    Jq, Ju, ct = continuous_affine(f, qs.reshape(-1, n), urs.reshape(-1, m))
+    dim = n + 2 * m + 1
+    M = torch.zeros((Jq.shape[0], dim, dim), dtype=qs.dtype,
+                    device=qs.device)
+    M[:, :n, :n] = Jq
+    M[:, :n, n:n + m] = Ju
+    M[:, :n, -1] = ct
+    return M.reshape(lead + (dim, dim)), dim
+
+
+def extract_affine_horizon(E, dts, urs, urs_next, n: int, m: int,
+                           n_keep: int):
+    """(A, B0, Bf, c) of each stage from the exponentials E (..., dim,
+    dim) of the augmented stage matrices: Bf = Phi_qv / dt, B0 = Phi_qu -
+    Bf, the input's other columns folded into c
+    (`pigeon_tpu.discretize.extract_affine_horizon`, any leading
+    dimensions)."""
+    Bf_full = E[..., :n, n + m:n + 2 * m] / dts[..., None, None]
+    B0_full = E[..., :n, n:n + m] - Bf_full
+    c = (E[..., :n, -1]
+         + torch.einsum("...ij,...j->...i", B0_full[..., n_keep:],
+                        urs[..., n_keep:])
+         + torch.einsum("...ij,...j->...i", Bf_full[..., n_keep:],
+                        urs_next[..., n_keep:]))
+    return E[..., :n, :n], B0_full[..., :n_keep], Bf_full[..., :n_keep], c
 
 
 def linearize_horizon_fused(f, qs, urs, dts, S: int, n_keep: int,

@@ -54,8 +54,10 @@ class MPCConfig:
     formulations, coupled and decoupled, the sparse ones (`soft=False`,
     the JAX package's default: coupled with `condensed=False`, and
     decoupled) and the hard condensed coupled one (`soft=False,
-    condensed=True`); `_check_supported` rejects the options it has not
-    ported."""
+    condensed=True`), each coupled one with or without the wall rows
+    (`coupled.use_walls`) and on lin_method "expm", "expm_split" or "rk4"
+    with `lin_substeps` (the decoupled QPs read neither, as in the JAX
+    package); `_check_supported` rejects an unknown formulation."""
 
     veh: VehicleParams
     hz: HorizonParams
@@ -90,18 +92,9 @@ def x1_decoupled_config(**kw) -> MPCConfig:
 
 
 def _check_supported(cfg: MPCConfig):
-    unsupported = []
     if cfg.formulation not in ("coupled", "decoupled"):
-        unsupported.append(f"unknown formulation {cfg.formulation!r}")
-    if cfg.lin_method != "expm":
-        unsupported.append("only lin_method='expm' is ported")
-    if cfg.lin_substeps != 1:
-        unsupported.append("lin_substeps (the rk4 linearization's substeps) "
-                           "is not ported")
-    if cfg.formulation == "coupled" and cfg.coupled.use_walls:
-        unsupported.append("wall rows (use_walls) are not ported")
-    if unsupported:
-        raise NotImplementedError("; ".join(unsupported))
+        raise NotImplementedError(
+            f"unknown formulation {cfg.formulation!r}")
 
 
 # ---------------------------------------------------------------------------
@@ -419,11 +412,15 @@ class _PreAux(NamedTuple):
 
 
 def _pre_solve(cfg: MPCConfig, tube, cache, carry: MPCCarry, q0, u0,
-               other_car, t, unbatched: bool = False):
+               other_car, t, unbatched: bool = False,
+               nodes_mode: str = "auto"):
     """Projection, node seeding, HJI constraint, linearization and QP
     assembly.  Coupled: both node sets are computed and selected per
     vehicle by `carry.solved` (the JAX package's "auto" branch; equal to
-    its warm-only branch when every carry is warm), so no host sync.
+    its warm-only branch when every carry is warm), so no host sync;
+    `nodes_mode="warm_only"` computes only the warm nodes, whatever
+    `carry.solved` says.  With wall rows the edges are read at each
+    node's arclength, the path's s at the node time plus the node's ds.
     Decoupled: always the trim-seeded nodes, no HJI row; the soft QP
     or, with `cfg.soft` False, the sparse one.  The coupled QP is the
     soft condensed one or, with `cfg.soft` False, the sparse one
@@ -451,13 +448,16 @@ def _pre_solve(cfg: MPCConfig, tube, cache, carry: MPCCarry, q0, u0,
         return _pack_pre(carry, QPData(*sqp[:5]), ts, s0, e0, *no_hji,
                          x_rel, us, qs, G=sqp.G, g=sqp.g, w=sqp.w)
 
-    cold = _nodes_coupled_cold(cfg, tube, q0, u0, ts, dt, s0, e0)
-    if cfg.warm_nodes:
+    if nodes_mode == "warm_only" and cfg.warm_nodes:
+        qs, us, ps = _nodes_coupled_warm(cfg, tube, q0, u0, ts, carry, s0,
+                                         e0)
+    elif cfg.warm_nodes:
+        cold = _nodes_coupled_cold(cfg, tube, q0, u0, ts, dt, s0, e0)
         warm = _nodes_coupled_warm(cfg, tube, q0, u0, ts, carry, s0, e0)
         sel = carry.solved[:, None, None]
         qs, us, ps = (torch.where(sel, w, c) for c, w in zip(cold, warm))
     else:
-        qs, us, ps = cold
+        qs, us, ps = _nodes_coupled_cold(cfg, tube, q0, u0, ts, dt, s0, e0)
 
     u_lin = torch.stack([u0[:, 0], u0[:, 1] + u0[:, 2]], dim=-1)
     if cfg.coupled.use_hji:
@@ -482,20 +482,23 @@ def _pre_solve(cfg: MPCConfig, tube, cache, carry: MPCCarry, q0, u0,
         b = torch.ones_like(q0[:, 0])
         V_hji, gradV = no_hji
 
-    data = CoupledStageData(dt=dt, qs=qs, us=us, ps=ps, hji_M=M, hji_b=b)
+    edges = None
+    if cfg.coupled.use_walls:
+        s_nodes = trj.eval_time(tube, ts, fields=()).s + qs[..., 0]
+        tj = trj.eval_arclength(tube, s_nodes, fields=("edge_L", "edge_R"))
+        edges = torch.stack([tj.edge_L, tj.edge_R], dim=-1)
+    data = CoupledStageData(dt=dt, qs=qs, us=us, ps=ps, hji_M=M, hji_b=b,
+                            edges=edges)
+    lin = dict(lin_method=cfg.lin_method, lin_substeps=cfg.lin_substeps,
+               unbatched=unbatched)
     G = g = w = None
     if _sparse(cfg):
-        qp = qp_coupled.build_qp(veh, cfg.coupled, hz, data,
-                                 lin_method=cfg.lin_method,
-                                 unbatched=unbatched)
+        qp = qp_coupled.build_qp(veh, cfg.coupled, hz, data, **lin)
     elif _hard(cfg):
-        cqp = qp_condensed.build_qp(veh, cfg.coupled, hz, data,
-                                    lin_method=cfg.lin_method,
-                                    unbatched=unbatched)
+        cqp = qp_condensed.build_qp(veh, cfg.coupled, hz, data, **lin)
         qp, G, g = QPData(*cqp[:5]), cqp.G, cqp.g
     else:
-        sqp = qp_condensed.build_qp_soft(veh, cfg.coupled, hz, data,
-                                         unbatched=unbatched)
+        sqp = qp_condensed.build_qp_soft(veh, cfg.coupled, hz, data, **lin)
         qp, G, g, w = QPData(*sqp[:5]), sqp.G, sqp.g, sqp.w
     return _pack_pre(carry, qp, ts, s0, e0, V_hji, gradV, x_rel, us, qs,
                      G, g, w)
@@ -522,18 +525,19 @@ def _post_solve(cfg: MPCConfig, carry: MPCCarry, q0, sol: QPSolution,
     """Control extraction, clamping, NaN fallback, the HJI override and
     the carry update."""
     veh, hz = cfg.veh, cfg.hz
+    walls = cfg.formulation == "coupled" and cfg.coupled.use_walls
     if _sparse(cfg):
-        u2 = qp_coupled.extract_control(veh, hz, sol.x)
-        q_sol, u_sol = qp_coupled.extract_trajectory(hz, sol.x, veh)
+        u2 = qp_coupled.extract_control(veh, hz, sol.x, walls)
+        q_sol, u_sol = qp_coupled.extract_trajectory(hz, sol.x, veh, walls)
     elif _hard(cfg):
-        u2 = qp_condensed.extract_control(veh, hz, sol.x)
+        u2 = qp_condensed.extract_control(veh, hz, sol.x, walls)
         q_sol, u_sol = qp_condensed.extract_trajectory(hz, sol.x, veh, aux.G,
-                                                       aux.g)
+                                                       aux.g, walls)
     elif _sparse_decoupled(cfg):
         u2 = qp_decoupled.extract_control(hz, sol.x, aux.us)
         q_sol, u_sol = qp_decoupled.extract_trajectory(hz, sol.x, aux.us)
     elif cfg.formulation == "coupled":
-        u2 = qp_condensed.extract_control_soft(veh, hz, sol.x)
+        u2 = qp_condensed.extract_control_soft(veh, hz, sol.x, walls)
         q_sol, u_sol = qp_condensed.extract_trajectory_soft(
             sol.x, veh, aux.G, aux.g, aux.q0_node, aux.us[:, 0])
     else:
@@ -610,11 +614,16 @@ def mpc_step_batched(cfg: MPCConfig, tube: trj.TrajectoryTube,
 
 
 def mpc_step(cfg: MPCConfig, tube: trj.TrajectoryTube,
-             cache: hji_mod.HJICache, carry: MPCCarry, q0, u0, other_car, t):
+             cache: hji_mod.HJICache, carry: MPCCarry, q0, u0, other_car, t,
+             nodes_mode: str = "auto"):
     """One control step for one vehicle: `carry` without a batch dimension
     (`init_carry(cfg, None, ...)`), q0 (6,), u0 (3,), other_car (4,), t a
     number or a 0-d tensor; they are taken to the carry's device and
     dtype.  Returns (new carry, command (3,), diagnostics), unbatched.
+
+    nodes_mode: "auto" seeds the coupled QP's nodes cold or warm by the
+    carry's solved flag; "warm_only" skips the cold trim rollout, for a
+    caller that knows the carry is warm (the JAX package's `mpc_step`).
 
     This is the JAX package's unbatched route, not `mpc_step_batched` at
     B=1: the horizon is linearized through the dense Van Loan stage
@@ -624,12 +633,16 @@ def mpc_step(cfg: MPCConfig, tube: trj.TrajectoryTube,
     kernel at tile 1, on any other backend in plain PyTorch (the sparse
     QP's banded factor runs its plain stage scan there)."""
     _check_supported(cfg)
+    if nodes_mode not in ("auto", "warm_only"):
+        raise ValueError(f"nodes_mode must be 'auto' or 'warm_only', got "
+                         f"{nodes_mode!r}")
     like = dict(dtype=carry.warm_x.dtype, device=carry.warm_x.device)
     lift = lambda v: torch.as_tensor(v, **like)[None]
     carry_b = MPCCarry(*[x[None] for x in carry])
     q0_b = lift(q0)
     qp, warm, aux = _pre_solve(cfg, tube, cache, carry_b, q0_b, lift(u0),
-                               lift(other_car), lift(t), unbatched=True)
+                               lift(other_car), lift(t), unbatched=True,
+                               nodes_mode=nodes_mode)
     sol = solve_qp(QPData(*[x[0] for x in qp]),
                    QPWarmStart(*[x[0] for x in warm]), cfg.solver,
                    banded_plan=_banded_plan_for(cfg),

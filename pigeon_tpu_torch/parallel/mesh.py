@@ -6,7 +6,7 @@ a Python loop of steps whose logs stay on the device.
 
 The JAX package shards the batch over a device mesh; the port runs on one
 card, so `mesh` must be None (the multi-card controller is ROADMAP item
-A9).
+A6).
 """
 
 from __future__ import annotations
@@ -41,7 +41,7 @@ class BatchedController:
                  dt: float = 0.01):
         if mesh is not None:
             raise NotImplementedError(
-                "a mesh of several cards is not ported (ROADMAP A9); the "
+                "a mesh of several cards is not ported (ROADMAP A6); the "
                 "controller runs the whole batch on one card")
         self.cfg = cfg
         self.dt = dt

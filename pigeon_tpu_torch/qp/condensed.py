@@ -11,13 +11,17 @@ tracking cost becomes a dense quadratic block.  Two formulations:
   (N_short=5, N_long=10) n = 103, m = 200, the 38 equality rows first.
   Row order: diff(delta) (T), diff(Fx) (T), q0 pin (6), u0 pin (2) |
   sig >= 0 (2T), sHJI >= 0 (S), Ux t=0 (1), Ux t>=1 (T, dense over
-  [q0; u]), Fx (N), HJI (S), delta (T), envelope (4T, dense), rate (T).
+  [q0; u]), Fx (N), HJI (S), delta (T), envelope (4T, dense), rate (T)
+  [| sw >= 0 (T), e - sw <= edge_L - margin (T, dense), e + sw >= edge_R
+  + margin (T, dense): the wall rows, n = 118, m = 245].
 - the soft condensed QP (condensed.py:322-395, 563-788): the q0/u0 pins
   substituted, every slack an exact L1 penalty handled by the solver's
   shrink prox, the slew variables folded into the dense Hessian; n = 30,
   m = 124, no equality rows.  Row order: ux (T, hard dense) | fx (N-1,
   hard) | hji (S-1, soft) | delta (T, hard) | envelope (4T, soft) |
-  rate (T, hard).
+  rate (T, hard) [| walls (T, soft and two-sided: m = 139)].
+Both take lin_method "expm" or the RK4 path; every other lin_method,
+"expm_split" too, takes the RK4 path, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -29,11 +33,11 @@ import numpy as np
 import torch
 
 from pigeon_tpu_torch import _kernels
-from pigeon_tpu_torch import discretize as dz
 from pigeon_tpu_torch import dynamics as dyn
 from pigeon_tpu_torch.config import (CoupledControlParams, HorizonParams,
                                      VehicleParams)
-from pigeon_tpu_torch.qp.coupled import CoupledStageData, u_normalization
+from pigeon_tpu_torch.qp.coupled import (CoupledStageData, linearize_stages,
+                                         u_normalization)
 from pigeon_tpu_torch.qp.structure import INF, QPLayout
 
 
@@ -46,9 +50,6 @@ class CondensedLayout:
     first) and the [q0; u] column map of the dense condensed rows."""
 
     def __init__(self, hz: HorizonParams, use_walls: bool = False):
-        if use_walls:
-            raise NotImplementedError(
-                "the port's hard condensed QP has no wall rows yet")
         S = hz.N_short
         N, T = hz.N, hz.N_short + hz.N_long
         lay = QPLayout()
@@ -102,6 +103,16 @@ class CondensedLayout:
         lay.entry(r, self.sig[:, [0, 0, 1, 1]])     # -slacks
         r = lay.add_rows(T)                         # ddelta rate bounds
         lay.entry(r, self.dd)
+        if use_walls:
+            self.sw = lay.add_vars((T,))
+            r = lay.add_rows(T)                     # sw >= 0
+            lay.entry(r, self.sw)
+            r = lay.add_rows(T).reshape(T, 1)       # e - sw <= edgeL - m
+            lay.entry(np.broadcast_to(r, (T, nG)), self.gcols[None, :])
+            lay.entry(r[:, 0], self.sw)
+            r = lay.add_rows(T).reshape(T, 1)       # e + sw >= edgeR + m
+            lay.entry(np.broadcast_to(r, (T, nG)), self.gcols[None, :])
+            lay.entry(r[:, 0], self.sw)
         lay.finalize()
         self.lay = lay
         self.n, self.m = lay.n, lay.m
@@ -127,19 +138,26 @@ class CondensedQP(NamedTuple):
     g: torch.Tensor        # (B, T, 6) rollout offsets
 
 
+def _stage_models(f, hz, qs, ur, dt, lin_method, lin_substeps, unbatched):
+    """The condensed QPs' stage models: "expm" as the sparse QP's, every
+    other lin_method ("expm_split" too, as in the JAX package) the RK4
+    path with `lin_substeps`."""
+    return linearize_stages(f, hz, qs, ur, dt,
+                            "expm" if lin_method == "expm" else "rk4",
+                            lin_substeps, unbatched)
+
+
 def build_qp(veh: VehicleParams, ctl: CoupledControlParams,
              hz: HorizonParams, data: CoupledStageData,
-             lin_method: str = "expm", unbatched: bool = False
-             ) -> CondensedQP:
+             lin_method: str = "expm", lin_substeps: int = 1,
+             unbatched: bool = False) -> CondensedQP:
     """Linearize along the horizon, roll the LTV models into the dense
-    [q0; u] map and assemble the hard condensed QPs of a batch (the
-    "expm" path of `pigeon_tpu.qp.condensed.build_qp`).  The rollout is
-    the JAX package's static unroll, a loop over the T stages.
+    [q0; u] map and assemble the hard condensed QPs of a batch
+    (`pigeon_tpu.qp.condensed.build_qp`; `_stage_models`).  The rollout
+    is the JAX package's static unroll, a loop over the T stages.  With
+    `ctl.use_walls`, `data.edges` gives the wall rows' bounds.
     `unbatched` takes the dense linearization of the JAX package's
     single-vehicle step."""
-    if lin_method != "expm":
-        raise NotImplementedError(
-            f"lin_method={lin_method!r} is not ported (only 'expm')")
     S, N = hz.N_short, hz.N
     T = S + hz.N_long
     L = get_layout(hz, ctl.use_walls)
@@ -152,8 +170,8 @@ def build_qp(veh: VehicleParams, ctl: CoupledControlParams,
         return dyn.vehicle_ode(veh, "tracking", q, ur[..., :2], ur[..., 2:])
 
     ur = torch.cat([us, ps], dim=-1)
-    A_all, B0_all, Bf_all, c_all = dz.linearize_horizon_fused(
-        f, qs, ur, dt, S, 2, squarings=4, order=6, dense=unbatched)
+    A_all, B0_all, Bf_all, c_all = _stage_models(
+        f, hz, qs, ur, dt, lin_method, lin_substeps, unbatched)
     B0n = B0_all * unorm
     Bfn = Bf_all * unorm
 
@@ -207,6 +225,10 @@ def build_qp(veh: VehicleParams, ctl: CoupledControlParams,
         Henv, neg1(T, 4),                            # envelope (dense)
         ones(T),                                     # dd bounds
     ]
+    if ctl.use_walls:
+        values += [ones(T),                          # sw >= 0
+                   G[:, :, 5, :], neg1(T),           # e - sw
+                   G[:, :, 5, :], ones(T)]           # e + sw
     A = L.lay.assemble_A(values)
 
     full = lambda k, v: torch.full((Bn, k), v, **like)
@@ -223,7 +245,10 @@ def build_qp(veh: VehicleParams, ctl: CoupledControlParams,
         d_min,
         full(4 * T, -INF),                           # envelope
         -dd_lim,
-    ], dim=-1)
+    ] + ([zeros(T),
+          full(T, -INF),
+          data.edges[:, 1:, 1] + ctl.wall_margin - g[:, :, 5],
+          ] if ctl.use_walls else []), dim=-1)
     hi = torch.cat([
         zeros(T), zeros(T),
         q_curr, u_curr,
@@ -235,7 +260,10 @@ def build_qp(veh: VehicleParams, ctl: CoupledControlParams,
         d_max,
         (lim.G_veh.to(qs.dtype) - Henv_off).reshape(Bn, -1),
         dd_lim,
-    ], dim=-1)
+    ] + ([full(T, INF),
+          data.edges[:, 1:, 0] - ctl.wall_margin - g[:, :, 5],
+          full(T, INF),
+          ] if ctl.use_walls else []), dim=-1)
 
     # ---- objective --------------------------------------------------------
     # state tracking cost folded through the rollout: a dense block over
@@ -267,6 +295,8 @@ def build_qp(veh: VehicleParams, ctl: CoupledControlParams,
     qlin[:, L.sHJI] += torch.where(
         torch.arange(S, device=qs.device) < ctl.N_HJI,
         torch.full((S,), ctl.W_HJI, **like), torch.zeros((S,), **like))
+    if ctl.use_walls:
+        qlin[:, L.sw] += ctl.W_wall * dt
     return CondensedQP(P=P, q=qlin, A=A, l=lo, u=hi, G=G, g=g)
 
 
@@ -298,9 +328,6 @@ class SoftCondensedLayout:
     the row ranges of each constraint family."""
 
     def __init__(self, hz: HorizonParams, use_walls: bool = False):
-        if use_walls:
-            raise NotImplementedError(
-                "the port's soft condensed QP has no wall rows yet")
         S = hz.N_short
         N, T = hz.N, hz.N_short + hz.N_long
         self.n = 2 * (N - 1)
@@ -312,7 +339,10 @@ class SoftCondensedLayout:
         self.r_delta = np.arange(r0, r0 + T); r0 += T
         self.r_env = np.arange(r0, r0 + 4 * T).reshape(T, 4); r0 += 4 * T
         self.r_rate = np.arange(r0, r0 + T); r0 += T
+        if use_walls:
+            self.r_wall = np.arange(r0, r0 + T); r0 += T
         self.m = r0
+        self.eq_rows = np.zeros((0,), np.int64)
 
         # scatter indices of the sparse row families
         rows, cols = [], []
@@ -406,11 +436,14 @@ def _mv(M, v):
 
 def build_qp_soft(veh: VehicleParams, ctl: CoupledControlParams,
                   hz: HorizonParams, data: CoupledStageData,
+                  lin_method: str = "expm", lin_substeps: int = 1,
                   unbatched: bool = False) -> SoftQP:
-    """Assemble the soft condensed QPs of a batch (the exact-linearization
-    path of `pigeon_tpu.qp.condensed.build_qp_soft`, static unroll).
-    `unbatched` takes the dense linearization of the JAX package's
-    single-vehicle step (`discretize.linearize_horizon_fused`)."""
+    """Assemble the soft condensed QPs of a batch
+    (`pigeon_tpu.qp.condensed.build_qp_soft`, static unroll;
+    `_stage_models`).  With `ctl.use_walls`, one two-sided soft row a
+    stage keeps e within [edge_R + margin, edge_L - margin] at weight
+    W_wall dt.  `unbatched` takes the dense linearization of the JAX
+    package's single-vehicle step (`discretize.linearize_horizon_fused`)."""
     S, N = hz.N_short, hz.N
     T = S + hz.N_long
     L = get_soft_layout(hz, ctl.use_walls)
@@ -425,8 +458,8 @@ def build_qp_soft(veh: VehicleParams, ctl: CoupledControlParams,
         return dyn.vehicle_ode(veh, "tracking", q, ur[..., :2], ur[..., 2:])
 
     ur = torch.cat([us, ps], dim=-1)
-    A_all, B0_all, Bf_all, c_all = dz.linearize_horizon_fused(
-        f, qs, ur, dt, S, 2, squarings=4, order=6, dense=unbatched)
+    A_all, B0_all, Bf_all, c_all = _stage_models(
+        f, hz, qs, ur, dt, lin_method, lin_substeps, unbatched)
     B0n = B0_all * unorm
     Bfn = Bf_all * unorm
 
@@ -474,6 +507,8 @@ def build_qp_soft(veh: VehicleParams, ctl: CoupledControlParams,
     A = torch.zeros((Bn, L.m, n), **f64)
     A[:, L.r_ux] = G[:, :, 1, :]
     A[:, L.r_env.ravel()] = Henv.reshape(Bn, 4 * T, n)
+    if ctl.use_walls:
+        A[:, L.r_wall] = G[:, :, 5, :]
     sp_vals = torch.cat([
         torch.ones((Bn, N - 1), **f64),                       # fx
         (data.hji_M * unorm)[:, None, :].expand(Bn, S - 1, 2)
@@ -494,7 +529,8 @@ def build_qp_soft(veh: VehicleParams, ctl: CoupledControlParams,
         d_min,                                                 # delta
         full(4 * T, -INF),                                     # envelope
         u_curr[:, 0:1] - dd_lim[:, 0:1], -dd_lim[:, 1:],       # rate
-    ], dim=-1)
+    ] + ([data.edges[:, 1:, 1] + ctl.wall_margin - g[:, :, 5]]
+         if ctl.use_walls else []), dim=-1)
     hi = torch.cat([
         ctl.V_max - g[:, :, 1],
         Fx_hi,
@@ -502,7 +538,8 @@ def build_qp_soft(veh: VehicleParams, ctl: CoupledControlParams,
         d_max,
         (lim.G_veh - Henv_off).reshape(Bn, -1),
         u_curr[:, 0:1] + dd_lim[:, 0:1], dd_lim[:, 1:],
-    ], dim=-1)
+    ] + ([data.edges[:, 1:, 0] - ctl.wall_margin - g[:, :, 5]]
+         if ctl.use_walls else []), dim=-1)
 
     # ---- per-row penalty weights (the slack costs of the slack QP) -------
     w_hji = torch.where(torch.arange(1, S, device=dev) < ctl.N_HJI,
@@ -520,7 +557,7 @@ def build_qp_soft(veh: VehicleParams, ctl: CoupledControlParams,
         full(T, INF),                                          # delta hard
         w_env.reshape(Bn, -1),
         full(1, 1e3), full(T - 1, INF),                        # rate
-    ], dim=-1)
+    ] + ([ctl.W_wall * dt] if ctl.use_walls else []), dim=-1)
 
     # ---- objective ----------------------------------------------------------
     # state tracking cost folded through the rollout (P = 2Q convention)

@@ -11,8 +11,11 @@ stages):
     sHJI[t]     HJI slack,                                 t in [0, S)
     dd[t]       delta slew,                                t in [0, T)
     dF[t]       Fx slew,                                   t in [0, T)
+    sw[t]       wall slack (with `use_walls`),             t in [0, T)
 Equality rows come first.  For the live horizon (N_short=5, N_long=10):
-n = 193, m = 290, 128 equality rows.
+n = 193, m = 290, 128 equality rows; with the wall rows (sw >= 0 and the
+two edge rows on e at each stage t+1, after the other rows) n = 208,
+m = 335.
 """
 
 from __future__ import annotations
@@ -132,19 +135,51 @@ def get_layout(hz: HorizonParams, use_walls: bool = False) -> CoupledLayout:
     return CoupledLayout(hz, use_walls)
 
 
+def linearize_stages(f, hz: HorizonParams, qs, ur, dt, lin_method: str,
+                     lin_substeps: int = 1, unbatched: bool = False):
+    """The horizon's stage models of a batch: ZOH short stages, FOH long
+    ones, as (A (B,T,n,n), B0 (B,T,n,2), Bf (B,T,n,2), c (B,T,n)), Bf
+    zero on the ZOH stages.  lin_method "expm": one fused exponential per
+    stage (`discretize.linearize_horizon_fused`; `unbatched` takes its
+    dense route); "expm_split": each hold order's own exponential at 8
+    squarings, order 8 (`linearize_affine_zoh` / `_foh`, on the dense
+    expm kernel); any other: `lin_substeps` RK4 steps per stage,
+    differentiated (`linearize_zoh` / `_foh`, plain ops)."""
+    S, T = hz.N_short, hz.N_short + hz.N_long
+    Bn, n = qs.shape[0], qs.shape[-1]
+    if lin_method == "expm":
+        return dz.linearize_horizon_fused(f, qs, ur, dt, S, 2, squarings=4,
+                                          order=6, dense=unbatched)
+    rows = lambda x: x.reshape((-1,) + tuple(x.shape[2:]))
+    zoh = (qs[:, :S], ur[:, :S], dt[:, :S])
+    foh = (qs[:, S:T], ur[:, S:T], ur[:, S + 1:T + 1], dt[:, S:T])
+    if lin_method == "expm_split":
+        Az, Bz, cz = dz.linearize_affine_zoh(f, *map(rows, zoh), 2)
+        Af, B0f, Bff, cf = dz.linearize_affine_foh(f, *map(rows, foh), 2)
+    else:
+        Az, Bz, cz = dz.linearize_zoh(f, *map(rows, zoh), 2, lin_substeps)
+        Af, B0f, Bff, cf = dz.linearize_foh(f, *map(rows, foh), 2,
+                                            lin_substeps)
+    per = lambda x, k: x.reshape((Bn, k) + tuple(x.shape[1:]))
+    Lg = T - S
+    return (torch.cat([per(Az, S), per(Af, Lg)], dim=1),
+            torch.cat([per(Bz, S), per(B0f, Lg)], dim=1),
+            torch.cat([torch.zeros_like(per(Bz, S)), per(Bff, Lg)], dim=1),
+            torch.cat([per(cz, S), per(cf, Lg)], dim=1))
+
+
 def build_qp(veh: VehicleParams, ctl: CoupledControlParams,
              hz: HorizonParams, data: CoupledStageData,
-             lin_method: str = "expm", unbatched: bool = False) -> QPData:
+             lin_method: str = "expm", lin_substeps: int = 1,
+             unbatched: bool = False) -> QPData:
     """Linearize along the horizon and assemble the sparse QPs of a batch
-    (`pigeon_tpu.qp.coupled.build_qp`, lin_method "expm": ZOH short
-    stages and FOH long stages through one fused exponential per stage).
-    `unbatched` takes the dense linearization of the JAX package's
-    single-vehicle step."""
-    if lin_method != "expm":
-        raise NotImplementedError(
-            f"lin_method={lin_method!r} is not ported (only 'expm')")
-    if ctl.use_walls:
-        raise NotImplementedError("wall rows (use_walls) are not ported")
+    (`pigeon_tpu.qp.coupled.build_qp`): lin_method "expm" (ZOH short
+    stages and FOH long stages through one fused exponential per stage),
+    "expm_split" (each hold order's own exponential) or "rk4" (the
+    reference's integrator path with `lin_substeps` RK4 steps per stage;
+    `linearize_stages`).  With `ctl.use_walls`, `data.edges` gives the
+    wall rows' bounds.  `unbatched` takes the dense linearization of the
+    JAX package's single-vehicle step."""
     S, Lg, N = hz.N_short, hz.N_long, hz.N
     T = S + Lg
     L = get_layout(hz, ctl.use_walls)
@@ -157,8 +192,8 @@ def build_qp(veh: VehicleParams, ctl: CoupledControlParams,
         return dyn.vehicle_ode(veh, "tracking", q, ur[..., :2], ur[..., 2:])
 
     ur = torch.cat([us, ps], dim=-1)                       # (B, N, 6)
-    A_all, B0_all, Bf_all, c_all = dz.linearize_horizon_fused(
-        f, qs, ur, dt, S, 2, squarings=4, order=6, dense=unbatched)
+    A_all, B0_all, Bf_all, c_all = linearize_stages(
+        f, hz, qs, ur, dt, lin_method, lin_substeps, unbatched)
     Az, Bz, cz = A_all[:, :S], B0_all[:, :S], c_all[:, :S]
     Af, B0f, Bff, cf = (A_all[:, S:], B0_all[:, S:], Bf_all[:, S:],
                         c_all[:, S:])
@@ -193,6 +228,10 @@ def build_qp(veh: VehicleParams, ctl: CoupledControlParams,
         lim.H_veh.to(qs.dtype).expand(Bn, T, 4, 2), neg1(T, 4),  # envelope
         ones(T),                                     # dd bounds
     ]
+    if ctl.use_walls:
+        values += [ones(T),                          # sw >= 0
+                   ones(T), neg1(T),                 # e - sw
+                   ones(T), ones(T)]                 # e + sw
     A = L.lay.assemble_A(values)
 
     full = lambda k, v: torch.full((Bn, k), v, **like)
@@ -210,7 +249,10 @@ def build_qp(veh: VehicleParams, ctl: CoupledControlParams,
         d_min,                                       # delta bounds
         full(4 * T, -INF),                           # envelope
         -dd_lim,                                     # dd bounds
-    ], dim=-1)
+    ] + ([zeros(T),                                  # sw >= 0
+          full(T, -INF),                             # e - sw upper only
+          data.edges[:, 1:, 1] + ctl.wall_margin,    # e + sw >= edgeR + m
+          ] if ctl.use_walls else []), dim=-1)
     hi = torch.cat([
         zeros(T), zeros(T),
         q_curr, u_curr,
@@ -223,7 +265,10 @@ def build_qp(veh: VehicleParams, ctl: CoupledControlParams,
         d_max,
         lim.G_veh.to(qs.dtype).reshape(Bn, -1),      # envelope upper
         dd_lim,
-    ], dim=-1)
+    ] + ([full(T, INF),
+          data.edges[:, 1:, 0] - ctl.wall_margin,    # e - sw <= edgeL - m
+          full(T, INF),
+          ] if ctl.use_walls else []), dim=-1)
 
     # objective: Parametron's x'Qx convention -> 1/2 x'Px needs P = 2Q
     P = torch.zeros((Bn, L.n), **like)
@@ -240,6 +285,8 @@ def build_qp(veh: VehicleParams, ctl: CoupledControlParams,
     qlin[:, L.sHJI] = torch.where(
         torch.arange(S, device=qs.device) < ctl.N_HJI,
         torch.full((S,), ctl.W_HJI, **like), torch.zeros((S,), **like))
+    if ctl.use_walls:
+        qlin[:, L.sw] = ctl.W_wall * dt
     return QPData(P_diag=P, q=qlin, A=A, l=lo, u=hi)
 
 

@@ -134,11 +134,26 @@ def test_extract_matches():
 
 
 def test_unported_build_options_raise():
+    """The options that raised before the RK4 linearization and the wall
+    rows were ported now build, with the JAX package's shapes: "rk4"
+    (n = 70, m = 104 at (2, 3)) and the wall rows (n = 75, m = 119)
+    (tests/test_torch_rk4_qp.py and tests/test_torch_walls.py hold the
+    values)."""
     cfg = _cfg((2, 3))
-    data = TC.CoupledStageData(**{k: t64(v)
-                                  for k, v in _stage_data(cfg).items()})
-    with pytest.raises(NotImplementedError):
-        TC.build_qp(cfg.veh, cfg.coupled, cfg.hz, data, lin_method="rk4")
+    d = _stage_data(cfg)
+    N = d["qs"].shape[1]
+    d["edges"] = np.stack([np.full((3, N), 1.2), np.full((3, N), -2.3)],
+                          axis=-1)
+    data = TC.CoupledStageData(**{k: t64(v) for k, v in d.items()})
+    jdata = JC.CoupledStageData(**{k: jnp.asarray(v)[0]
+                                   for k, v in d.items()})
+    jhz = JHP(N_short=2, N_long=3)
     walls = dataclasses.replace(cfg.coupled, use_walls=True)
-    with pytest.raises(NotImplementedError):
-        TC.build_qp(cfg.veh, walls, cfg.hz, data)
+    for ctl, kw, (n, m) in ((cfg.coupled, dict(lin_method="rk4"), (70, 104)),
+                            (walls, {}, (75, 119))):
+        qp = TC.build_qp(cfg.veh, ctl, cfg.hz, data, **kw)
+        ref = jax.eval_shape(lambda s: JC.build_qp(cfg.veh, ctl, jhz, s,
+                                                   **kw), jdata)
+        assert qp.A.shape == (3,) + ref.A.shape == (3, m, n)
+        for a, r in zip(qp, ref):
+            assert a.shape == (3,) + r.shape

@@ -272,6 +272,6 @@ def test_rollout_other_car_advances():
 
 def test_mesh_is_not_ported():
     tube = TT.straight_trajectory(80.0, 6.0, pad_to=32, device="cpu")
-    with pytest.raises(NotImplementedError, match="A9"):
+    with pytest.raises(NotImplementedError, match="A6"):
         BatchedController(TM.x1_coupled_config(soft=True), tube,
                           mesh=object())

@@ -25,6 +25,7 @@ from torch_port_helpers import (cache_arrays, carry_arrays, oval_fleet, t64,
 from pigeon_tpu import hji as JH
 from pigeon_tpu import mpc as JM
 from pigeon_tpu import trajectory as JT
+from pigeon_tpu.config import CoupledControlParams as JCP
 from pigeon_tpu.config import HorizonParams as JHP
 from pigeon_tpu.config import SolverOptions as JSO
 from pigeon_tpu_torch import convert
@@ -132,27 +133,36 @@ def test_carry_matches(steps, k):
                                       np.asarray(getattr(jc, name)))
 
 
-@pytest.mark.parametrize("change", [
-    dict(lin_substeps=2), dict(coupled=TCP(use_walls=True)),
-    dict(lin_method="rk4"),
-    dict(formulation="decoupled", soft=False, hz=THP(N_short=10,
-                                                     N_long=20)),
-    dict(formulation="lateral")],
-    ids=["lin_substeps", "walls", "lin_method",
-         "decoupled_hard", "unknown_formulation"])
-def test_unported_options_raise(change):
-    """Each option the port has not ported raises; the sparse decoupled
-    QP, ported since, gives its carry (warm vectors of n = 245, m =
-    395)."""
+@pytest.mark.parametrize("change,m", [
+    pytest.param(dict(lin_substeps=2), 124, id="lin_substeps"),
+    pytest.param(dict(coupled=TCP(use_walls=True)), 139, id="walls"),
+    pytest.param(dict(lin_method="rk4"), 124, id="lin_method"),
+    pytest.param(dict(formulation="decoupled", soft=False,
+                      hz=THP(N_short=10, N_long=20)), 395,
+                 id="decoupled_hard"),
+    pytest.param(dict(formulation="lateral"), None,
+                 id="unknown_formulation")])
+def test_unported_options_raise(change, m):
+    """Only an unknown formulation raises: every option the JAX package
+    takes gives a carry of the JAX carry's shapes, with m warm rows (the
+    soft coupled QP's 124, 139 with the wall rows; the sparse decoupled
+    QP's 395)."""
     cfg = dataclasses.replace(TM.x1_coupled_config(soft=True), **change)
-    if cfg.formulation == "decoupled":
-        carry = TM.init_carry(cfg, 2, device="cpu")
-        assert carry.warm_x.shape == (2, 245)
-        assert carry.warm_y.shape == carry.warm_z.shape == (2, 395)
-        assert carry.q_prev.shape == (2, 31, 4)
+    if m is None:
+        with pytest.raises(NotImplementedError):
+            TM.init_carry(cfg, 2, device="cpu")
         return
-    with pytest.raises(NotImplementedError):
-        TM.init_carry(cfg, 2, device="cpu")
+    jchange = dict(change)
+    if "coupled" in change:
+        jchange["coupled"] = JCP(use_walls=True)
+    if "hz" in change:
+        jchange["hz"] = JHP(N_short=10, N_long=20)
+    jcfg = dataclasses.replace(JM.x1_coupled_config(soft=True), **jchange)
+    jc = JM.init_carry(jcfg, dtype=jnp.float64)
+    carry = TM.init_carry(cfg, 2, device="cpu")
+    for name in TM.MPCCarry._fields:
+        assert getattr(carry, name).shape == (2,) + getattr(jc, name).shape
+    assert carry.warm_y.shape == (2, m)
 
 
 def test_sim_substeps_is_supported():

@@ -405,8 +405,17 @@ def test_carry_round_trip_full_horizon():
 
 
 def test_unported_sparse_options_raise():
+    """lin_method "rk4" and lin_substeps, which raised before the RK4
+    linearization was ported, give the sparse QP's carry (n = 70, m = 104
+    at (2, 3)) with the JAX carry's shapes."""
     cfg = TM.x1_coupled_config(hz=THP(N_short=2, N_long=3))
+    jcfg = JM.x1_coupled_config(hz=JHP(N_short=2, N_long=3))
     for change in (dict(lin_method="rk4"), dict(lin_substeps=2)):
-        with pytest.raises(NotImplementedError):
-            TM.init_carry(dataclasses.replace(cfg, **change), 2,
-                          device="cpu")
+        carry = TM.init_carry(dataclasses.replace(cfg, **change), 2,
+                              device="cpu")
+        jc = JM.init_carry(dataclasses.replace(jcfg, **change))
+        for name in TM.MPCCarry._fields:
+            assert (getattr(carry, name).shape
+                    == (2,) + getattr(jc, name).shape)
+        assert carry.warm_x.shape == (2, 70)
+        assert carry.warm_y.shape == (2, 104)
