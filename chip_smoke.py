@@ -134,10 +134,10 @@ Phases (any failure raises, so the script exits non-zero):
    path "simulate_condensed": 10 steps of the hard condensed QP on
    backend "pallas", whose `solve_qp` runs each solver segment on the
    dense ADMM kernel's wide build at tile 1 (expm_dense once per step,
-   admm_wide once per segment), profiled over 1 more; and 30 steps of
+   admm_wide once per segment), profiled over 1 more; and 10 steps of
    the sparse decoupled QP (x1_decoupled_config() as it comes, the
    runtime's path controller: expm_dense twice a step, plain `solve_qp`),
-   profiled over 1 more; and path "simulate_faithful": 10 steps of the
+   profiled over 1 more; and path "simulate_faithful": 4 steps of the
    parity harness's reference-faithful controller (`parity.faithful_config`
    at the oval's stable RK4 substep count, 4: the RK4 linearization,
    PARITY_SOLVER, the reference tire inverse, unclamped), which launches
@@ -171,6 +171,23 @@ Phases (any failure raises, so the script exits non-zero):
    under torch.profiler, the count of periods with the HJI row active,
    and the dense exponential held against its plain version on the calls
    of a period of each mode (`run_runtime`, `check_runtime_expm`);
+   path "hji_solve" (`run_hji_solve`): the HJI value-iteration solver,
+   plain PyTorch operations and no kernel: the proto grid solved to its
+   pseudo-time horizon in float32 and float64 (HJI_PROD.json's settings:
+   450 sweeps), each held against `assets/hji_cache_proto.npz` by the
+   mean and p99 |dV| and the activation agreement at eps 0.05, 0.3, 0.6
+   within fixed bars, twice the larger of the JAX package's CPU float32
+   gap and the card's recorded float32-to-float64 gap, which the solve
+   stopped at half the horizon must fail, and the live float32-to-float64
+   gap held to twice its recorded value; one sweep under torch.profiler;
+   the card-solved cache against the asset at the Monte-Carlo rollout's
+   states by the same rule; the production grid (128 x 32 x 9^5 points,
+   stored reversed, slab by slab) for 3 sweeps in float32 and float64,
+   the two step traces equal to float32 rounding and V within bars set
+   from the recorded gap, which the float32 run one sweep short must
+   fail, with ms a sweep and peak memory; the sharded solver on a
+   one-card NCCL mesh bit-equal to the whole-grid sweep on the smooth
+   pursuit game;
 9. reference checks: for each formulation (coupled, decoupled, sparse,
    condensed, decoupled_sparse, and the three wall fleets) a 64-vehicle
    fleet stepped on the card,
@@ -242,8 +259,10 @@ WALL_CHECKS = ("sparse_walls", "condensed_walls", "coupled_walls",
 EXPM_SPLIT_QP_REL = 1e-4
 # The reference-faithful closed loop (`parity.faithful_config` of the
 # coupled singleton at the oval's stable substep count, on PARITY_SOLVER):
-# steps on the card, all replayed on the CPU
-SIM_STEPS_FAITHFUL = 10
+# steps on the card, all replayed on the CPU (4, cut from 10 when the HJI
+# solver's phase joined the run: each step is 10,000 iterations, ~6 s on
+# the card's host and as much again on the CPU)
+SIM_STEPS_FAITHFUL = 4
 WARM_STEPS = {"coupled": 10, "decoupled": 10, "sparse": 10,
               "condensed": 10, "sparse_mixedk6": 10, "decoupled_sparse": 10,
               "sparse_walls": 5, "condensed_walls": 5, "coupled_walls": 5}
@@ -253,9 +272,9 @@ B1_STEPS = 20
 SIM_STEPS = 10
 # the condensed QP's single-vehicle path: as many steps as its reference
 # check compares; the sparse decoupled QP's, the runtime's path
-# controller, 30
+# controller, too (cut from 30 when the HJI solver's phase joined the run)
 SIM_STEPS_CONDENSED = 10
-SIM_STEPS_DECOUPLED_SPARSE = 30
+SIM_STEPS_DECOUPLED_SPARSE = 10
 SIM_REF_STEPS = 10   # steps of `simulate` also run on the CPU
 # steps of each `simulate` profile (the profiler's own cost a step is most
 # of these phases' time: 6-10 s a step on the H100's host)
@@ -554,6 +573,59 @@ FLAG_NEAR_MAX = 1 / 8
 # the other car in the active-row reference checks: this far ahead of
 # each vehicle (m), oncoming, offset laterally by up to 1 m, at 2-8 m/s
 ACTIVE_GAP = (3.0, 15.0)
+# The HJI value-iteration solver (`run_hji_solve`).  (a) The proto solve
+# as scripts/hji_production.py's proto phase ran it (HJI_PROD.json:
+# PROTO_SHAPE, horizon 3.0 s, chunks of 50 with the horizon break, 15 Fx
+# samples, cfl 0.5, local LF, margin 3.0), in float32 and float64; it
+# must return HJI_PROD.json's 450 sweeps, as the JAX package does on the
+# CPU (scripts/jax_hji_proto_cpu.py: 450 sweeps, t 3.1102 s).
+HJI_PROTO = dict(n_sweeps=1200, sweep_chunk=50, fx_samples=15, cfl=0.5,
+                 lf="local", margin=3.0, horizon_s=3.0)
+HJI_PROTO_SWEEPS = 450
+HJI_PROTO_ASSET = "assets/hji_cache_proto.npz"
+# scripts/jax_hji_proto_cpu.py: the JAX package's float32 proto solve on
+# the CPU against the asset (mean and p99 |dV|, and the largest share of
+# points whose activation V <= eps differs, over AGREEMENT_EPS)
+JAX_CPU_PROTO_GAP = dict(mean=4.23125926772836e-4, p99=5.090484619140634e-3,
+                         disagreement=1.6491445063e-6)
+# the port's float32-to-float64 gap on the card (NVIDIA H100 80GB HBM3,
+# 700.00 W; PERF.md, hji-proto), the same in every recorded run: on the
+# proto grid, and at the Monte-Carlo rollout's 1,638,400 relative states
+# (one activation of them differs)
+CARD_PROTO_GAP = dict(mean=8.728837373004018e-05, p99=0.00122833251953125,
+                      disagreement=0.0)
+CARD_STATES_GAP = dict(mean=2.605514158229127e-06, p99=3.62396240234375e-05,
+                       disagreement=6.103515625e-07)
+# the bars on the proto solve against the asset, on the grid and at the
+# states: HJI_BAR_FACTOR times the larger of the two recorded gaps; the
+# control (the proto stopped at half the horizon) must fail them.  The
+# live float32-to-float64 gap is held to HJI_BAR_FACTOR times its
+# recorded value (mean, p99) and its disagreement to the asset bar (a
+# flip is one point), so a fault of one dtype fails it and never widens
+# the bars
+HJI_BAR_FACTOR = 2.0
+HJI_PROTO_BARS = {k: HJI_BAR_FACTOR * max(JAX_CPU_PROTO_GAP[k],
+                                          CARD_PROTO_GAP[k])
+                  for k in JAX_CPU_PROTO_GAP}
+HJI_CONTROL = dict(horizon_s=1.5)
+# (b) the production grid at full width in its storage order, slab by
+# slab, with scripts/hji_production.py's step cap, V only, for a few
+# sweeps in float32 and float64: the lagged CFL step (below the cap
+# there) the same in both to float32 rounding, and the float32 V within
+# HJI_PROD_BARS (max, mean |dV|) of the float64 V, which the float32 run
+# one sweep short must fail.  On the card (NVIDIA H100 80GB HBM3,
+# 700.00 W; PERF.md, hji-production-3) the float32 V lay 8.66e-4 (max)
+# and 8.56e-7 (mean) from float64 after 3 sweeps, the same in every
+# recorded run, and the control 0.1306 and 9.79e-3: the bars sit 4.6x
+# and 11.7x above the one and 33x and 980x below the other
+HJI_PROD_SWEEPS = 3
+HJI_PROD = dict(slab_chunk=1, dt_fixed=0.0022, with_grad=False,
+                fx_samples=15)
+HJI_PROD_BARS = (4e-3, 1e-5)
+# (c) the sharded solver at world size 1 over NCCL on the smooth pursuit
+# game (speed 1, margin 1) on an (n, n + 1) grid over [-8, 8]^2
+HJI_SMOOTH_N = 400
+HJI_SMOOTH_SWEEPS = 60
 
 
 def require(ok, message):
@@ -2952,34 +3024,36 @@ def run_simulate(torch, kernels, formulation: str, steps: int = SIM_STEPS,
 
 def simulate_reference_check(torch, formulation: str, log):
     """The card's `simulate` commands over the first SIM_REF_STEPS steps
-    against the same closed loop on the CPU at float64, by the rule of
+    (all of a shorter log) against the same closed loop on the CPU at
+    float64, by the rule of
     `reference_check`: every command within the bar (2e-4 rad, 2 N) plus
     twice the CPU float32-to-float64 gap at that step, and never more
     than REF_CAP_BARS bars away; converged flags equal to the CPU
     float32 loop's."""
     from pigeon_tpu_torch import mpc
 
+    steps = min(SIM_REF_STEPS, log.u.shape[0])
     logs = {}
     for dtype in (torch.float64, torch.float32):
         cfg, tube, cache, q0 = simulate_setup(torch, formulation, "cpu",
                                               dtype)
-        logs[dtype] = mpc.simulate(cfg, tube, cache, q0,
-                                   n_steps=SIM_REF_STEPS, device="cpu")
+        logs[dtype] = mpc.simulate(cfg, tube, cache, q0, n_steps=steps,
+                                   device="cpu")
     u64 = logs[torch.float64].u
-    ug = log.u[:SIM_REF_STEPS].cpu().double()
+    ug = log.u[:steps].cpu().double()
     bar = torch.tensor([2e-4, 2.0, 2.0], dtype=torch.float64)
     dg = (ug - u64).abs()
     gap = (logs[torch.float32].u.double() - u64).abs()
     allowed = torch.minimum(bar + 2.0 * gap, REF_CAP_BARS * bar)
-    rec = dict(formulation=formulation, steps=SIM_REF_STEPS,
+    rec = dict(formulation=formulation, steps=steps,
                err_bars=float((dg / bar).max()),
                gap32_bars=float((gap / bar).max()),
                max_excess=float((dg - allowed).max()),
-               state_err=float((log.q[:SIM_REF_STEPS].cpu().double()
+               state_err=float((log.q[:steps].cpu().double()
                                 - logs[torch.float64].q).abs().max()))
     require(rec["max_excess"] <= 0.0,
             f"card simulate commands vs CPU float64: {rec}")
-    require(bool((log.diag.converged[:SIM_REF_STEPS].cpu()
+    require(bool((log.diag.converged[:steps].cpu()
                   == logs[torch.float32].diag.converged).all()),
             f"card simulate converged flags vs CPU float32: {rec}")
     return rec
@@ -3128,7 +3202,8 @@ def run_montecarlo(torch, kernels, device="cuda"):
     oc, t_next = ctrl.advance_other(oc_log[-1]), scen.t0 + MC_STEPS * DT
     prof = profile_call(torch, lambda: ctrl.step(state, oc, t_next))
     return rec, dict(cfg=cfg, tube=tube, cache=cache, scen=scen, V0=V0,
-                     capture=capture, profile=prof)
+                     capture=capture, profile=prof,
+                     x_rel=hji.relative_state(q_log, oc_log))
 
 
 def reference_montecarlo(torch, ctx):
@@ -3478,6 +3553,273 @@ def check_runtime_expm(torch, captures):
             out[f"runtime_{mode}_{name}"] = expm_case(torch, M, sq, order,
                                                       (20, 5))
     return out
+
+
+def hji_gap(rec) -> dict:
+    """A `value_agreement` record as the three numbers the HJI bars hold:
+    mean and p99 |dV| and the largest share of points whose activation
+    differs over AGREEMENT_EPS."""
+    from pigeon_tpu_torch.hji_solve import AGREEMENT_EPS
+
+    return dict(mean=rec["V_mean_abs_delta"], p99=rec["V_p99_abs_delta"],
+                disagreement=max(1.0 - rec[f"eps_{e}"]["activation_agreement"]
+                                 for e in AGREEMENT_EPS))
+
+
+def within(gap: dict, bars: dict) -> bool:
+    return all(gap[k] <= bars[k] for k in bars)
+
+
+def timed_hji_solve(torch, dtype, **kw):
+    """`hji_solve.solve_hji` on the card, timed by the host clock around
+    the whole call (the grid's set-up and the cache's assembly included),
+    with the device's peak memory.  Returns (cache, deltas, times,
+    record)."""
+    from pigeon_tpu_torch import hji_solve
+    from pigeon_tpu_torch.config import x1_params
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    cache, deltas, times = hji_solve.solve_hji(x1_params(), dtype=dtype,
+                                               **kw)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    require(np.isfinite(deltas).all() and bool(torch.isfinite(cache.V).all()),
+            f"hji_solve {dtype}: a value is not finite")
+    return cache, deltas, times, dict(
+        dtype=str(dtype).split(".")[-1], seconds=seconds,
+        sweeps=int(len(deltas)), t_reached_s=float(times[-1]),
+        ms_per_sweep=seconds / len(deltas) * 1e3,
+        delta_first=float(deltas[0]), delta_last=float(deltas[-1]),
+        peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+
+
+def device_agreement(torch, V, V_ref) -> dict:
+    """`value_agreement`'s largest and mean |dV| and activation shares,
+    computed on the device (for grids too large to compare on the
+    host)."""
+    from pigeon_tpu_torch.hji_solve import AGREEMENT_EPS
+
+    dV = (V - V_ref).abs()
+    rec = dict(points=V.numel(), V_max_abs_delta=float(dV.max()),
+               V_mean_abs_delta=float(dV.double().mean()))
+    for e in AGREEMENT_EPS:
+        act, act_ref = V <= e, V_ref <= e
+        rec[f"eps_{e}"] = dict(
+            active_frac=float(act.double().mean()),
+            active_frac_ref=float(act_ref.double().mean()),
+            activation_agreement=float((act == act_ref).double().mean()))
+    return rec
+
+
+def sharded_world_of_one(torch, device="cuda"):
+    """`solve_hji_vi_sharded` on a one-rank NCCL group (a device mesh of
+    one card, dimension "dp"; gloo on the CPU) against `solve_hji_vi` on
+    the smooth flow: the halo rows are the rank's own edge rows and the
+    reductions are over one rank, so the two must be bit-equal."""
+    import socket
+
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from pigeon_tpu_torch import hji_solve
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    l, hs = hji_solve.pursuit_target((HJI_SMOOTH_N, HJI_SMOOTH_N + 1))
+    l = torch.as_tensor(l, dtype=torch.float32, device=device)
+    flow = hji_solve.pursuit_flow(1.0)
+    dist.init_process_group("nccl" if device == "cuda" else "gloo",
+                            init_method=f"tcp://localhost:{port}",
+                            world_size=1, rank=0)
+    try:
+        mesh = init_device_mesh(device, (1,), mesh_dim_names=("dp",))
+        t0 = time.perf_counter()
+        V_s, d_s, t_s = hji_solve.solve_hji_vi_sharded(
+            l, hs, flow, HJI_SMOOTH_SWEEPS, mesh)
+        torch.cuda.synchronize()
+        sharded_s = time.perf_counter() - t0
+    finally:
+        dist.destroy_process_group()
+    V_u, d_u, t_u = hji_solve.solve_hji_vi(l, hs, flow, HJI_SMOOTH_SWEEPS)
+    rec = dict(grid=list(l.shape), sweeps=HJI_SMOOTH_SWEEPS,
+               seconds=sharded_s,
+               V_max_abs_diff=float((V_s - V_u).abs().max()),
+               times_equal=bool(torch.equal(t_s, t_u)),
+               deltas_equal=bool(torch.equal(d_s, d_u)))
+    require(torch.equal(V_s, V_u) and rec["times_equal"]
+            and rec["deltas_equal"],
+            f"hji_solve sharded at world size 1 differs: {rec}")
+    return rec
+
+
+def states_agreement(torch, cache, ref, x_rel, chunk: int = 1 << 18):
+    """`value_agreement` of two caches interpolated at the states x_rel
+    (..., 7), at AGREEMENT_EPS and MC_EPS."""
+    from pigeon_tpu_torch import hji
+    from pigeon_tpu_torch.hji_solve import AGREEMENT_EPS, value_agreement
+
+    x = x_rel.reshape(-1, 7)
+    V = [torch.cat([hji.interpolate(c, x[i:i + chunk])[0]
+                    for i in range(0, len(x), chunk)]).cpu().numpy()
+         for c in (cache, ref)]
+    return value_agreement(*V, eps=AGREEMENT_EPS + (MC_EPS,))
+
+
+def card_gap_bars(card: dict) -> dict:
+    """The bars of a live float32-to-float64 gap: HJI_BAR_FACTOR times the
+    recorded gap `card` in mean and p99 |dV|, the activation disagreement
+    at the asset bar."""
+    return dict(mean=HJI_BAR_FACTOR * card["mean"],
+                p99=HJI_BAR_FACTOR * card["p99"],
+                disagreement=HJI_PROTO_BARS["disagreement"])
+
+
+def hji_proto(torch, x_rel, device="cuda"):
+    """(a) of `run_hji_solve`: the proto solve to its horizon in float32
+    and float64 against the asset, the control, one profiled sweep, and
+    the float32 cache against the asset at the states x_rel."""
+    from pigeon_tpu_torch import hji_solve
+    from pigeon_tpu_torch.config import x1_params
+
+    asset = np.load(HJI_PROTO_ASSET)["V"]
+    proto, caches = {}, {}
+    for dtype in (torch.float32, torch.float64):
+        cache, deltas, times, r = timed_hji_solve(
+            torch, dtype, shape=hji_solve.PROTO_SHAPE, device=device,
+            **HJI_PROTO)
+        proto[r["dtype"]] = r
+        caches[r["dtype"]] = cache
+        require(r["sweeps"] == HJI_PROTO_SWEEPS
+                and r["t_reached_s"] >= HJI_PROTO["horizon_s"]
+                and deltas[-1] == 0.0,
+                f"hji_solve proto {r}: expected {HJI_PROTO_SWEEPS} sweeps "
+                f"to the horizon, frozen")
+    caches["control"], _, _, r_c = timed_hji_solve(
+        torch, torch.float32, shape=hji_solve.PROTO_SHAPE, device=device,
+        **dict(HJI_PROTO, **HJI_CONTROL))
+    vals = {k: c.V.cpu().numpy().reshape(c.dims) for k, c in caches.items()}
+    card = hji_solve.value_agreement(vals["float32"], vals["float64"])
+    card_bars = card_gap_bars(CARD_PROTO_GAP)
+    against = {k: hji_solve.value_agreement(v, asset) for k, v in vals.items()}
+    gaps = {k: hji_gap(a) for k, a in against.items()}
+    rec = dict(runs=proto, control=dict(HJI_CONTROL, **r_c),
+               float32_vs_float64=card, float32_vs_float64_bars=card_bars,
+               bars=HJI_PROTO_BARS, against_asset=against)
+    require(within(hji_gap(card), card_bars),
+            f"hji_solve proto float32 against float64: {hji_gap(card)} "
+            f"outside {card_bars}")
+    require(within(gaps["float32"], HJI_PROTO_BARS)
+            and within(gaps["float64"], HJI_PROTO_BARS),
+            f"hji_solve proto against the asset: {gaps} outside "
+            f"{HJI_PROTO_BARS}")
+    require(not within(gaps["control"], HJI_PROTO_BARS),
+            f"hji_solve proto: the control {HJI_CONTROL} passes the bars")
+    l, hs, flow, _ = hji_solve.vehicle_problem(
+        x1_params(), shape=hji_solve.PROTO_SHAPE,
+        fx_samples=HJI_PROTO["fx_samples"], device=device)
+    hs_t, lo, cfl_t, _ = hji_solve._constants(l, hs, HJI_PROTO["cfl"], -3.0,
+                                              None)
+    zero = torch.zeros((), device=device)
+    rec["profile_sweep"] = profile_call(
+        torch, lambda: hji_solve._sweep_body(l, l, hs_t, flow, cfl_t, lo,
+                                             "local", 3.0, zero))
+    # the card-solved float32 cache against the asset at the rollout's
+    # states, by the same rule
+    ref = hji_solve.load_cache(HJI_PROTO_ASSET, device=device)
+    at = dict(float32_vs_float64=states_agreement(
+        torch, caches["float32"], caches["float64"], x_rel),
+        against_asset=states_agreement(torch, caches["float32"], ref, x_rel),
+        float32_vs_float64_bars=card_gap_bars(CARD_STATES_GAP),
+        bars=HJI_PROTO_BARS)
+    rec["at_montecarlo_states"] = dict(states=int(x_rel.numel() // 7), **at)
+    require(within(hji_gap(at["float32_vs_float64"]),
+                   at["float32_vs_float64_bars"])
+            and within(hji_gap(at["against_asset"]), HJI_PROTO_BARS),
+            f"hji_solve proto at the Monte-Carlo states: {at}")
+    return rec
+
+
+def hji_production(torch, device="cuda"):
+    """(b) of `run_hji_solve`: the production grid at full width for
+    HJI_PROD_SWEEPS sweeps in float32 and float64 and, as the control,
+    one sweep fewer in float32; the float32 V held to the float64 V on
+    the card within HJI_PROD_BARS, which the control must fail; one
+    alpha pass under torch.profiler."""
+    from pigeon_tpu_torch import hji_solve
+    from pigeon_tpu_torch.config import x1_params
+
+    shape = hji_solve.DEFAULT_SHAPE
+    order = hji_solve.PROD_AXIS_ORDER
+    prod, caches, traces = {}, {}, {}
+    for name, dtype, sweeps in (("float32", torch.float32, HJI_PROD_SWEEPS),
+                                ("float64", torch.float64, HJI_PROD_SWEEPS),
+                                ("control", torch.float32,
+                                 HJI_PROD_SWEEPS - 1)):
+        cache, deltas, times, r = timed_hji_solve(
+            torch, dtype, shape=shape, axis_order=order, device=device,
+            n_sweeps=sweeps, **HJI_PROD)
+        r["steps"] = np.diff(times, prepend=0.0).tolist()
+        prod[name], caches[name], traces[name] = r, cache.V, times
+        del cache
+    gap = device_agreement(torch, caches["float32"], caches["float64"])
+    control = device_agreement(torch, caches["control"], caches["float64"])
+    del caches
+    rec = dict(shape=list(shape), axis_order=list(order),
+               grid_points=int(np.prod(shape)), runs=prod,
+               float32_vs_float64=gap, control_vs_float64=control,
+               bars=dict(zip(("max", "mean"), HJI_PROD_BARS)))
+
+    def inside(g):
+        return (g["V_max_abs_delta"] <= HJI_PROD_BARS[0]
+                and g["V_mean_abs_delta"] <= HJI_PROD_BARS[1])
+    require(np.allclose(traces["float32"], traces["float64"],
+                        rtol=4 * np.finfo(np.float32).eps, atol=0)
+            and len(traces["float32"]) == HJI_PROD_SWEEPS,
+            f"hji_solve production: the step traces differ {traces}")
+    require(inside(gap),
+            f"hji_solve production float32 against float64: {gap} outside "
+            f"{HJI_PROD_BARS}")
+    require(not inside(control),
+            f"hji_solve production: the float32 run one sweep short passes "
+            f"the bars {HJI_PROD_BARS}: {control}")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    l, hs, flow, _ = hji_solve.vehicle_problem(
+        x1_params(), shape=shape, axis_order=order,
+        fx_samples=HJI_PROD["fx_samples"], device=device)
+    hs_t, lo, _, _ = hji_solve._constants(l, hs, 0.5, -3.0, None)
+    zero = torch.zeros((), device=device)
+    rec["alpha_pass"] = dict(profile=profile_call(
+        torch, lambda: hji_solve._slab_pass(l, l, hs_t, flow, lo, "local",
+                                            None, zero, zero, 1)),
+        peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+    del l, flow
+    torch.cuda.empty_cache()
+    return rec
+
+
+def run_hji_solve(torch, x_rel, device="cuda"):
+    """The HJI value-iteration solver on the card (`hji_solve`), with no
+    kernel of its own: (a) the proto solve to its horizon in float32 and
+    float64, each held against `assets/hji_cache_proto.npz` within
+    HJI_PROTO_BARS, the control (HJI_CONTROL) failing them, the live
+    float32-to-float64 gap within its recorded value's bars; one sweep
+    under torch.profiler; the card-solved float32 proto cache against
+    the asset at the Monte-Carlo rollout's relative states x_rel by the
+    same rule (`hji_proto`); (b) the production grid (DEFAULT_SHAPE in
+    PROD_AXIS_ORDER, slab by slab) at full width for HJI_PROD_SWEEPS
+    sweeps in float32 and float64, the step traces equal to float32
+    rounding, V within HJI_PROD_BARS (compared on the card), which the
+    float32 run one sweep short fails, with one alpha pass (one sweep's
+    work) under torch.profiler (`hji_production`); (c) the sharded
+    solver at world size 1 over NCCL.  Returns the phase's record."""
+    return dict(proto=hji_proto(torch, x_rel, device),
+                production=hji_production(torch, device),
+                sharded_world_1=sharded_world_of_one(torch, device))
 
 
 def main() -> int:
@@ -3918,6 +4260,15 @@ def main() -> int:
     rec = reference_runtime(torch, rt_ctx, mc_ctx["cache"])
     log(phase="reference_runtime", seconds=time.perf_counter() - t0, **rec)
     del rt_ctx
+
+    # ---- the HJI value-iteration solver ----------------------------------
+    before = kernels.launches()
+    t0 = time.perf_counter()
+    rec = run_hji_solve(torch, mc_ctx["x_rel"])
+    require(kernels.launches() == before,
+            "hji_solve launched a kernel of another path")
+    log(phase="hji_solve", seconds=time.perf_counter() - t0, nvidia_smi=smi,
+        **rec)
 
     main_launches = {k: sum(per[k] for per in launches.values())
                      for k in KERNEL_META}

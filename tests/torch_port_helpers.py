@@ -96,3 +96,39 @@ def random_admm_ops(B: int, sigma: float, seed=0, n=70, m=104,
     return dict(mats=[f(k) for k in ("K", "A", "q", "l", "u", "rho")],
                 warm=warm,
                 scalings=[ones(B, n), ones(B, m), ones(B), f("P"), f("q")])
+
+
+def hji_sharded_worker(rank: int, world: int, store: str, out: str,
+                       case: str, kw: dict):
+    """One rank of a gloo group over a FileStore: the sharded HJI solver
+    on a 1-D CPU device mesh named "dp", its result saved to
+    `out`_<rank>.npz.  case "smooth": `solve_hji_vi_sharded` on the
+    pursuit game (`hji_solve.pursuit_target` on a (40, 41) grid, speed
+    1); "vehicle": `solve_hji(mesh=)`
+    at float64 with `kw`."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from pigeon_tpu_torch import hji_solve
+    from pigeon_tpu_torch.config import x1_params
+
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", store=dist.FileStore(store, world),
+                            rank=rank, world_size=world)
+    try:
+        mesh = init_device_mesh("cpu", (world,), mesh_dim_names=("dp",))
+        if case == "smooth":
+            l, hs = hji_solve.pursuit_target((40, 41))
+            V, d, t = hji_solve.solve_hji_vi_sharded(
+                torch.as_tensor(l), hs, hji_solve.pursuit_flow(1.0),
+                mesh=mesh, **kw)
+            V = V.numpy()
+        else:
+            cache, d, t = hji_solve.solve_hji(
+                x1_params(), mesh=mesh, dtype=torch.float64, device="cpu",
+                **kw)
+            V = cache.V.numpy()
+        np.savez(f"{out}_{rank}.npz", V=V, deltas=np.asarray(d),
+                 times=np.asarray(t))
+    finally:
+        dist.destroy_process_group()
