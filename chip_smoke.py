@@ -75,31 +75,31 @@ Phases (any failure raises, so the script exits non-zero):
    soft one;
 4. path "fleet": the coupled soft MPC for a fleet of 8192 vehicles on an
    oval (x1_coupled_config(soft=True), N_short=5, N_long=10, the lane
-   solver with bench.py's options), one cold step and 10 warm closed-loop
+   solver with bench.py's options), one cold step and 5 warm closed-loop
    steps with the RK4 plant, timed with CUDA events; the launch counters
    of vanloan, chol_inverse and admm_iterations must advance on every
    step and no other, commands must be finite and the converged fraction
    on the last step at least 0.99; then torch.profiler over one more warm
    step (device busy time, idle share, largest kernels);
 5. path "fleet_decoupled": the same for x1_decoupled_config(soft=True)
-   (N_short=10, N_long=20, QPs of n=30, m=180), 10 warm steps; its steps
+   (N_short=10, N_long=20, QPs of n=30, m=180), 5 warm steps; its steps
    launch vanloan, rollout, chol_inverse and admm_iterations;
 6. path "fleet_sparse": the sparse coupled MPC (x1_coupled_config() as
    it comes, N_short=5, N_long=10, QPs of n=193, m=290) for 2048 vehicles
-   on the "pallas" solver with the banded factor, one cold and 10 warm
+   on the "pallas" solver with the banded factor, one cold and 5 warm
    steps; every step launches vanloan and ruiz once, and banded_chol and
    admm_dense 8 times (SPARSE_STEP_LAUNCHES);
    path "fleet_condensed": the hard condensed coupled MPC
    (x1_coupled_config(condensed=True), QPs of n=103, m=200, a dense P)
    for 2048 vehicles on the sparse fleet's solver options, whose banded
    factor falls through to the dense Cholesky for a dense P; one cold and
-   10 warm steps, each launching vanloan and ruiz once and admm_wide
+   5 warm steps, each launching vanloan and ruiz once and admm_wide
    (the dense ADMM kernel's wide build, dense-P mode) once per solver
    segment, and no launch of the narrow build;
    path "fleet_sparse_mixedk6": the sparse fleet in precision mode
    "mixedk6" (scripts/exp_conv.py's: the layout's 128 equality rows in
    float32, the other rows and the vectors in bf16 pairs, K^-1 in
-   float32), one cold and 10 warm steps, each launching vanloan and ruiz
+   float32), one cold and 5 warm steps, each launching vanloan and ruiz
    once, banded_chol once per factorization and admm_large (the dense
    ADMM kernel's large build) once per segment, every launch its mixedk6
    instantiation (`_kernels.launches_by`), and no launch of the narrow
@@ -107,7 +107,7 @@ Phases (any failure raises, so the script exits non-zero):
    path "fleet_decoupled_sparse": the sparse decoupled MPC
    (x1_decoupled_config() as it comes, N_short=10, N_long=20, QPs of
    n=245, m=395) for 2048 vehicles on the sparse fleet's solver options
-   (no banded plan: the dense Cholesky), one cold and 10 warm steps, each
+   (no banded plan: the dense Cholesky), one cold and 5 warm steps, each
    launching expm_dense twice, ruiz once and admm_large (the large
    build, "highest") once per segment; its converged share on one more
    step held against the same step with B8's plain version on the card,
@@ -127,17 +127,17 @@ Phases (any failure raises, so the script exits non-zero):
    sparse wall fleet with lin_method "expm_split" (`run_expm_split`: its
    QP against the "expm" one, expm_dense twice, its two stacks held
    against plain);
-7. path "simulate": `mpc.simulate` for one vehicle on the card, 10
+7. path "simulate": `mpc.simulate` for one vehicle on the card, 5
    closed-loop steps per soft formulation -- the unbatched route, dense
    linearization and `solve_qp` -- which launches expm_dense once per
    step and no other kernel; then torch.profiler over 1 more step; and
-   path "simulate_condensed": 10 steps of the hard condensed QP on
+   path "simulate_condensed": 5 steps of the hard condensed QP on
    backend "pallas", whose `solve_qp` runs each solver segment on the
    dense ADMM kernel's wide build at tile 1 (expm_dense once per step,
-   admm_wide once per segment), profiled over 1 more; and 10 steps of
+   admm_wide once per segment), profiled over 1 more; and 5 steps of
    the sparse decoupled QP (x1_decoupled_config() as it comes, the
    runtime's path controller: expm_dense twice a step, plain `solve_qp`),
-   profiled over 1 more; and path "simulate_faithful": 4 steps of the
+   profiled over 1 more; and path "simulate_faithful": 2 steps of the
    parity harness's reference-faithful controller (`parity.faithful_config`
    at the oval's stable RK4 substep count, 4: the RK4 linearization,
    PARITY_SOLVER, the reference tire inverse, unclamped), which launches
@@ -148,7 +148,7 @@ Phases (any failure raises, so the script exits non-zero):
    override, the lane solver in 12 segments of 50 iterations) with the
    mid value grid (`assets/hji_cache_mid.npz`, read by
    `hji_solve.load_cache`) for 8192 scenarios of its "avoidable" regime
-   over 200 steps; every step launches vanloan, chol_inverse (once more
+   over 150 steps; every step launches vanloan, chol_inverse (once more
    per refactor) and admm_iterations (once per segment) and no other;
    commands finite, the filter active and the override applied on some
    steps; then `certify_avoidable` on the same scenarios, torch.profiler
@@ -188,6 +188,21 @@ Phases (any failure raises, so the script exits non-zero):
    fail, with ms a sweep and peak memory; the sharded solver on a
    one-card NCCL mesh bit-equal to the whole-grid sweep on the smooth
    pursuit game;
+   paths "mesh_fleet", "mesh_sparse_tp", "mesh_montecarlo" (`run_mesh`,
+   one one-rank NCCL world): `BatchedController(mesh=make_mesh())` on
+   the coupled fleet (B=8192), a cold and 3 warm steps, bit-equal to the
+   mesh-less controller; `make_sharded_step` on a (1, 1) mesh with the
+   tp factor forced on the sparse fleet (B=2048), a cold and 2 warm
+   closed-loop steps, bit-equal to `mpc_step_batched`, its FleetMetrics
+   the step's own reductions, each step's launches SPARSE_STEP_LAUNCHES;
+   `run_dynamic_obstacle(mesh=)` at B=8192 for 5 steps, its summary the
+   mesh-less one's field for field; then `rollout_affine` at T = 64 and
+   128 (the associative scan, no kernel) against the CPU float64
+   unroll, and `viz.hji_slice` on the mid cache against the CPU float64
+   slice; phase "profile_phases": `profiling.profile_step` on the coupled
+   and the sparse fleet (each phase finite, the whole step within 0.5-2x
+   the fleet phase's warm median) and `mfu_row` of the coupled fleet's
+   warm step;
 9. reference checks: for each formulation (coupled, decoupled, sparse,
    condensed, decoupled_sparse, and the three wall fleets) a 64-vehicle
    fleet stepped on the card,
@@ -214,7 +229,7 @@ Phases (any failure raises, so the script exits non-zero):
    each mode replayed on the CPU at float64 and float32 by
    `simulate_reference_check`'s rule (`reference_runtime`, run with the
    runtime phase);
-10. B=1 latency: the coupled fleet path for one vehicle, 20 warm steps;
+10. B=1 latency: the coupled fleet path for one vehicle, 10 warm steps;
 11. one JSON line listing the kernels, the nvidia-smi line, and the last
    line {"ok": true, "device": {...}}.
 
@@ -224,6 +239,7 @@ outside a checkout of the repository.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -259,23 +275,27 @@ WALL_CHECKS = ("sparse_walls", "condensed_walls", "coupled_walls",
 EXPM_SPLIT_QP_REL = 1e-4
 # The reference-faithful closed loop (`parity.faithful_config` of the
 # coupled singleton at the oval's stable substep count, on PARITY_SOLVER):
-# steps on the card, all replayed on the CPU (4, cut from 10 when the HJI
-# solver's phase joined the run: each step is 10,000 iterations, ~6 s on
-# the card's host and as much again on the CPU)
-SIM_STEPS_FAITHFUL = 4
-WARM_STEPS = {"coupled": 10, "decoupled": 10, "sparse": 10,
-              "condensed": 10, "sparse_mixedk6": 10, "decoupled_sparse": 10,
+# steps on the card, all replayed on the CPU (2: cut from 10 to 4 when
+# the HJI solver's phase joined the run, to 2 when the mesh phases did;
+# each step is 10,000 iterations, ~6 s on the card's host and as much
+# again on the CPU)
+SIM_STEPS_FAITHFUL = 2
+# warm steps of each fleet path (the six fleets without wall rows cut
+# from 10 to 5 when the mesh phases joined the run)
+WARM_STEPS = {"coupled": 5, "decoupled": 5, "sparse": 5,
+              "condensed": 5, "sparse_mixedk6": 5, "decoupled_sparse": 5,
               "sparse_walls": 5, "condensed_walls": 5, "coupled_walls": 5}
-B1_STEPS = 20
-# (10, the steps its reference check compares, cut from 20 when the wall
-# and faithful phases joined the run)
-SIM_STEPS = 10
+B1_STEPS = 10   # cut from 20 when the mesh phases joined the run
+# (5, the steps its reference check compares: cut from 20 to 10 when the
+# wall and faithful phases joined the run, to 5 when the mesh phases did)
+SIM_STEPS = 5
 # the condensed QP's single-vehicle path: as many steps as its reference
 # check compares; the sparse decoupled QP's, the runtime's path
-# controller, too (cut from 30 when the HJI solver's phase joined the run)
-SIM_STEPS_CONDENSED = 10
-SIM_STEPS_DECOUPLED_SPARSE = 10
-SIM_REF_STEPS = 10   # steps of `simulate` also run on the CPU
+# controller, too (cut from 30 to 10 when the HJI solver's phase joined
+# the run, to 5 when the mesh phases did)
+SIM_STEPS_CONDENSED = 5
+SIM_STEPS_DECOUPLED_SPARSE = 5
+SIM_REF_STEPS = 5   # steps of `simulate` also run on the CPU
 # steps of each `simulate` profile (the profiler's own cost a step is most
 # of these phases' time: 6-10 s a step on the H100's host)
 SIM_PROFILE_STEPS = 1
@@ -538,7 +558,9 @@ SMEM_BYTES_PER_CLOCK = 128
 # the repository, its "avoidable" scenarios at B = 8192
 MC_CACHE = "assets/hji_cache_mid.npz"
 B_MC = 8192
-MC_STEPS = 200          # run_dynamic_obstacle's default
+# run_dynamic_obstacle's default is 200: cut to 150 when the mesh phases
+# joined the run
+MC_STEPS = 150
 MC_CERT_STEPS = 500     # certify_avoidable's default
 MC_EPS = 1.5
 MC_SOLVER = dict(max_iter=600, check_every=50, eps_abs=1e-3, eps_rel=1e-3,
@@ -591,7 +613,8 @@ JAX_CPU_PROTO_GAP = dict(mean=4.23125926772836e-4, p99=5.090484619140634e-3,
 # the port's float32-to-float64 gap on the card (NVIDIA H100 80GB HBM3,
 # 700.00 W; PERF.md, hji-proto), the same in every recorded run: on the
 # proto grid, and at the Monte-Carlo rollout's 1,638,400 relative states
-# (one activation of them differs)
+# of 200 steps (one activation of them differs; 1,228,800 since the
+# rollout was cut to 150 steps)
 CARD_PROTO_GAP = dict(mean=8.728837373004018e-05, p99=0.00122833251953125,
                       disagreement=0.0)
 CARD_STATES_GAP = dict(mean=2.605514158229127e-06, p99=3.62396240234375e-05,
@@ -626,6 +649,31 @@ HJI_PROD_BARS = (4e-3, 1e-5)
 # game (speed 1, margin 1) on an (n, n + 1) grid over [-8, 8]^2
 HJI_SMOOTH_N = 400
 HJI_SMOOTH_SWEEPS = 60
+
+# The mesh phase (`run_mesh`, one-rank NCCL world): warm steps after the
+# cold one of the data-parallel controller (fleet-8192) and of the sharded
+# sparse step with the tp factor forced (fleet-sparse-2048), and the
+# Monte-Carlo steps at B_MC
+MESH_FLEET_WARM = 3
+MESH_SPARSE_WARM = 2
+MESH_MC_STEPS = 5
+# the rollout scan's horizons and its operands (the decoupled fleet's d
+# and w), held to the CPU float64 unroll at check_rollout's relative bar
+SCAN_T = (64, 128)
+SCAN_SHAPE = dict(B=8192, d=4, w=31)
+ROLLOUT_REL = 1e-5
+# `viz.hji_slice` on the mid cache, on the card, against the CPU float64
+# slice at the same float32 points: float32 rounding alone reaches 2.9
+# float32 spacings of the grid's largest |V| on the CPU (100 slices of
+# either cache), so the bar is twice that, in those spacings
+HJI_SLICE_ULPS = 6
+HJI_SLICE_RELS = ((0.0, 0.0, 3.1, 6.0, 0.0, 5.0, 0.0),
+                  (0.0, 0.0, 2.5, 4.0, 0.3, 7.0, 0.2),
+                  (5.0, -1.0, -3.0, 8.0, -0.5, 3.0, -0.4))
+# the profiler's whole step against the fleet phase's own warm median
+# (closed loop, CUDA events): a loose bar that only catches a mis-timed
+# phase
+PROFILE_FULL_STEP_RATIO = (0.5, 2.0)
 
 
 def require(ok, message):
@@ -749,17 +797,20 @@ def make_setup(torch, B: int, device, hz=None, formulation="coupled",
                 oc=oc, t=t0)
 
 
-def closed_loop_step(torch, st):
+def closed_loop_step(torch, st, step=None):
     """One 100 Hz period: MPC step, then the plant advances with the new
-    command (bench.py's one_step)."""
+    command (bench.py's one_step).  `step(carry, q, u, oc, t)` -> (carry,
+    u3, diag) in place of `mpc.mpc_step_batched` on the set-up's tube and
+    cache."""
     from pigeon_tpu_torch import discretize as dz
     from pigeon_tpu_torch import dynamics as dyn
     from pigeon_tpu_torch import mpc
 
     cfg = st["cfg"]
-    carry, u3, diag = mpc.mpc_step_batched(cfg, st["tube"], st["cache"],
-                                           st["carry"], st["q"], st["u"],
-                                           st["oc"], st["t"])
+    if step is None:
+        step = lambda *a: mpc.mpc_step_batched(cfg, st["tube"], st["cache"],
+                                               *a)
+    carry, u3, diag = step(st["carry"], st["q"], st["u"], st["oc"], st["t"])
     ur = torch.cat([u3[:, 0:1], u3[:, 1:2] + u3[:, 2:3],
                     torch.zeros_like(u3[:, :1]).expand(-1, 4)], dim=-1)
     f = lambda q, r: dyn.vehicle_ode(cfg.veh, "bicycle", q, r[..., :2],
@@ -1168,20 +1219,18 @@ def check_rollout(torch, args, kw, small=None):
         r = rel_err(qc.rollout_affine(As, Es),
                     qc.rollout_affine_unroll(As, Es))
         require(r <= 1e-5, f"rollout at {tuple(Es.shape)}: relative {r}")
-    # outside the kernel's horizons the wrapper raises on the card; it
-    # does not take the plain loop there
+    # from the scan's horizon on the wrapper takes the associative scan,
+    # not the kernel (`rollout_scan_check` holds it)
+    from pigeon_tpu_torch import _kernels
     long_T = qc.ROLLOUT_SCAN_MIN_T
-    try:
-        qc.rollout_affine(0.4 * rnd(2, long_T, 4, 4), rnd(2, long_T, 4, 5))
-    except NotImplementedError:
-        pass
-    else:
-        require(False, f"rollout_affine at T={long_T} on the card must raise")
+    before = _kernels.launches()["rollout"]
+    qc.rollout_affine(0.4 * rnd(2, long_T, 4, 4), rnd(2, long_T, 4, 5))
+    require(_kernels.launches()["rollout"] == before,
+            f"rollout_affine at T={long_T} launched the kernel")
     ms = cuda_ms(torch, lambda: qc.rollout_affine(A, E), 20)
     plain = cuda_ms(torch, lambda: qc.rollout_affine_unroll(A, E), 5)
     Bn, T, d, w = E.shape
     b_ms, b_by = bound(nbytes(A, E, out_k), 2.0 * Bn * (T - 1) * d * d * w)
-    from pigeon_tpu_torch import _kernels
     return dict(err=float((out_k - out_p).abs().max()), rel=rel, ms=ms,
                 plain_ms=plain, library_ms=None, bound_ms=b_ms,
                 bound_by=b_by,
@@ -3614,36 +3663,45 @@ def device_agreement(torch, V, V_ref) -> dict:
     return rec
 
 
+@contextlib.contextmanager
+def world_of_one(device="cuda"):
+    """A one-rank torch.distributed world over a free localhost port
+    (NCCL on the card, gloo on the CPU), torn down on the way out."""
+    import socket
+
+    import torch.distributed as dist
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    dist.init_process_group("nccl" if device == "cuda" else "gloo",
+                            init_method=f"tcp://localhost:{port}",
+                            world_size=1, rank=0)
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
+
+
 def sharded_world_of_one(torch, device="cuda"):
     """`solve_hji_vi_sharded` on a one-rank NCCL group (a device mesh of
     one card, dimension "dp"; gloo on the CPU) against `solve_hji_vi` on
     the smooth flow: the halo rows are the rank's own edge rows and the
     reductions are over one rank, so the two must be bit-equal."""
-    import socket
-
-    import torch.distributed as dist
     from torch.distributed.device_mesh import init_device_mesh
 
     from pigeon_tpu_torch import hji_solve
 
-    with socket.socket() as sock:
-        sock.bind(("localhost", 0))
-        port = sock.getsockname()[1]
     l, hs = hji_solve.pursuit_target((HJI_SMOOTH_N, HJI_SMOOTH_N + 1))
     l = torch.as_tensor(l, dtype=torch.float32, device=device)
     flow = hji_solve.pursuit_flow(1.0)
-    dist.init_process_group("nccl" if device == "cuda" else "gloo",
-                            init_method=f"tcp://localhost:{port}",
-                            world_size=1, rank=0)
-    try:
+    with world_of_one(device):
         mesh = init_device_mesh(device, (1,), mesh_dim_names=("dp",))
         t0 = time.perf_counter()
         V_s, d_s, t_s = hji_solve.solve_hji_vi_sharded(
             l, hs, flow, HJI_SMOOTH_SWEEPS, mesh)
         torch.cuda.synchronize()
         sharded_s = time.perf_counter() - t0
-    finally:
-        dist.destroy_process_group()
     V_u, d_u, t_u = hji_solve.solve_hji_vi(l, hs, flow, HJI_SMOOTH_SWEEPS)
     rec = dict(grid=list(l.shape), sweeps=HJI_SMOOTH_SWEEPS,
                seconds=sharded_s,
@@ -3820,6 +3878,309 @@ def run_hji_solve(torch, x_rel, device="cuda"):
     return dict(proto=hji_proto(torch, x_rel, device),
                 production=hji_production(torch, device),
                 sharded_world_1=sharded_world_of_one(torch, device))
+
+
+def tree_bits_equal(torch, a, b) -> bool:
+    """Every tensor of two trees of the same structure equal to the bit
+    (floats compared as integers, so NaN matches NaN)."""
+    from pigeon_tpu_torch.parallel.mesh import tree_map
+
+    xs, ys = [], []
+    tree_map(xs.append, a)
+    tree_map(ys.append, b)
+    as_bits = {torch.float32: torch.int32, torch.float64: torch.int64}
+    return len(xs) == len(ys) and all(
+        x.dtype == y.dtype and x.shape == y.shape and torch.equal(
+            x.view(as_bits.get(x.dtype, x.dtype)),
+            y.view(as_bits.get(y.dtype, y.dtype)))
+        for x, y in zip(xs, ys))
+
+
+def grown(kernels, before) -> dict:
+    return {k: v - before[k] for k, v in kernels.launches().items()}
+
+
+def timed_steps(torch, n, step):
+    """`step(i)` for i < n, each timed with CUDA events: [ms]."""
+    out = []
+    for i in range(n):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        step(i)
+        end.record()
+        end.synchronize()
+        out.append(start.elapsed_time(end))
+    return out
+
+
+def mesh_fleet(torch, kernels):
+    """`BatchedController(mesh=make_mesh())` on fleet-8192 (the soft coupled
+    QP on the lane solver: B1-B3), a cold and MESH_FLEET_WARM warm steps,
+    against the mesh-less controller on the same inputs: a world of one
+    reduces nothing, so states and diagnostics must be bit-equal; every
+    mesh step launches exactly the fleet path's kernels."""
+    from pigeon_tpu_torch.parallel import mesh as pm
+
+    st = make_setup(torch, B_FLEET, "cuda")
+    n = MESH_FLEET_WARM + 1
+    mesh = pm.make_mesh()
+    runs, launched = {}, {}
+    for name, ctrl_mesh in (("plain", None), ("mesh", mesh)):
+        ctrl = pm.BatchedController(st["cfg"], st["tube"], st["cache"],
+                                    mesh=ctrl_mesh)
+        out = dict(state=ctrl.init_state(st["q"]), per_step=[])
+        before = kernels.launches()
+
+        def step(i, ctrl=ctrl, out=out):
+            b = kernels.launches()
+            out["state"], out["diag"] = ctrl.step(out["state"], st["oc"],
+                                                  st["t"] + i * DT)
+            out["per_step"].append(grown(kernels, b))
+        out["ms"] = timed_steps(torch, n, step)
+        launched[name] = grown(kernels, before)
+        runs[name] = out
+    expect = PATH_KERNELS["coupled"]
+    require(all(all((v > 0) == (k in expect) for k, v in g.items())
+                for g in runs["mesh"]["per_step"]),
+            f"mesh_fleet launches {runs['mesh']['per_step']}")
+    mesh_out, plain = runs["mesh"], runs["plain"]
+    require(tree_bits_equal(torch, (mesh_out["state"], mesh_out["diag"]),
+                            (plain["state"], plain["diag"])),
+            "mesh_fleet: the world-of-one controller differs from the "
+            "mesh-less one")
+    gathered = pm.gather_batch(mesh_out["state"].q, mesh)
+    require(torch.equal(gathered, plain["state"].q), "gather_batch")
+    return dict(batch=B_FLEET, steps=n, mesh_ms=mesh_out["ms"],
+                plain_ms=plain["ms"], bit_equal=True,
+                gather_batch_shape=list(gathered.shape),
+                converged_last=float(mesh_out["diag"].converged
+                                     .float().mean())), launched["mesh"]
+
+
+def mesh_sparse_tp(torch, kernels):
+    """`make_sharded_step(..., make_mesh_2d(tp=1), use_tp_factor=True)` on
+    fleet-sparse-2048 ("pallas", "banded", "highest": B1, B9, B7, B8), a
+    cold and MESH_SPARSE_WARM warm closed-loop steps with the plant, so
+    the tp factor's all_gather route runs on NCCL over a group of one.
+    Commands, carries and diagnostics bit-equal to `mpc_step_batched`'s
+    (the gathered W is the same GEMM operand, the blocks re-assembled
+    whole), the FleetMetrics equal to the step's own reductions, each
+    step's launches SPARSE_STEP_LAUNCHES."""
+    from pigeon_tpu_torch.parallel import shard
+
+    plain = make_setup(torch, B_SPARSE, "cuda", formulation="sparse")
+    st = make_setup(torch, B_SPARSE, "cuda", formulation="sparse")
+    mesh = shard.make_mesh_2d(tp=1)
+    sharded = shard.make_sharded_step(st["cfg"], st["tube"], st["cache"],
+                                      mesh, use_tp_factor=True)
+    require(st["cfg"].solver.tp_axis is None, "the caller's cfg changed")
+    metrics, per_step, ms, plain_ms = [], [], [], []
+
+    def step(*args):
+        c, u3, diag, m = sharded(*shard.shard_batch_dp(args, mesh))
+        metrics.append(m)
+        return c, u3, diag
+
+    launched = dict.fromkeys(kernels.launches(), 0)
+    for i in range(MESH_SPARSE_WARM + 1):
+        plain_ms += timed_steps(torch, 1, lambda _: plain.update(
+            out=closed_loop_step(torch, plain)))
+        b = kernels.launches()
+        ms += timed_steps(torch, 1, lambda _: st.update(
+            out=closed_loop_step(torch, st, step)))
+        g = grown(kernels, b)
+        launched = {k: launched[k] + v for k, v in g.items()}
+        per_step.append({k: v for k, v in g.items() if v})
+        require(per_step[-1] == SPARSE_STEP_LAUNCHES,
+                f"mesh_sparse_tp step {i} launches {per_step[-1]}")
+        require(tree_bits_equal(
+            torch, (st["carry"], st["q"], st["out"]),
+            (plain["carry"], plain["q"], plain["out"])),
+            f"mesh_sparse_tp step {i}: the sharded step with the tp factor "
+            f"differs from mpc_step_batched")
+        u3, diag = st["out"]
+        f32 = lambda v: v.to(torch.float32)
+        own = (f32(torch.ones_like(st["t"])).sum(),
+               f32(diag.converged).sum(), f32(diag.hji_active).sum(),
+               f32(diag.e.abs()).amax(), f32(diag.prim_res).amax(),
+               f32(torch.isfinite(u3).all()))
+        require(all(torch.equal(a, b) for a, b in zip(metrics[-1], own)),
+                f"mesh_sparse_tp step {i}: FleetMetrics {metrics[-1]} "
+                f"against the step's own {own}")
+    m = metrics[-1]
+    return dict(batch=B_SPARSE, steps=len(ms), mesh_ms=ms, plain_ms=plain_ms,
+                bit_equal=True, launches_per_step=per_step,
+                metrics_last={k: float(v) for k, v in m._asdict().items()}
+                ), launched
+
+
+def mesh_montecarlo(torch, kernels, cache):
+    """`run_dynamic_obstacle(mesh=make_mesh())` at B_MC for MESH_MC_STEPS
+    steps (the Monte-Carlo path's configuration and scenarios) against the
+    mesh-less call: the summary equal field for field, the steps
+    launching the path's kernels."""
+    from pigeon_tpu_torch import montecarlo as mc
+    from pigeon_tpu_torch import trajectory
+    from pigeon_tpu_torch.parallel import mesh as pm
+
+    tube = trajectory.make_tube(**trajectory.oval_columns(), pad_to=1024,
+                                device="cuda")
+    cfg = montecarlo_config()
+    scen = mc.sample_scenarios(tube, B_MC, **MC_SCENARIOS)
+    secs, out, launched = {}, {}, {}
+    for name, mesh in (("plain", None), ("mesh", pm.make_mesh())):
+        before = kernels.launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out[name] = mc.run_dynamic_obstacle(cfg, tube, cache, scen,
+                                            n_steps=MESH_MC_STEPS, mesh=mesh)
+        torch.cuda.synchronize()
+        secs[name] = time.perf_counter() - t0
+        launched[name] = grown(kernels, before)
+    expect = PATH_KERNELS["montecarlo"]
+    require(all((v > 0) == (k in expect)
+                for k, v in launched["mesh"].items())
+            and launched["mesh"]["vanloan"] == MESH_MC_STEPS,
+            f"mesh_montecarlo launches {launched['mesh']}")
+    require(out["mesh"] == out["plain"],
+            f"mesh_montecarlo summary {out['mesh']} against the mesh-less "
+            f"{out['plain']}")
+    return dict(batch=B_MC, steps=MESH_MC_STEPS,
+                wall_ms_step=secs["mesh"] / MESH_MC_STEPS * 1e3,
+                plain_wall_ms_step=secs["plain"] / MESH_MC_STEPS * 1e3,
+                summary=out["mesh"]._asdict()), launched["mesh"]
+
+
+def rollout_scan_check(torch, kernels, device="cuda"):
+    """`rollout_affine` at T in SCAN_T on the card (the associative scan,
+    no kernel launch) against the CPU float64 unroll, within ROLLOUT_REL
+    of the largest entry; its ms beside the unroll's on the card."""
+    from pigeon_tpu_torch.qp import condensed as qc
+
+    B, d, w = SCAN_SHAPE["B"], SCAN_SHAPE["d"], SCAN_SHAPE["w"]
+    g = torch.Generator(device=device).manual_seed(0)
+    recs = {}
+    for T in SCAN_T:
+        A = 0.25 * torch.randn((B, T, d, d), generator=g, device=device)
+        E = torch.randn((B, T, d, w), generator=g, device=device)
+        before = kernels.launches()
+        out = qc.rollout_affine(A, E)
+        torch.cuda.synchronize()
+        require(kernels.launches() == before,
+                f"rollout_affine at T={T} launched a kernel")
+        ref = qc.rollout_affine_unroll(A.double().cpu(), E.double().cpu())
+        err = float((out.double().cpu() - ref).abs().max())
+        rel = err / float(ref.abs().max())
+        require(rel <= ROLLOUT_REL,
+                f"rollout scan at T={T}: relative {rel} against float64")
+        recs[f"T{T}"] = dict(
+            shapes=[list(A.shape), list(E.shape)], rounds=math.ceil(
+                math.log2(T)), max_abs_err=err, rel=rel,
+            ms=cuda_ms(torch, lambda: qc.rollout_affine(A, E), 5),
+            unroll_ms=cuda_ms(torch, lambda: qc.rollout_affine_unroll(A, E),
+                              3))
+        del A, E, out, ref
+    return recs
+
+
+def hji_slice_check(torch, cache):
+    """`viz.hji_slice` on the card's cache at HJI_SLICE_RELS against the
+    CPU float64 interpolation at the same float32 points, within
+    HJI_SLICE_ULPS float32 spacings of the grid's largest |V| (the CPU
+    float32 slice's distance logged beside it)."""
+    from pigeon_tpu_torch import hji, viz
+
+    cpu = lambda dt: cache._replace(
+        V=cache.V.cpu().to(dt), gradV=None,
+        knots=tuple(k.cpu().to(dt) for k in cache.knots))
+    c64, c32 = cpu(torch.float64), cpu(torch.float32)
+    ulp = float(np.spacing(np.float32(cache.V.abs().max().item())))
+    worst = {"f64": 0.0, "f32": 0.0}
+    for rel in HJI_SLICE_RELS:
+        dE, dN, V = viz.hji_slice(cache, rel)
+        x = np.broadcast_to(np.asarray(rel), (dE.size, dN.size, 7)).copy()
+        x[..., 0], x[..., 1] = dE[:, None], dN[None, :]
+        x32 = torch.as_tensor(x, dtype=torch.float32)
+        for name, c in (("f64", c64), ("f32", c32)):
+            ref = hji.interpolate(c, x32.to(c.V.dtype))[0].numpy()
+            fin = np.isfinite(ref)
+            require(bool((np.isfinite(V) == fin).all()) and fin.any(),
+                    f"hji_slice at {rel}: +inf pattern")
+            worst[name] = max(worst[name],
+                              float(np.abs(V[fin] - ref[fin]).max()))
+    require(worst["f64"] <= HJI_SLICE_ULPS * ulp,
+            f"hji_slice: {worst['f64'] / ulp} float32 spacings from the CPU "
+            f"float64 slice")
+    return dict(points=[41, 41], rels=len(HJI_SLICE_RELS), ulp=ulp,
+                max_abs_vs_cpu_f64=worst["f64"],
+                ulps_vs_cpu_f64=worst["f64"] / ulp,
+                max_abs_vs_cpu_f32=worst["f32"],
+                ulps_vs_cpu_f32=worst["f32"] / ulp)
+
+
+def run_mesh(torch, kernels, cache):
+    """The scale-out paths in one one-rank NCCL world (`world_of_one`):
+    the data-parallel controller on fleet-8192 (`mesh_fleet`), the
+    sharded sparse step with the tp factor forced (`mesh_sparse_tp`), the
+    mesh Monte-Carlo (`mesh_montecarlo`, the mid cache `cache`); then the
+    long-horizon rollout scan and `viz.hji_slice` on the card.  Returns
+    (record, launches by path)."""
+    rec, launched = {}, {}
+    with world_of_one("cuda"):
+        for name, fn, args in (("mesh_fleet", mesh_fleet, ()),
+                               ("mesh_sparse_tp", mesh_sparse_tp, ()),
+                               ("mesh_montecarlo", mesh_montecarlo,
+                                (cache,))):
+            t0 = time.perf_counter()
+            rec[name], launched[name] = fn(torch, kernels, *args)
+            rec[name]["seconds"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    rec["rollout_scan"] = rollout_scan_check(torch, kernels)
+    rec["hji_slice"] = hji_slice_check(torch, cache)
+    rec["scan_and_slice_seconds"] = time.perf_counter() - t0
+    return rec, launched
+
+
+def run_profile_phases(torch, fleet_warm_ms):
+    """`profiling.profile_step` on fleet-8192 and fleet-sparse-2048 after
+    a cold step (a warm carry), every phase's time finite and positive
+    and the whole step within PROFILE_FULL_STEP_RATIO of the fleet
+    phase's own warm median `fleet_warm_ms` (a loose bar: it only catches
+    a mis-timed phase); and `mfu_row` of fleet-8192's warm step."""
+    from pigeon_tpu_torch import profiling
+    from pigeon_tpu_torch.qp.condensed import get_soft_layout
+
+    rec = {}
+    for formulation, B, phase in (("coupled", B_FLEET, "fleet"),
+                                  ("sparse", B_SPARSE, "fleet_sparse")):
+        st = make_setup(torch, B, "cuda", formulation=formulation)
+        closed_loop_step(torch, st)
+        row = profiling.profile_step(
+            st["cfg"], st["tube"], st["cache"], st["carry"], st["q"],
+            st["u"], st["oc"], st["t"], iters=5, warmup=1,
+            keep_outputs=phase == "fleet")
+        outputs = row.pop("outputs", None)
+        ph = row["phase_ms"]
+        ratio = ph["full_step"] / fleet_warm_ms[phase]
+        require(all(math.isfinite(v) and v > 0 for v in ph.values())
+                and PROFILE_FULL_STEP_RATIO[0] <= ratio
+                <= PROFILE_FULL_STEP_RATIO[1],
+                f"profile {phase}: {ph}, full step {ratio} of the fleet's")
+        rec[phase] = dict(row, fleet_warm_ms=fleet_warm_ms[phase],
+                          full_step_over_fleet=ratio)
+        if outputs is not None:
+            cfg = st["cfg"]
+            L = get_soft_layout(cfg.hz, cfg.coupled.use_walls)
+            iters = float(outputs["full_step"][2].iterations.float().mean())
+            mfu = profiling.mfu_row(B, ph["full_step"] / 1e3,
+                                    profiling.soft_step_flops(
+                                        cfg.hz, L.n, L.m, iters,
+                                        cfg.solver.pallas_check_inner))
+            rec["mfu_fleet"] = dict(mfu, iters_mean=iters,
+                                    step_ms=ph["full_step"])
+        del st, outputs
+    return rec
 
 
 def main() -> int:
@@ -4092,7 +4453,7 @@ def main() -> int:
     del wall_checks
 
     # ---- path: the coupled fleet ------------------------------------------
-    launches, builds = {}, {}
+    launches, builds, fleet_warm_ms = {}, {}, {}
 
     def fleet_phase(formulation, phase, B=B_FLEET):
         kernels.reset_launches()
@@ -4101,6 +4462,7 @@ def main() -> int:
         launches[phase] = kernels.launches()
         builds[phase] = {k: kernels.launches_by(k) for k in B8_KERNELS}
         warm_ms = [r["ms"] for r in recs[1:]]
+        fleet_warm_ms[phase] = float(np.median(warm_ms))
         last = recs[-1]
         witness = None
         if formulation in WITNESS_FLEETS:
@@ -4269,6 +4631,18 @@ def main() -> int:
             "hji_solve launched a kernel of another path")
     log(phase="hji_solve", seconds=time.perf_counter() - t0, nvidia_smi=smi,
         **rec)
+
+    # ---- the scale-out paths (one-rank NCCL world), the rollout scan and
+    # the HJI slice; then the profiler's phase split -----------------------
+    t0 = time.perf_counter()
+    rec, mesh_launches = run_mesh(torch, kernels, mc_ctx["cache"])
+    launches.update(mesh_launches)
+    log(phase="mesh", seconds=time.perf_counter() - t0, nvidia_smi=smi,
+        launches=mesh_launches, **rec)
+    t0 = time.perf_counter()
+    rec = run_profile_phases(torch, fleet_warm_ms)
+    log(phase="profile_phases", seconds=time.perf_counter() - t0,
+        nvidia_smi=smi, **rec)
 
     main_launches = {k: sum(per[k] for per in launches.values())
                      for k in KERNEL_META}

@@ -18,7 +18,7 @@ from pigeon_tpu_torch import dynamics as dyn
 from pigeon_tpu_torch import hji as hji_mod
 from pigeon_tpu_torch import mpc as mpc_mod
 from pigeon_tpu_torch import trajectory as trj
-from pigeon_tpu_torch.parallel.mesh import BatchedController
+from pigeon_tpu_torch.parallel.mesh import BatchedController, gather_batch
 
 
 class ScenarioSet(NamedTuple):
@@ -153,7 +153,13 @@ def run_dynamic_obstacle(cfg: mpc_mod.MPCConfig, tube: trj.TrajectoryTube,
     """Every scenario in closed loop with a constant-velocity human, each
     anchored at its own path time; the statistics are reduced on the
     device and read once at the end.  per_scenario=True also returns the
-    `PerScenario` record: (summary, per)."""
+    `PerScenario` record: (summary, per).
+
+    `mesh` (`parallel.mesh.make_mesh`): every rank passes the whole
+    scenario set and rolls out its shard; the summary is the whole
+    fleet's on every rank (the per-scenario quantities it reads, 4 n_steps
+    B values, all-gathered and reduced as without a mesh, so it is the
+    same to the bit) and `PerScenario` is the rank's shard."""
     ctrl = BatchedController(cfg, tube, cache=cache, mesh=mesh, dt=dt)
     state = ctrl.init_state(scen.q0)
     state, (q_log, u_log, oc_log, diag) = ctrl.rollout(
@@ -161,8 +167,12 @@ def run_dynamic_obstacle(cfg: mpc_mod.MPCConfig, tube: trj.TrajectoryTube,
     sep = torch.hypot(q_log[..., 0] - oc_log[..., 0],
                       q_log[..., 1] - oc_log[..., 1])      # (n_steps, B)
     min_sep_per = sep.amin(dim=0)
-    summary = _summary(scen, n_steps, min_sep_per, diag.e.abs(), diag,
-                       u_log, collision_threshold)
+    fleet = (min_sep_per, diag.e.abs(), diag.hji_active, diag.converged,
+             torch.isfinite(u_log).all(dim=-1))
+    if mesh is not None:
+        fleet = (gather_batch(fleet[0], mesh),
+                 *gather_batch(fleet[1:], mesh, dim=1))
+    summary = _summary(scen, n_steps, *fleet, collision_threshold)
     if not per_scenario:
         return summary
     Vh = diag.V_hji
@@ -176,16 +186,19 @@ def run_dynamic_obstacle(cfg: mpc_mod.MPCConfig, tube: trj.TrajectoryTube,
     return summary, per
 
 
-def _summary(scen, n_steps, min_sep_per, e_abs, diag, u_log,
-             collision_threshold):
+def _summary(scen, n_steps, min_sep_per, e_abs, hji_active, converged,
+             finite, collision_threshold):
+    """The fleet's summary from its per-scenario quantities: min_sep_per
+    (B,), and |e|, the filter's and the solver's flags and the finite
+    commands, each (n_steps, B)."""
     return MonteCarloSummary(
         n_scenarios=int(scen.q0.shape[0]),
         n_steps=n_steps,
         min_separation_m=float(min_sep_per.min()),
         collision_frac=float((min_sep_per < collision_threshold)
                              .float().mean()),
-        hji_active_frac=float(diag.hji_active.float().mean()),
+        hji_active_frac=float(hji_active.float().mean()),
         tracking_e_p50=percentile(e_abs, 50),
         tracking_e_p99=percentile(e_abs, 99),
-        converged_frac=float(diag.converged.float().mean()),
-        controls_finite=bool(torch.isfinite(u_log).all()))
+        converged_frac=float(converged.float().mean()),
+        controls_finite=bool(finite.all()))

@@ -489,19 +489,28 @@ def _pre_solve(cfg: MPCConfig, tube, cache, carry: MPCCarry, q0, u0,
         edges = torch.stack([tj.edge_L, tj.edge_R], dim=-1)
     data = CoupledStageData(dt=dt, qs=qs, us=us, ps=ps, hji_M=M, hji_b=b,
                             edges=edges)
-    lin = dict(lin_method=cfg.lin_method, lin_substeps=cfg.lin_substeps,
-               unbatched=unbatched)
-    G = g = w = None
-    if _sparse(cfg):
-        qp = qp_coupled.build_qp(veh, cfg.coupled, hz, data, **lin)
-    elif _hard(cfg):
-        cqp = qp_condensed.build_qp(veh, cfg.coupled, hz, data, **lin)
-        qp, G, g = QPData(*cqp[:5]), cqp.G, cqp.g
-    else:
-        sqp = qp_condensed.build_qp_soft(veh, cfg.coupled, hz, data, **lin)
-        qp, G, g, w = QPData(*sqp[:5]), sqp.G, sqp.g, sqp.w
+    qp, G, g, w = _assemble_coupled(cfg, data, unbatched)
     return _pack_pre(carry, qp, ts, s0, e0, V_hji, gradV, x_rel, us, qs,
                      G, g, w)
+
+
+def _assemble_coupled(cfg: MPCConfig, data: CoupledStageData,
+                      unbatched: bool = False):
+    """Linearization and assembly of the coupled QP that `cfg` solves,
+    the sparse, the hard condensed or the soft condensed one: (QPData,
+    G, g, w), the rollout map (G, g) of a condensed QP and the penalty
+    weights w of a soft one, None where the QP has none."""
+    veh, hz = cfg.veh, cfg.hz
+    lin = dict(lin_method=cfg.lin_method, lin_substeps=cfg.lin_substeps,
+               unbatched=unbatched)
+    if _sparse(cfg):
+        return (qp_coupled.build_qp(veh, cfg.coupled, hz, data, **lin),
+                None, None, None)
+    if _hard(cfg):
+        cqp = qp_condensed.build_qp(veh, cfg.coupled, hz, data, **lin)
+        return QPData(*cqp[:5]), cqp.G, cqp.g, None
+    sqp = qp_condensed.build_qp_soft(veh, cfg.coupled, hz, data, **lin)
+    return QPData(*sqp[:5]), sqp.G, sqp.g, sqp.w
 
 
 def _pack_pre(carry: MPCCarry, qp: QPData, ts, s0, e0, V_hji, gradV, x_rel,

@@ -379,8 +379,8 @@ class SoftQP(NamedTuple):
     g: torch.Tensor        # (B, T, 6) offsets (pins folded in)
 
 
-# Horizon length from which the JAX package switches the rollout to its
-# associative scan; the kernel covers the horizons below it.
+# Horizon length from which the rollout takes the associative scan (the
+# JAX package's threshold); the kernel covers the horizons below it.
 ROLLOUT_SCAN_MIN_T = 64
 
 # The rollout kernel holds a column of M in registers for d up to this.
@@ -398,13 +398,33 @@ def rollout_affine_unroll(A_all, E):
     return torch.stack(out, dim=1)
 
 
+def rollout_affine_scan(A_all, E):
+    """The rollout's recursion as an associative scan over the horizon
+    (`pigeon_tpu.qp.condensed.rollout_affine_scan`): ceil(log2 T) rounds
+    of batched (d, d) @ (d, d) and (d, d) @ (d, w) products, a
+    Hillis-Steele doubling with the combine (A2, M2) o (A1, M1) =
+    (A2 A1, A2 M1 + M2).  Round k combines every stage t >= 2^k with
+    stage t - 2^k; torch ops on any device (XLA code in the JAX package,
+    no kernel)."""
+    A, M = A_all, E
+    T = E.shape[1]
+    k = 1
+    while k < T:
+        A_new = A[:, k:] @ A[:, :-k]
+        M_new = A[:, k:] @ M[:, :-k] + M[:, k:]
+        A = torch.cat([A[:, :k], A_new], dim=1)
+        M = torch.cat([M[:, :k], M_new], dim=1)
+        k *= 2
+    return M
+
+
 def rollout_affine(A_all, E):
     """Cumulative affine rollout per instance: A_all (B, T, d, d),
-    E (B, T, d, w) -> M (B, T, d, w).  CUDA tensors (float32, contiguous)
-    launch `csrc/rollout.cu`, one thread per (instance, column), and
-    raise `NotImplementedError` from T = `ROLLOUT_SCAN_MIN_T` on, where
-    the JAX package takes an associative scan that is not ported; CPU
-    tensors run `rollout_affine_unroll` at any T.
+    E (B, T, d, w) -> M (B, T, d, w).  From T = `ROLLOUT_SCAN_MIN_T` on,
+    on any device, the associative scan (`rollout_affine_scan`), as the
+    JAX package switches; below it CUDA tensors (float32, contiguous)
+    launch `csrc/rollout.cu`, one thread per (instance, column), and CPU
+    tensors run `rollout_affine_unroll`.
 
     Replaces the TPU kernel
     `pigeon_tpu/qp/condensed.py:_rollout_lane_kernel`.  It moves
@@ -415,12 +435,10 @@ def rollout_affine(A_all, E):
                          f"got {tuple(A_all.shape)}, {tuple(E.shape)}")
     B, T, d, w = E.shape
     _kernels.check_same(A_all=(A_all, (B, T, d, d)), E=(E, (B, T, d, w)))
+    if T >= ROLLOUT_SCAN_MIN_T:
+        return rollout_affine_scan(A_all, E)
     if E.device.type == "cpu":
         return rollout_affine_unroll(A_all, E)
-    if T >= ROLLOUT_SCAN_MIN_T:
-        raise NotImplementedError(
-            f"the associative-scan rollout is not ported: the CUDA kernel "
-            f"takes T < {ROLLOUT_SCAN_MIN_T}, got {T}")
     _kernels.check_cuda_f32(A_all=A_all, E=E)
     if d > ROLLOUT_D_MAX:
         raise ValueError(f"the CUDA kernel takes d <= {ROLLOUT_D_MAX}, "

@@ -24,6 +24,8 @@ an instance's result does not depend on the batch it is solved in.
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import math
 from typing import NamedTuple
 
@@ -60,6 +62,21 @@ class QPSolution(NamedTuple):
     rho_scale: torch.Tensor
 
 
+class Pipeline(NamedTuple):
+    """A kernel pipeline's pieces, as `run_segments` takes them after
+    (qp, warm, opts): the Ruiz scalings (D, E, c), `factor(rho_vec)`,
+    `run_iters(fac, x, z, y)`, the iterates' `layout` and the pipeline's
+    equality rows and bf16 bulk."""
+    D: torch.Tensor
+    E: torch.Tensor
+    c: torch.Tensor
+    factor: object
+    run_iters: object
+    layout: "tuple | None" = None
+    is_eq: "torch.Tensor | None" = None
+    bulk: "tuple | None" = None
+
+
 def cold_start(qp: QPData) -> QPWarmStart:
     z = torch.zeros_like(qp.l)
     return QPWarmStart(x=torch.zeros_like(qp.q), y=z, z=z,
@@ -69,6 +86,24 @@ def cold_start(qp: QPData) -> QPWarmStart:
 # OSQP's adaptive rho: a refactor when the suggested multiplier moves by
 # more than this factor
 ADAPT_TOL = 5.0
+
+# the process group the batch of `run_segments` is spread over (None: the
+# batch is whole here); set by `global_batch`
+_BATCH_GROUP: contextvars.ContextVar = contextvars.ContextVar(
+    "batch_group", default=None)
+
+
+@contextlib.contextmanager
+def global_batch(group):
+    """Inside, `run_segments` takes its loop decisions for the batch of
+    every rank of `group` together: all ranks run the same segments and
+    refactor together, as the whole batch would on one card (a refactor
+    where no local instance drifted recomputes the same factor)."""
+    token = _BATCH_GROUP.set(group)
+    try:
+        yield
+    finally:
+        _BATCH_GROUP.reset(token)
 
 
 def _rho_start(qp: QPData, warm: QPWarmStart, opts: SolverOptions,
@@ -152,8 +187,8 @@ def _factor_inv(Pb, Ab, rho_vec, sigma: float, opts: SolverOptions,
     package."""
     method = opts.factor_method
     if method not in ("chol", "ns", "banded", "banded_cr"):
-        raise NotImplementedError(
-            f"factor_method={method!r} is not ported (only 'chol', 'ns', "
+        raise ValueError(
+            f"unknown factor_method={method!r} (one of 'chol', 'ns', "
             f"'banded', 'banded_cr')")
     if (method in ("banded", "banded_cr") and banded_plan is not None
             and Pb.dim() == Ab.dim() - 1):
@@ -413,7 +448,7 @@ def solve_qp_batched(qp: QPData, warm: QPWarmStart,
     """Solve a batch of QPs (leading batch dimension on every leaf).
     backend "xla": `solve_qp` per instance, as a masked batch; "lanes":
     the lane solver on its CUDA kernels (`solver/lane_admm.py`); "pallas":
-    the natively batched pipeline (`_solve_qp_pallas_batched`) for hard
+    the natively batched pipeline (`pallas_pipeline`) for hard
     QPs, with a diagonal or a dense P.  w_soft: (m,) or (B, m), for "xla" and
     "lanes".  eq_rows: the statically known equality rows (indices into
     the m rows), which "pallas"'s mixed precision modes run in float32
@@ -428,11 +463,11 @@ def solve_qp_batched(qp: QPData, warm: QPWarmStart,
             raise NotImplementedError(
                 "soft rows are supported by the 'xla' and 'lanes' backends; "
                 "the dense ADMM kernel has no shrink prox")
-        return _solve_qp_pallas_batched(qp, warm, opts, banded_plan,
-                                        a_pattern, eq_rows)
+        return run_segments(qp, warm, opts, *pallas_pipeline(
+            qp, opts, banded_plan, a_pattern, eq_rows))
     if opts.backend != "xla":
-        raise NotImplementedError(
-            f"solver backend {opts.backend!r} is not ported")
+        raise ValueError(f"unknown solver backend {opts.backend!r} (one of "
+                         f"'xla', 'lanes', 'pallas')")
     if w_soft is not None and w_soft.dim() == 1:
         w_soft = w_soft.expand(qp.l.shape)
     return _solve_masked(qp, warm, opts, w_soft, banded_plan)
@@ -454,7 +489,8 @@ def run_segments(qp: QPData, warm: QPWarmStart, opts: SolverOptions, D, E,
     JAX package's loops do.  When an instance's adaptive rho drifts and
     another segment follows, the whole batch is refactored (the others
     keep their rho, so their factor does not change).  Between segments
-    two flags are read on the host: one sync per segment but the last.
+    two flags are read on the host: one sync per segment but the last
+    (inside `global_batch`, reduced over its group first).
     `layout` = (to, back) maps the (B, k) iterates to run_iters' layout
     and back.  `is_eq`: the equality rows for the stiff rho (`_rho_start`).
     `bulk` = (n, run): `run(fac, x, z, y)` runs n iterations before the
@@ -496,9 +532,15 @@ def run_segments(qp: QPData, warm: QPWarmStart, opts: SolverOptions, D, E,
             rho_scale = torch.where(drift, pending, rho_scale)
         if seg + 1 == n_seg:
             break
-        all_conv, any_drift = torch.stack(
-            [converged.all(), drift.any()]).tolist()
-        if all_conv:
+        flags = torch.stack([~converged.all(), drift.any()])
+        group = _BATCH_GROUP.get()
+        if group is not None:
+            import torch.distributed as dist
+
+            flags = flags.to(torch.int32)
+            dist.all_reduce(flags, op=dist.ReduceOp.MAX, group=group)
+        some_open, any_drift = (bool(f) for f in flags.tolist())
+        if not some_open:
             break
         if any_drift:
             fac = factor(rho_of(rho_scale))
@@ -509,17 +551,31 @@ def run_segments(qp: QPData, warm: QPWarmStart, opts: SolverOptions, D, E,
         dual_res=r_dual, converged=converged, rho_scale=rho_scale)
 
 
-def _solve_qp_pallas_batched(qp: QPData, warm: QPWarmStart,
-                             opts: SolverOptions, banded_plan=None,
-                             a_pattern=None, eq_rows=None) -> QPSolution:
+def kernel_pipeline(qp: QPData, opts: SolverOptions, banded_plan=None,
+                    a_pattern=None, eq_rows=None, w_soft=None) -> Pipeline:
+    """The pipeline of `opts.backend` ("lanes" or "pallas") for a batch,
+    as `solve_qp_batched` runs it (`run_segments(qp, warm, opts,
+    *pipeline)`); the profiler times its pieces."""
+    if opts.backend == "lanes":
+        from pigeon_tpu_torch.solver.lane_admm import lanes_pipeline
+        return lanes_pipeline(qp, opts, w_soft)
+    if opts.backend == "pallas" and w_soft is None:
+        return pallas_pipeline(qp, opts, banded_plan, a_pattern, eq_rows)
+    raise ValueError(f"backend {opts.backend!r} (soft rows: "
+                     f"{w_soft is not None}) has no kernel pipeline")
+
+
+def pallas_pipeline(qp: QPData, opts: SolverOptions, banded_plan=None,
+                    a_pattern=None, eq_rows=None) -> Pipeline:
     """The natively batched pipeline of the JAX package's "pallas"
-    backend: Ruiz equilibration (`pallas_ruiz.ruiz_batched`), the K^-1 of
-    `_factor_inv` for the whole batch, then `run_segments` with segments
-    of `check_every` iterations through `pallas_admm.admm_iterations`,
-    each with the in-kernel early exit per tile of `opts.pallas_tile`
-    instances, in the mode `opts.pallas_precision`.  On the card the scaled
-    A is packed once per solve into `a_pattern` (the pattern of the batch
-    when None) in the kernel build of that mode and P (`pallas_admm.
+    backend, as the pieces `run_segments` runs: Ruiz equilibration
+    (`pallas_ruiz.ruiz_batched`, run here), the K^-1 of `_factor_inv` for
+    the whole batch, and segments of `check_every` iterations through
+    `pallas_admm.admm_iterations`, each with the in-kernel early exit per
+    tile of `opts.pallas_tile` instances, in the mode
+    `opts.pallas_precision`.  On the card the scaled A is packed once per
+    solve into `a_pattern` (the pattern of the batch when None) in the
+    kernel build of that mode and P (`pallas_admm.
     plan_build`: the sparse QP's narrow build in "highest", its large one
     in the split modes), and the bf16 bulk's in its own.  The kernels
     compute in float32, the rest in the QP's dtype.
@@ -602,7 +658,6 @@ def _solve_qp_pallas_batched(qp: QPData, warm: QPWarmStart,
                 opts.bf16_bulk_iters, bf16=True, ell=_ell_form(
                     kernel_ops[0], mode="bf16", dense_P=dense_P,
                     shared=ell))))
-    return run_segments(qp, warm, opts, D, E, c, factor,
-                        run(opts.check_every,
-                            precision=opts.pallas_precision),
-                        layout=(f32, lambda v: v), is_eq=is_eq, bulk=bulk)
+    return Pipeline(D, E, c, factor,
+                    run(opts.check_every, precision=opts.pallas_precision),
+                    layout=(f32, lambda v: v), is_eq=is_eq, bulk=bulk)

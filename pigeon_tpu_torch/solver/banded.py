@@ -18,7 +18,9 @@ substitution against the identity (W = L^-1) and K^-1 = W'W.
   gathers, the recursion, the forward substitution and W'W as batched
   matmuls, and the un-permutation; with method "cr" block cyclic
   reduction of K X = I (`solve_block_tridiag_cr`, batched torch ops, as
-  the JAX package runs it as XLA code) and one Newton polish.
+  the JAX package runs it as XLA code) and one Newton polish; with
+  `tp_axis` the identity's columns split over the members of a mesh
+  axis and re-assembled by all_gather (`parallel/shard.py`).
 
 Full float32 is required throughout: K's condition (the rho_eq = 1e3 rho
 equality rows) amplifies matmul error into K^-1, and the JAX package
@@ -280,12 +282,23 @@ def factor_inv_banded(Pb, Ab, rho_vec, sigma: float, slots, n: int,
     method "cr": block cyclic reduction of K X = I
     (`solve_block_tridiag_cr`, torch ops on any device) and one Newton
     polish X <- X (2I - K X), which the JAX package adds because the
-    log-depth elimination compounds float32 rounding across levels."""
-    if tp_axis is not None:
-        raise NotImplementedError(
-            "the tensor-parallel banded factor (tp_axis) is not ported")
+    log-depth elimination compounds float32 rounding across levels.
+
+    `tp_axis`: the name of a mesh axis bound by `parallel.shard.axis_env`
+    (`make_sharded_step` binds "tp"; unbound: NameError, as in JAX).  The
+    members of that axis hold the same instances and split the identity's
+    columns: each solves the forward substitution for its n_perm / tp
+    columns (ValueError when tp does not divide n_perm, which JAX leaves
+    unchecked), W is all-gathered along its columns, each forms its block
+    W' W_shard of K^-1 and the blocks are all-gathered.  The stage factors
+    come from `chol_factor` as without it.  Every member takes the same
+    host decisions after the factor, since it holds the same K^-1 bits.
+    With method "cr" it raises NotImplementedError, as in JAX."""
     if method not in ("scan", "cr"):
         raise ValueError(f"unknown banded factor method {method!r}")
+    if method == "cr" and tp_axis is not None:
+        raise NotImplementedError(
+            "cyclic-reduction factor does not compose with tp_axis")
     B = Pb.shape[0]
     like = dict(dtype=Pb.dtype, device=Pb.device)
     slots_t = torch.as_tensor(np.asarray(slots, np.int64), device=Pb.device)
@@ -312,18 +325,55 @@ def factor_inv_banded(Pb, Ab, rho_vec, sigma: float, slots, n: int,
         K_dense = K_full + torch.diag_embed(Pb + sigma)
         return Kinv @ (2.0 * torch.eye(n, **like) - K_dense @ Kinv)
 
+    tp = None
+    if tp_axis is not None:
+        tp = _tp_member(tp_axis, n_perm)
+        # this member's column slice of the identity
+        eye = eye[:, tp[2] * tp[3]:(tp[2] + 1) * tp[3]]
     factor = chol_factor if kernel else chol_factor_plain
     Linvs, Ss = factor(K_diag.contiguous(), K_sub.contiguous())
 
     # forward substitution against the identity: y_t = Linv_t (I_t -
     # S_t y_{t-1}); the stacked y is W = L^-1 and K^-1 = W'W
-    y = torch.zeros((B, bw, n_perm), **like)
+    y = torch.zeros((B, bw, eye.shape[-1]), **like)
     ys = []
     for t in range(nb):
         y = Linvs[:, t] @ (eye[t * bw:(t + 1) * bw] - Ss[:, t] @ y)
         ys.append(y)
-    W = torch.stack(ys, dim=1).reshape(B, n_perm, n_perm)
-    return _unpermute(W.transpose(-1, -2) @ W, slots, n)
+    W = torch.stack(ys, dim=1).reshape(B, n_perm, eye.shape[-1])
+    if tp is None:
+        return _unpermute(W.transpose(-1, -2) @ W, slots, n)
+    # tensor parallel: the whole W on every member, each its own K^-1
+    # column block W' W_shard, the blocks re-assembled; every member of
+    # the group holds the same K^-1 bits afterwards
+    W_full = _gather_columns(W, *tp[:2])
+    Kinv_perm = _gather_columns(W_full.transpose(-1, -2) @ W, *tp[:2])
+    return _unpermute(Kinv_perm, slots, n)
+
+
+def _tp_member(tp_axis: str, n_perm: int):
+    """(group, size, index, columns) of this rank's member of the named
+    tp axis (bound by `parallel.shard.axis_env`); the size must divide
+    the permuted width (ValueError)."""
+    import torch.distributed as dist
+
+    from pigeon_tpu_torch.parallel.shard import axis_group
+
+    group = axis_group(tp_axis)
+    size = dist.get_world_size(group)
+    if n_perm % size:
+        raise ValueError(f"tp={size} does not divide the banded factor's "
+                         f"permuted width {n_perm}")
+    return group, size, dist.get_rank(group), n_perm // size
+
+
+def _gather_columns(X, group, size: int):
+    """The members' (B, r, c) column blocks side by side, (B, r, size c),
+    in member order (gathered along a leading axis, then permuted)."""
+    from pigeon_tpu_torch.parallel.mesh import gather_leading
+
+    parts = gather_leading(X, group, size)          # (size, B, r, c)
+    return parts.permute(1, 2, 0, 3).reshape(X.shape[0], X.shape[1], -1)
 
 
 def _unpermute(Kinv_perm, slots, n: int):

@@ -32,8 +32,8 @@ import torch
 
 from pigeon_tpu_torch import _kernels
 from pigeon_tpu_torch.config import SolverOptions
-from pigeon_tpu_torch.solver.admm import (QPData, QPSolution, QPWarmStart,
-                                          ruiz, run_segments)
+from pigeon_tpu_torch.solver.admm import (Pipeline, QPData, QPSolution,
+                                          QPWarmStart, ruiz, run_segments)
 
 # Instances per early-exit group.  This is semantics, not tiling: the TPU
 # kernel stops a 128-lane block only when all of its lanes have converged,
@@ -292,6 +292,13 @@ def solve_lanes_batched(qp: QPData, warm: QPWarmStart, opts: SolverOptions,
     every `opts.pallas_check_inner` iterations, OSQP adaptive rho with a
     refactor only when another segment follows) on the lane kernels.  A
     one-segment solve (max_iter == check_every) needs no host sync."""
+    return run_segments(qp, warm, opts, *lanes_pipeline(qp, opts, w_soft))
+
+
+def lanes_pipeline(qp: QPData, opts: SolverOptions, w_soft=None) -> Pipeline:
+    """The lane solver's pieces for `admm.run_segments`: the Ruiz scalings
+    (run here), the operands in lane layouts, `factor` (K by an einsum,
+    K^-1 on `chol_inverse`) and the segment on `admm_iterations`."""
     dtype = qp.q.dtype
     B, n = qp.q.shape
     m = qp.l.shape[-1]
@@ -342,5 +349,5 @@ def solve_lanes_batched(qp: QPData, warm: QPWarmStart, opts: SolverOptions,
             eps_abs=float(opts.eps_abs), eps_rel=float(opts.eps_rel))
         return x_l, z_l, y_l, stats.T
 
-    return run_segments(qp, warm, opts, D, E, c, factor, run_iters,
-                        layout=(_lane_vec, lambda v: v.T))
+    return Pipeline(D, E, c, factor, run_iters,
+                    layout=(_lane_vec, lambda v: v.T))

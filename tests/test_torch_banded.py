@@ -143,9 +143,12 @@ def test_solver_factor_banded_matches_chol(scaled):
 
 
 def test_unported_factor_options_raise(scaled):
+    """A tp axis name outside a sharded step is unbound (NameError, as
+    JAX raises; tests/test_torch_banded_tp.py runs the bound axis on a
+    gloo world); an unknown method is a ValueError."""
     Pb, Ab, rho = scaled["Pb"], scaled["Ab"], scaled["rho"]
     slots, n, bw, nb = scaled["plan"]
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NameError, match="unbound axis name: tp"):
         TB.factor_inv_banded(Pb, Ab, rho, SIGMA, slots, n, bw, nb,
                              tp_axis="tp")
     with pytest.raises(ValueError):

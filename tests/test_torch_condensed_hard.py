@@ -221,5 +221,5 @@ def test_factor_falls_through_to_chol(assembled, method):
         + 1e-6 * torch.eye(Pb.shape[-1], dtype=F64)
     eye = torch.eye(Pb.shape[-1], dtype=F64)
     assert float((K @ chol - eye).abs().max()) < 1e-6
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="unknown factor_method"):
         TA._factor_inv(Pb, Ab, rho, 1e-6, TSO(factor_method="lu"))

@@ -271,7 +271,16 @@ def test_rollout_other_car_advances():
 
 
 def test_mesh_is_not_ported():
+    """`mesh=` without an initialised process group raises a clear error
+    (tests/test_torch_mesh.py runs the mesh on a gloo world), in the
+    controller and in the Monte-Carlo engine."""
     tube = TT.straight_trajectory(80.0, 6.0, pad_to=32, device="cpu")
-    with pytest.raises(NotImplementedError, match="A6"):
+    with pytest.raises(RuntimeError, match="init_process_group"):
         BatchedController(TM.x1_coupled_config(soft=True), tube,
                           mesh=object())
+    scen = TMC.ScenarioSet(q0=t64([[0.0, 10.0, 0.0, 6.0, 0.0, 0.0]]),
+                           other0=t64([[0.0, 50.0, np.pi, 5.0]]),
+                           t0=t64([0.0]))
+    with pytest.raises(RuntimeError, match="init_process_group"):
+        TMC.run_dynamic_obstacle(TM.x1_coupled_config(soft=True), tube,
+                                 None, scen, n_steps=1, mesh=object())
